@@ -1,0 +1,553 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py    # needs one CUDA card
+
+Phases:
+
+0. Device and build: the card's name and power limit, torch and CUDA
+   versions, TF32 off, and the build of every CUDA kernel of the port
+   (``nvcc`` for ``sm_90a``, one process per source, in parallel).
+1. Kernels against their plain torch versions, on the card, at the
+   serving path's shapes on random inputs from a numpy seed: outputs
+   must be equal bit for bit (all three kernels return integers).  Each
+   kernel's median time, its plain version's time, a library yardstick
+   where one PyTorch call computes the same function, and its bound: the
+   larger of its bytes over the memory rate and its operations over the
+   scalar rate.
+2. Serve: a 1.1M-vertex user-item graph (``make_recsys`` with 2**20
+   users), the GCN at full width (in 64, hidden 256, 16 classes, two
+   layers) with weights from a numpy seed, and a 500-request Poisson
+   trace at 4000 requests/s through ``repro_torch.serve.GNNServer``
+   with ``plan_backend="fused"`` and the device cache on.  The launch
+   counters are zeroed right before and read right after; every kernel
+   must have launched.  The same trace through a ``device="cpu"``
+   server (the plain path) must give identical integer accounting, every
+   batch's plan entries equal bit for bit, and logits within
+   ``atol=1e-4``; the first 32 requests served one at a
+   time must agree with their coalesced logits.  Then, on the measured
+   clock (each batch's wall time), the same trace, which overloads the
+   server so its tails grow with the trace's length, and a 4000-request
+   trace at 1000 requests/s, which it keeps up with: latencies, wall ms
+   per batch and the server's own split of it into plan build, feature
+   gather and forward.  Last, a profile of one served trace: the device
+   idle share, the top kernels, and the host time in the LABOR variates
+   and the CLOCK access (profiler spans).
+
+The second-to-last line of output is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
+phase exits non-zero without that line.  Without a CUDA device, or
+without the rest of the repository next to this file, it exits 1.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate, NVIDIA data sheet
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
+# published peak nearest the kernels' 32-bit integer compares and adds
+SCALAR_OPS_PER_S = 67e12
+ATOL = 1e-4
+STEADY_REQUESTS, STEADY_RPS = 4000, 1000.0
+SPANS = ("rng.vertex_uniform", "store.clock_access")
+KERNELS = {
+    "frontier_gather": {
+        "source": "src/repro_torch/kernels/frontier_gather/frontier_gather.cu",
+        "replaces": "src/repro/kernels/frontier_gather/kernel.py:61",
+    },
+    "unique_compact": {
+        "source": "src/repro_torch/kernels/unique_compact/unique_compact.cu",
+        "replaces": "src/repro/kernels/unique_compact/kernel.py:89",
+    },
+    "tag_probe": {
+        "source": "src/repro_torch/store/tag_probe.cu",
+        "replaces": "src/repro/store/kernel.py:63",
+    },
+}
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Median time of one call between CUDA events recorded around it on the
+    stream: device time plus any host gap inside the call (launch latency)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events (no host gaps)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (calls * replays)
+
+
+def cuda_kernel_us(prof) -> list:
+    """(device us, calls, name) of every CUDA kernel/copy in a profile; the
+    device-side ranges of ``record_function`` spans are not kernels."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        span = getattr(ev, "is_user_annotation", False) or ev.key in SPANS
+        if ev.device_type == DeviceType.CUDA and not span:
+            us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+            rows.append((us, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time of one call that cannot be graph-captured (it syncs):
+    its CUDA kernels summed from a torch.profiler trace, None if empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(us for us, _, _ in cuda_kernel_us(prof))
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
+def timings(fn, plain, library=None) -> dict:
+    """Device time (CUDA graph replay) and per-call event time of the
+    kernel and its plain version; a library yardstick, which syncs, gets
+    its profiled device time and its event time."""
+    out = {"ms": graph_ms(fn), "event_ms": event_ms(fn),
+           "plain_ms": graph_ms(plain), "plain_event_ms": event_ms(plain),
+           "library_ms": None, "library_event_ms": None}
+    if library is not None:
+        out["library_ms"] = device_ms(library)
+        out["library_event_ms"] = event_ms(library)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 0
+# --------------------------------------------------------------------------
+def phase0() -> dict:
+    import torch
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"kernel build: {build_s:.1f} s for {sorted(paths)} into {_build.BUILD_DIR}")
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
+    check(set(paths) == set(KERNELS), f"built {sorted(paths)}, want {sorted(KERNELS)}")
+    return {"card": card, "build_s": build_s}
+
+
+# --------------------------------------------------------------------------
+# phase 1
+# --------------------------------------------------------------------------
+def max_abs_err(got, want) -> int:
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def phase1(ds, caps, cache_rows: int) -> dict:
+    """Each kernel against its plain version at the serving shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import INVALID
+    from repro_torch.kernels.frontier_gather import frontier_gather_cuda, frontier_gather_ref
+    from repro_torch.kernels.unique_compact import unique_compact_cuda, unique_compact_sorted_ref
+    from repro_torch.store import hash_set, probe_ref, tag_probe_cuda
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    g = ds.graph
+    V, D = g.num_vertices, g.max_degree
+    out = {}
+
+    # frontier_gather at the bucket-64 frontiers (caps[0], caps[1]) x max_degree
+    rows = []
+    for n in caps[:-1]:
+        seeds = rng.choice(V, size=n, replace=False).astype(np.int32)
+        seeds[rng.random(n) < 0.1] = INVALID
+        s = torch.from_numpy(np.sort(seeds)).to(dev)
+        got = frontier_gather_cuda(g.indptr, g.indices, s, D)
+        want, _ = frontier_gather_ref(g.indptr, g.indices, s, D)
+        err = int((got != want).sum())
+        check(err == 0, f"frontier_gather n={n}: {err} entries differ from plain")
+        mae = max_abs_err(got, want)
+        valid = s != INVALID
+        sv = s[valid].long()
+        deg = (g.indptr[sv + 1] - g.indptr[sv]).clamp(max=D)
+        nbytes = 4 * n + 8 * int(valid.sum()) + 4 * int(deg.sum()) + 4 * n * D
+        # per seed: the INVALID test and the degree; per slot: k < deg and off + k
+        ops = 2 * n + 2 * n * D
+        rows.append(dict(
+            shape=f"n={n} D={D}", bytes=nbytes, ops=ops, max_abs_err=mae,
+            **timings(lambda: frontier_gather_cuda(g.indptr, g.indices, s, D),
+                      lambda: frontier_gather_ref(g.indptr, g.indices, s, D)),
+        ))
+    out["frontier_gather"] = rows
+
+    # unique_compact at m = cap_l * (1 + max_degree) sorted ids, cap = cap_{l+1}
+    rows = []
+    for l in range(len(caps) - 1):
+        m, cap = caps[l] * (1 + D), caps[l + 1]
+        ids = rng.integers(0, V, size=m).astype(np.int32)
+        ids[rng.random(m) < 0.5] = INVALID          # masked neighbor slots
+        ids[: m // 4] = ids[rng.integers(0, m // 4, m // 4)]  # shared neighbors
+        s, _ = torch.sort(torch.from_numpy(ids).to(dev))
+        inv, uniq = unique_compact_cuda(s, cap)
+        inv_r, uniq_r = unique_compact_sorted_ref(s, cap)
+        err = int((inv != inv_r).sum() + (uniq != uniq_r).sum())
+        check(err == 0, f"unique_compact m={m} cap={cap}: {err} entries differ")
+        mae = max(max_abs_err(inv, inv_r), max_abs_err(uniq, uniq_r))
+        # per id: first-occurrence test, scan add, rank < cap, id != INVALID
+        rows.append(dict(
+            shape=f"m={m} cap={cap}", bytes=4 * m + 4 * m + 4 * cap, ops=4 * m,
+            max_abs_err=mae,
+            **timings(lambda: unique_compact_cuda(s, cap),
+                      lambda: unique_compact_sorted_ref(s, cap),
+                      lambda: torch.unique(s, sorted=True, return_inverse=True)),
+        ))
+    out["unique_compact"] = rows
+
+    # tag_probe at n = the unique ids of one batch, S = capacity / 8, W = 8
+    W = 8
+    S = cache_rows // W
+    n = caps[-1]
+    tags = rng.integers(0, V, size=(S, W)).astype(np.int32)
+    tags[rng.random((S, W)) < 0.3] = INVALID
+    ids = np.unique(rng.integers(0, V, size=n).astype(np.int32))
+    ids_t = torch.from_numpy(ids).to(dev)
+    sets = hash_set(ids_t, S)
+    tags_np = tags.copy()
+    sets_np = sets.cpu().numpy()
+    hit = rng.random(len(ids)) < 0.5
+    tags_np[sets_np[hit], rng.integers(0, W, hit.sum())] = ids[hit]
+    tags_t = torch.from_numpy(tags_np).to(dev)
+    got = tag_probe_cuda(tags_t, sets, ids_t)
+    want = probe_ref(tags_t, sets, ids_t)
+    err = int((got != want).sum())
+    check(err == 0, f"tag_probe n={len(ids)}: {err} entries differ from plain")
+    nbytes = 4 * len(ids) * 3 + 4 * W * int(torch.unique(sets).numel())
+    # per id: the row address, then one compare per way up to the first match
+    ops = len(ids) + int(torch.where(want >= 0, want + 1, W).sum())
+    out["tag_probe"] = [dict(
+        shape=f"n={len(ids)} S={S} W={W}", bytes=nbytes, ops=ops,
+        max_abs_err=max_abs_err(got, want),
+        **timings(lambda: tag_probe_cuda(tags_t, sets, ids_t),
+                  lambda: probe_ref(tags_t, sets, ids_t)),
+    )]
+
+    for name, rows in out.items():
+        for r in rows:
+            bytes_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+            ops_ms = 1e3 * r["ops"] / SCALAR_OPS_PER_S
+            r["bound_ms"] = max(bytes_ms, ops_ms)
+            r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+            print(f"phase1 {name} [{r['shape']}]: equal bit for bit; device ms "
+                  f"kernel {r['ms']:.5f} plain {r['plain_ms']:.5f} library "
+                  f"{r['library_ms']}; event ms kernel {r['event_ms']:.5f} plain "
+                  f"{r['plain_event_ms']:.5f} library {r['library_event_ms']}; "
+                  f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (bytes "
+                  f"{r['bytes']}, ops {r['ops']})")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 2
+# --------------------------------------------------------------------------
+def make_model(gnn_cfg, device):
+    """GCN with glorot-uniform weights from a numpy seed (JAX layout)."""
+    import numpy as np
+    from repro_torch.models.gnn import params_from_jax
+
+    rng = np.random.default_rng(SEED)
+    layers = []
+    for l in range(gnn_cfg.num_layers):
+        d_in, d_out = gnn_cfg.dims(l)
+        lim = np.sqrt(6.0 / (d_in + d_out))
+        layers.append({
+            "w": rng.uniform(-lim, lim, (d_in, d_out)).astype(np.float32),
+            "b": np.zeros((d_out,), np.float32),
+        })
+    return params_from_jax({"layers": layers}, gnn_cfg, device=device)
+
+
+def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import GNNServer, poisson_trace
+
+    server = GNNServer(ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cuda"),
+                       serve_cfg, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = server.serve_trace(trace)
+    gpu_s = time.perf_counter() - t0
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    print(f"phase2 card serve: {len(rep.batches)} batches in {gpu_s:.2f} s; "
+          f"launches {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the serving path")
+
+    cpu = GNNServer(ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cpu"),
+                    serve_cfg, device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu.serve_trace(trace)
+    print(f"phase2 cpu serve (plain path): {time.perf_counter() - t0:.2f} s")
+    acct = lambda r: (r.fetched_rows, r.requested_rows, r.cache_hits)
+    print(f"phase2 accounting card {acct(rep)} cpu {acct(ref)}")
+    check(acct(rep) == acct(ref), "fetched/requested/hits differ from the CPU run")
+    check(len(rep.batches) == len(ref.batches), "batch count differs from the CPU run")
+    fields = ("bucket", "num_requests", "num_unique", "edges", "fetched_rows")
+    for a, b in zip(rep.batches, ref.batches):
+        va, vb = [getattr(a, f) for f in fields], [getattr(b, f) for f in fields]
+        check(va == vb, f"batch {a.index}: card {va} != cpu {vb} ({fields})")
+    plan_entries, plan_diff = compare_plans(server, cpu, rep)
+    print(f"phase2 plan leaves card vs cpu: {plan_entries} entries over "
+          f"{len(rep.batches)} batches, {plan_diff} differ")
+    check(plan_diff == 0, f"{plan_diff} plan entries differ from the CPU build")
+    by_rid = {s.request.rid: s.pred for s in ref.served}
+    preds = np.stack([s.pred for s in rep.served])
+    check(preds.shape == (len(trace), gnn_cfg.num_classes), f"logits shape {preds.shape}")
+    check(bool(np.isfinite(preds).all()), "non-finite logits")
+    err = max(float(np.abs(s.pred - by_rid[s.request.rid]).max()) for s in rep.served)
+    print(f"phase2 logits card vs cpu: max abs diff {err:.3e} (atol {ATOL})")
+    check(err <= ATOL, f"logits differ from the CPU run by {err}")
+
+    coalesced = {s.request.rid: s.pred for s in rep.served}
+    server.reset()
+    single = server.serve_independent(trace[:32])
+    err1 = max(float(np.abs(s.pred - coalesced[s.request.rid]).max()) for s in single.served)
+    print(f"phase2 per-request vs coalesced (32 requests, card): max abs diff {err1:.3e}")
+    check(err1 <= ATOL, f"per-request logits differ from coalesced by {err1}")
+
+    measured = GNNServer(
+        ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cuda"),
+        dataclasses.replace(serve_cfg, service_model="measured"), device="cuda",
+    )
+    measured.serve_trace(trace[:64])  # warm-up: allocator, cuBLAS handles
+    measured.reset()
+    report_measured("overload: 500 requests at 4000 rps", measured, trace)
+    measured.reset()
+    steady = poisson_trace(STEADY_REQUESTS, STEADY_RPS, ds.user_ids, seed=SEED + 1)
+    report_measured(f"steady: {STEADY_REQUESTS} requests at {STEADY_RPS:.0f} rps",
+                    measured, steady)
+    profile_serve(measured, trace)
+    return {"launches": launches, "logit_err": err}
+
+
+def compare_plans(card, cpu, report) -> tuple[int, int]:
+    """Rebuild every served batch's plan on the card and on the CPU and
+    count the integer plan entries that differ (seeds, self_idx, nbr_idx,
+    mask of every layer, and the input frontier)."""
+    groups: dict[int, list] = {}
+    for s in report.served:
+        groups.setdefault(s.batch_index, []).append(s.request)
+    entries = differ = 0
+    for _, reqs in sorted(groups.items()):
+        plans = []
+        for server in (card, cpu):
+            plans.append(server.coalescer.build_plan(server.coalescer.coalesce(reqs, 0.0)))
+        for a, b in zip(*(
+            [t for layer in p.layers
+             for t in (layer.seeds, layer.self_idx, layer.nbr_idx, layer.mask)]
+            + [p.input_ids] for p in plans
+        )):
+            entries += a.numel()
+            differ += int((a.cpu() != b).sum())
+    return entries, differ
+
+
+def report_measured(label, server, trace) -> None:
+    """Serve ``trace`` on the measured clock and print its latencies, wall
+    ms per batch and the server's own stage split of that wall time."""
+    import numpy as np
+
+    rep = server.serve_trace(trace)
+    summary = rep.summary()
+    col = lambda f: np.asarray([getattr(b, f) for b in rep.batches])
+    walls = col("wall_ms")
+    stages = ", ".join(f"{f[:-3]} {float(col(f).mean()):.3f}"
+                       for f in ("plan_ms", "gather_ms", "forward_ms"))
+    lat = rep.latencies_ms()[np.argsort([s.request.t_arrival for s in rep.served])]
+    half = len(lat) // 2
+    print(f"phase2 measured, {label}: p50 {summary['p50_ms']} ms p95 "
+          f"{summary['p95_ms']} ms p99 {summary['p99_ms']} ms; p50 of the first / "
+          f"second half of arrivals {float(np.median(lat[:half])):.3f} / "
+          f"{float(np.median(lat[half:])):.3f} ms; wall per batch median "
+          f"{float(np.median(walls)):.3f} ms mean {float(walls.mean()):.3f} ms over "
+          f"{len(walls)} batches (mean batch {summary['mean_batch']} requests); "
+          f"stage means ms per batch: {stages} (sum {float(walls.mean()):.3f}); "
+          f"cache hit rate {server.tiered.hit_rate:.4f}; throughput "
+          f"{summary['throughput_rps']} rps")
+
+
+def profile_serve(server, trace) -> None:
+    """Where the time goes in one served trace: device busy share of the
+    wall clock, the kernels that take it (torch.profiler, CUPTI), and the
+    host time inside the port's two profiler spans, beside the stage that
+    holds each (all with the profiler's own overhead)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    server.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rep = server.serve_trace(trace)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    stats = cuda_kernel_us(prof)
+    busy_ms = sum(d for d, _, _ in stats) / 1e3
+    nb = len(rep.batches)
+    plan_ms = sum(b.plan_ms for b in rep.batches) / nb
+    gather_ms = sum(b.gather_ms for b in rep.batches) / nb
+    spans = {ev.key: ev.cpu_time_total / 1e3 / nb for ev in prof.key_averages()
+             if ev.key in SPANS and ev.device_type == DeviceType.CPU}
+    print(f"phase2 profile (profiler on): wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; host ms per "
+          f"batch: plan {plan_ms:.3f}, of it rng.vertex_uniform "
+          f"{spans.get(SPANS[0], 0.0):.3f}; gather {gather_ms:.3f}, of it "
+          f"store.clock_access {spans.get(SPANS[1], 0.0):.3f}")
+    for dev_us, count, key in stats[:12]:
+        print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError:
+        print(f"chip_smoke: repro_torch not found under {ROOT / 'src'}; run from "
+              "a checkout of the repository", file=sys.stderr)
+        return 1
+    try:
+        from repro_torch.core.minibatch import CapacityPlan
+        from repro_torch.data import make_recsys
+        from repro_torch.models.gnn import GNNConfig
+        from repro_torch.serve import ServeConfig, poisson_trace
+
+        info = phase0()
+        t0 = time.perf_counter()
+        ds = make_recsys(num_users=2**20, num_items=2**16, edges_per_user=8,
+                         feature_dim=64, max_degree=64, seed=SEED, device="cuda")
+        g = ds.graph
+        print(f"recsys graph: V={g.num_vertices} E={g.num_edges} "
+              f"max_degree={g.max_degree} features {ds.features.shape} "
+              f"({ds.features.nbytes / 1e6:.0f} MB host) in {time.perf_counter() - t0:.1f} s")
+        serve_cfg = ServeConfig(plan_backend="fused", use_cache=True)
+        caps = CapacityPlan.geometric(
+            serve_cfg.max_batch, serve_cfg.num_layers, serve_cfg.fanout, g.num_vertices
+        ).caps
+        cache_rows = max(serve_cfg.cache_ways, g.num_vertices // 4)
+        cache_rows -= cache_rows % serve_cfg.cache_ways
+        k = phase1(ds, caps, cache_rows)
+        gnn_cfg = GNNConfig(model="gcn", num_layers=serve_cfg.num_layers,
+                            in_dim=64, hidden_dim=256, num_classes=16)
+        trace = poisson_trace(500, 4000.0, ds.user_ids, seed=SEED)
+        launches = phase2(ds, gnn_cfg, serve_cfg, trace)["launches"]
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    kernels = []
+    for name, meta in KERNELS.items():
+        r = max(k[name], key=lambda row: row["bytes"])  # the largest serving shape
+        kernels.append({
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "event_ms": r["event_ms"], "plain_event_ms": r["plain_event_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

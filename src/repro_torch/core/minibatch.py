@@ -1,0 +1,127 @@
+"""Independent minibatching (port of ``repro.core.minibatch``).
+
+Builds an L-layer ``Minibatch`` plan from a seed frontier: frontiers
+``S^0 ⊂ S^1 ⊂ ... ⊂ S^L`` (self-inclusive), one padded bipartite block
+per layer with neighbor indices resolved *into the next frontier*, so the
+forward pass is pure gathers.  Capacities come from :class:`CapacityPlan`
+exactly as in the JAX package, so plan shapes match leaf by leaf.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.core import frontier
+from repro_torch.core.graph import INVALID, Graph
+from repro_torch.core.rng import DependentRNG
+from repro_torch.core.samplers.base import Sampler
+
+
+@dataclass(frozen=True)
+class MinibatchLayer:
+    """Bipartite block S~^{l+1} -> S^l with indices into frontier l+1."""
+
+    seeds: torch.Tensor          # (cap_l,) dst vertex ids (= S^l), sorted+padded
+    self_idx: torch.Tensor       # (cap_l,) position of each seed in S^{l+1}
+    nbr_idx: torch.Tensor        # (cap_l, w) positions of sampled srcs in S^{l+1}
+    mask: torch.Tensor           # (cap_l, w)
+    etypes: Optional[torch.Tensor]  # (cap_l, w) relation ids or None
+
+
+@dataclass(frozen=True)
+class Minibatch:
+    """L-layer plan; ``input_ids`` = S^L (the vertices whose features load)."""
+
+    layers: tuple[MinibatchLayer, ...]
+    input_ids: torch.Tensor  # (cap_L,)
+    seed_ids: torch.Tensor   # (cap_0,) = layers[0].seeds
+
+    def gather_inputs(self, store) -> torch.Tensor:
+        """Input-layer embeddings from a :class:`FeatureStore`-like object."""
+        return store.gather(self.input_ids)
+
+    def stats(self) -> dict:
+        """Per-layer counts: S{l}, E{l}, inputs, comm{l+1} (= 0).
+
+        One host transfer for all counts.
+        """
+        counts = [(layer.seeds != INVALID).sum() for layer in self.layers]
+        counts += [layer.mask.sum() for layer in self.layers]
+        counts.append((self.input_ids != INVALID).sum())
+        vals = torch.stack(counts).tolist()
+        L = len(self.layers)
+        out = {}
+        for l in range(L):
+            out[f"S{l}"] = int(vals[l])
+            out[f"E{l}"] = int(vals[L + l])
+            out[f"comm{l+1}"] = 0  # independent mode never communicates
+        out[f"S{L}"] = int(vals[2 * L])
+        out["inputs"] = out[f"S{L}"]
+        return out
+
+
+@dataclass(frozen=True)
+class CapacityPlan:
+    """Frontier capacities cap_0..cap_L (geometric bound, Thm 3.2)."""
+
+    caps: tuple[int, ...]
+
+    @staticmethod
+    def geometric(
+        batch_size: int,
+        num_layers: int,
+        fanout: int,
+        num_vertices: int,
+        safety: float = 1.25,
+        round_to: int = 8,
+    ) -> "CapacityPlan":
+        caps = [batch_size]
+        for _ in range(num_layers):
+            nxt = min(int(caps[-1] * (fanout + 1) * safety), num_vertices)
+            nxt = -(-nxt // round_to) * round_to
+            caps.append(nxt)
+        return CapacityPlan(tuple(caps))
+
+    def __getitem__(self, l: int) -> int:
+        return self.caps[l]
+
+
+def build_minibatch(
+    graph: Graph,
+    sampler: Sampler,
+    seeds: torch.Tensor,
+    rng: DependentRNG,
+    num_layers: int,
+    caps: CapacityPlan,
+    backend: str = "reference",
+) -> Minibatch:
+    """Sample an L-layer minibatch plan (independent path).
+
+    ``backend="reference"`` is the plain torch sort/searchsorted algebra;
+    ``"fused"`` routes dedup + rank resolution through the
+    ``unique_compact`` kernel and the neighbor expansion through
+    ``frontier_gather`` (on CUDA tensors).  Outputs are bit-identical.
+    """
+    frontier._check_backend(backend)
+    S_l = frontier.unique_compact(seeds, caps[0], backend=backend)
+    layers = []
+    for l in range(num_layers):
+        ls = sampler.sample_layer(graph, S_l, rng, l)
+        cat = torch.cat([S_l, ls.nbr.reshape(-1)])
+        S_next, inv = frontier.unique_with_inverse(cat, caps[l + 1], backend=backend)
+        n = S_l.shape[0]
+        self_idx = inv[:n]
+        nbr_idx = inv[n:].reshape(ls.nbr.shape)
+        layers.append(
+            MinibatchLayer(
+                seeds=S_l,
+                self_idx=self_idx,
+                nbr_idx=nbr_idx,
+                mask=ls.mask & (nbr_idx >= 0),
+                etypes=ls.etypes,
+            )
+        )
+        S_l = S_next
+    return Minibatch(layers=tuple(layers), input_ids=S_l, seed_ids=layers[0].seeds)

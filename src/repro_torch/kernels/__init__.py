@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels of the port (Hopper, ``sm_90a``).
+
+Each kernel ships as a ``.cu`` source with a plain C interface, an
+``ops.py`` wrapper (plain torch version for CPU tensors, the kernel for
+CUDA tensors, a launch counter) and a ``ref.py`` plain version.  The
+build lives in :mod:`repro_torch.kernels._build`.
+
+Ported so far (TPU kernel it replaces in brackets):
+
+* ``frontier_gather`` -- masked CSR neighbor expansion
+  [``repro/kernels/frontier_gather/kernel.py``];
+* ``unique_compact``  -- frontier dedup + rank resolution after a sort
+  [``repro/kernels/unique_compact/kernel.py``];
+* ``tag_probe``       -- device cache tag lookup, in
+  :mod:`repro_torch.store.kernel` [``repro/store/kernel.py``].
+"""
+from repro_torch.kernels._build import LAUNCHES, reset_launches
+from repro_torch.kernels.frontier_gather.ops import frontier_gather
+from repro_torch.kernels.unique_compact.ops import unique_compact, unique_with_inverse
+
+__all__ = [
+    "LAUNCHES", "frontier_gather", "reset_launches", "unique_compact",
+    "unique_with_inverse",
+]

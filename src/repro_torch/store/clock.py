@@ -1,0 +1,183 @@
+"""Device-resident set-associative CLOCK cache (port of ``repro.store.clock``).
+
+Layout: ``capacity = num_sets * ways`` slots per PE.  A vertex id hashes
+to one set (Knuth multiplicative hash); within the set, ways are managed
+by a clock hand over reference bits.  A batch access:
+
+1. dedups the batch (:func:`unique_rows`),
+2. probes all ids against the tag array in one launch
+   (:func:`repro_torch.store.kernel.tag_probe` -- the CUDA kernel),
+3. sets the reference bit of every hit,
+4. inserts misses round by round (at most one insert per set per round,
+   ``ways`` rounds), each round running CLOCK victim selection
+   vectorized across all sets.
+
+State tensors carry a leading ``(P, ...)`` PE axis.  Unlike the JAX
+package, an access returns new tensors for the changed leaves and
+leaves the old state untouched, so callers may keep both.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.graph import INVALID
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.store.kernel import tag_probe
+
+_HASH_MULT = 2654435761  # Knuth multiplicative hashing
+
+
+class ClockState(NamedTuple):
+    """Per-PE cache state; every leaf has a leading ``(P, ...)`` axis."""
+
+    tags: torch.Tensor       # (P, S, W) int32 resident vertex id, INVALID = empty
+    ref: torch.Tensor        # (P, S, W) bool CLOCK reference bits
+    hand: torch.Tensor       # (P, S) int32 clock hand per set
+    hits: torch.Tensor       # (P,) int32
+    misses: torch.Tensor     # (P,) int32
+    requested: torch.Tensor  # (P,) int32 unique valid ids seen (count_fetched)
+
+
+class ClockAccess(NamedTuple):
+    """Per-unique-id outcome of one batched access."""
+
+    uniq: torch.Tensor       # (P, n) sorted unique ids, INVALID-padded
+    hit: torch.Tensor        # (P, n) bool -- resident before this batch
+    slot: torch.Tensor       # (P, n) int32 flat slot of hits, -1 otherwise
+    fill_slot: torch.Tensor  # (P, n) int32 slot a missed row was admitted to,
+                             #         -1 if dropped (set conflict overflow)
+
+
+def clock_init(
+    capacity: int, ways: int = 8, num_pes: int = 1, device: DeviceLike = None
+) -> ClockState:
+    """Empty cache of ``capacity`` rows per PE, ``capacity % ways == 0``."""
+    if ways < 1 or capacity < ways:
+        raise ValueError(f"need capacity >= ways >= 1, got {capacity}/{ways}")
+    if capacity % ways:
+        raise ValueError(f"capacity {capacity} not a multiple of ways {ways}")
+    dev = resolve_device(device)
+    S, P = capacity // ways, num_pes
+    z = lambda *shape, dtype=torch.int32: torch.zeros(shape, dtype=dtype, device=dev)
+    return ClockState(
+        tags=torch.full((P, S, ways), INVALID, dtype=torch.int32, device=dev),
+        ref=z(P, S, ways, dtype=torch.bool),
+        hand=z(P, S), hits=z(P), misses=z(P), requested=z(P),
+    )
+
+
+def hash_set(ids: torch.Tensor, num_sets: int) -> torch.Tensor:
+    """Multiplicative hash of vertex ids onto ``[0, num_sets)`` (uint32 math)."""
+    from repro_torch.core.rng import _mul32, _u32
+
+    h = _mul32(_u32(ids), _HASH_MULT) >> 8
+    return (h % num_sets).to(torch.int32)
+
+
+def unique_rows(ids: torch.Tensor) -> torch.Tensor:
+    """Row-wise sorted unique with fixed width (INVALID pads sort last)."""
+    n = ids.shape[-1]
+    out = torch.full_like(ids, INVALID)
+    for p in range(ids.shape[0]):
+        u = torch.unique(ids[p], sorted=True)
+        out[p, : u.shape[0]] = u
+    return out
+
+
+def _insert_one(tags, ref, hand, ids, sets, hit, way):
+    """Insert this batch's misses into one PE's cache (CLOCK eviction).
+
+    ``ids`` is one deduplicated row; at most one insert lands per set per
+    round, so ``ways`` rounds admit every miss that can fit.  Overflowing
+    conflicts (more misses than ways hashing to one set) are dropped --
+    they stay misses and their rows are served straight from the fetch.
+    """
+    S, W = tags.shape
+    n = ids.shape[0]
+    dev = ids.device
+    valid = ids != INVALID
+    miss = valid & ~hit
+
+    ref = ref.clone()
+    ref[sets[hit].long(), way[hit].long()] = True  # second chance for every hit
+
+    # rank of each miss within its set: sort by set, then position since
+    # the start of the equal-set run
+    key = torch.where(miss, sets, S)
+    skey, order = torch.sort(key, stable=True)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    newseg = torch.ones(n, dtype=torch.bool, device=dev)
+    newseg[1:] = skey[1:] != skey[:-1]
+    seg_start = torch.cummax(torch.where(newseg, idx, 0), dim=0).values
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    rank[order] = idx - seg_start
+
+    fill_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    wpos = torch.arange(W, dtype=torch.int32, device=dev)
+    for r in range(W):
+        sel = miss & (rank == r)
+        # explicit filter in place of a dropped out-of-bounds scatter
+        ins = torch.full((S,), INVALID, dtype=torch.int32, device=dev)
+        ins[sets[sel].long()] = ids[sel]
+        do = ins != INVALID                                    # (S,)
+        # CLOCK sweep, vectorized over sets: walk ways from the hand,
+        # victim = first clear ref bit; if all set, clear the full circle
+        # and take the hand position (classic second chance).
+        ordered = (hand[:, None] + wpos[None, :]) % W          # (S, W)
+        ref_ord = torch.gather(ref, 1, ordered.long())
+        k = torch.argmin(ref_ord.to(torch.uint8), dim=1)
+        swept = (wpos[None, :] < k[:, None]) | ref_ord.all(1)[:, None]
+        ref_ord = ref_ord & ~swept
+        inv = (wpos[None, :] - hand[:, None]) % W
+        ref_nat = torch.gather(ref_ord, 1, inv.long())
+        victim = torch.gather(ordered, 1, k[:, None])[:, 0]
+        at_victim = wpos[None, :] == victim[:, None]
+        tags = torch.where(do[:, None] & at_victim, ins[:, None], tags)
+        ref = torch.where(do[:, None], at_victim | ref_nat, ref)
+        hand = torch.where(do, (victim + 1) % W, hand)
+        fill_slot = torch.where(sel, sets * W + victim[sets.long()], fill_slot)
+
+    # a later round may have evicted an earlier same-batch insert (only
+    # possible at W == 1): an admitted row owns its slot only if its tag
+    # survived to the end of the batch
+    survived = tags.reshape(-1)[fill_slot.clamp(min=0).long()] == ids
+    fill_slot = torch.where((fill_slot >= 0) & survived, fill_slot, -1)
+    return tags, ref, hand, fill_slot, miss
+
+
+def clock_access(state: ClockState, uniq: torch.Tensor) -> tuple[ClockState, ClockAccess]:
+    """Access one deduplicated batch per PE; returns the new state.
+
+    ``uniq``: (P, n) row-wise *unique* sorted ids (see :func:`unique_rows`),
+    INVALID-padded.  Lookup resolves against the pre-batch tags: a row
+    evicted by this batch's own inserts still counts as the hit it was
+    when the batch arrived.
+    """
+    P, S, W = state.tags.shape
+    valid = uniq != INVALID
+    sets = torch.where(valid, hash_set(uniq, S), 0)
+    # one flat probe for all PEs: offset each PE's sets into a (P*S, W)
+    # tag view so the kernel runs once
+    offs = torch.arange(P, dtype=torch.int32, device=uniq.device)[:, None] * S
+    pids = torch.where(valid, uniq, -1)  # -1 never matches a resident tag
+    way = tag_probe(
+        state.tags.reshape(P * S, W), (sets + offs).reshape(-1), pids.reshape(-1)
+    ).reshape(P, -1)
+    hit = way >= 0
+    slot = torch.where(hit, sets * W + way.clamp(min=0), -1)
+
+    outs = [
+        _insert_one(state.tags[p], state.ref[p], state.hand[p], uniq[p],
+                    sets[p], hit[p], way[p])
+        for p in range(P)
+    ]
+    tags, ref, hand, fill_slot, miss = (torch.stack(x) for x in zip(*outs))
+    new = ClockState(
+        tags=tags, ref=ref, hand=hand,
+        hits=state.hits + hit.sum(1, dtype=torch.int32),
+        misses=state.misses + miss.sum(1, dtype=torch.int32),
+        requested=state.requested + valid.sum(1, dtype=torch.int32),
+    )
+    return new, ClockAccess(uniq=uniq, hit=hit, slot=slot, fill_slot=fill_slot)

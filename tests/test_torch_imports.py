@@ -1,0 +1,161 @@
+"""Boundaries of the PyTorch port (``src/repro_torch``).
+
+* No module of the port, and nothing in ``chip_smoke.py``, imports JAX or
+  the JAX package ``repro``: the port keeps its own copies.
+* Kernel wrappers take their plain torch version for CPU tensors and
+  never reach the CUDA launch path there.
+* Entry points default to CUDA and raise, rather than fall back to the
+  CPU, when no GPU is present.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
+from repro_torch.kernels.unique_compact import unique_with_inverse, unique_with_inverse_ref
+from repro_torch.store import probe_ref, tag_probe
+
+torch.set_num_threads(1)  # the suite runs files in parallel workers
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+INVALID = 2**31 - 1
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_port_has_modules_and_chip_smoke():
+    rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for want in ("chip_smoke.py", "src/repro_torch/serve/server.py",
+                 "src/repro_torch/kernels/_build.py", "src/repro_torch/store/kernel.py"):
+        assert want in rel
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if m.split(".")[0] in ("jax", "jaxlib", "repro")
+    ]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("CUDA launch path reached for a CPU tensor")
+
+    monkeypatch.setattr(_build, "launch", refuse)
+    monkeypatch.setattr(_build, "library", refuse)
+
+
+def test_wrappers_take_plain_path_on_cpu(no_launch):
+    rng = np.random.default_rng(0)
+    indptr = torch.tensor([0, 2, 2, 5, 6], dtype=torch.int32)
+    indices = torch.tensor([1, 3, 0, 2, 3, 1], dtype=torch.int32)
+    seeds = torch.tensor([3, INVALID, 0, 2], dtype=torch.int32)
+    got = frontier_gather(indptr, indices, seeds, 3)
+    want = frontier_gather_ref(indptr, indices, seeds, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    ids = torch.from_numpy(rng.integers(0, 20, 64).astype(np.int32))
+    got = unique_with_inverse(ids, 8)
+    want = unique_with_inverse_ref(ids, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    tags = torch.from_numpy(rng.integers(0, 50, (16, 4)).astype(np.int32))
+    sets = torch.from_numpy(rng.integers(0, 16, 32).astype(np.int32))
+    ids = torch.from_numpy(rng.integers(0, 50, 32).astype(np.int32))
+    assert torch.equal(tag_probe(tags, sets, ids), probe_ref(tags, sets, ids))
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+def test_wrappers_reject_other_devices():
+    meta = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        frontier_gather(meta, meta, meta, 2)
+    with pytest.raises(ValueError):
+        unique_with_inverse(meta, 2)
+    with pytest.raises(ValueError):
+        tag_probe(meta.reshape(2, 2), meta, meta)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.frontier_gather import frontier_gather_cuda
+
+    t = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not CUDA"):
+        frontier_gather_cuda(t, t, t, 2)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.data import make_recsys
+    from repro_torch.device import resolve_device
+    from repro_torch.engine import EngineConfig, MinibatchEngine
+    from repro_torch.models.gnn import GNNConfig, init_gnn
+    from repro_torch.serve import GNNServer, ServeConfig
+    from repro_torch.store import TieredFeatureStore
+
+    ds = make_recsys(num_users=64, num_items=32, edges_per_user=3,
+                     feature_dim=8, max_degree=16, seed=0, device="cpu")
+    cfg = GNNConfig(num_layers=2, in_dim=8, hidden_dim=8, num_classes=4)
+    model = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GNNServer(ds.graph, ds.features, cfg, model, ServeConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MinibatchEngine.from_config(ds.graph, EngineConfig(local_batch=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TieredFeatureStore(ds.features, capacity=16, ways=4)
+    # the same calls run when the CPU is asked for
+    GNNServer(ds.graph, ds.features, cfg, model, ServeConfig(), device="cpu")
+
+
+def test_unported_paths_raise_not_implemented():
+    from repro_torch.core.samplers import make_sampler
+    from repro_torch.data import make_recsys
+    from repro_torch.engine import EngineConfig, MinibatchEngine
+    from repro_torch.models.gnn import GNN, GNNConfig
+
+    for name in ("ns", "rw", "full"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_sampler(name)
+    ds = make_recsys(num_users=64, num_items=32, edges_per_user=3,
+                     feature_dim=8, max_degree=16, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MinibatchEngine.from_config(
+            ds.graph, EngineConfig(mode="cooperative", num_pes=2), device="cpu"
+        )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GNN(GNNConfig(model="gat"), device="cpu")
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    """Alone in a directory (and here without a card) it exits non-zero
+    and prints no result line."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run(
+        [sys.executable, str(lone)], cwd=tmp_path, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,175 @@
+"""Port kernels' plain versions vs the JAX package's refs and Pallas kernels.
+
+Each ``repro_torch`` plain version (the CPU path of its wrapper) must be
+equal bit for bit to the JAX ``ref``/``probe_ref`` AND to the Pallas
+kernel run in interpret mode, on the sweeps of ``tests/test_kernels.py``
+and ``tests/test_feature_store.py`` plus overflow, all-INVALID and empty
+cases.  Inputs are numpy arrays from seeds handed to both packages.
+
+The CUDA kernels themselves are held against these plain versions on
+a card by ``tests/test_torch_gpu.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import frontier as jfrontier
+from repro.kernels.frontier_gather.kernel import frontier_gather_pallas
+from repro.kernels.frontier_gather.ref import frontier_gather_ref as j_frontier_ref
+from repro.kernels.unique_compact.kernel import unique_compact_pallas
+from repro.kernels.unique_compact.ref import unique_with_inverse_ref as j_unique_ref
+from repro.store.kernel import probe_ref as j_probe_ref
+from repro.store.kernel import tag_probe_pallas
+from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
+from repro_torch.kernels.unique_compact import (
+    unique_compact_sorted_ref,
+    unique_with_inverse,
+    unique_with_inverse_ref,
+)
+from repro_torch.store import probe_ref, tag_probe
+
+torch.set_num_threads(1)  # the suite runs files in parallel workers
+
+INVALID = np.int32(2**31 - 1)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _eq(torch_out, jax_out):
+    np.testing.assert_array_equal(torch_out.numpy(), np.asarray(jax_out))
+
+
+# ---------------------------------------------------------------------------
+# frontier_gather
+# ---------------------------------------------------------------------------
+def _seeds(n, V, invalid_frac, seed):
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, V, size=n).astype(np.int32)
+    s[rng.random(n) < invalid_frac] = INVALID
+    return s
+
+
+@pytest.mark.parametrize("n,invalid_frac,seed", [
+    (192, 0.15, 3), (64, 0.0, 4), (256, 1.0, 5), (0, 0.0, 6),
+])
+def test_frontier_gather_matches_jax_ref_and_pallas(small_graph, n, invalid_frac, seed):
+    g = small_graph
+    seeds = _seeds(n, g.num_vertices, invalid_frac, seed)
+    indptr, indices = np.asarray(g.indptr), np.asarray(g.indices)
+    nbr, mask = frontier_gather_ref(_t(indptr), _t(indices), _t(seeds), g.max_degree)
+    j_nbr, j_mask = j_frontier_ref(g.indptr, g.indices, jnp.asarray(seeds), g.max_degree)
+    _eq(nbr, j_nbr)
+    _eq(mask, j_mask)
+    # the wrapper on CPU tensors is the plain version
+    w_nbr, w_mask = frontier_gather(_t(indptr), _t(indices), _t(seeds), g.max_degree)
+    assert torch.equal(w_nbr, nbr) and torch.equal(w_mask, mask)
+    if n == 0:
+        return
+    block_n, page = 64, 1024
+    seeds_p = np.pad(seeds, (0, (-n) % block_n), constant_values=INVALID)
+    ind_p = np.pad(indices, (0, (-g.num_edges) % page), constant_values=INVALID)
+    k_nbr = frontier_gather_pallas(
+        g.indptr, jnp.asarray(ind_p), jnp.asarray(seeds_p),
+        max_degree=g.max_degree, block_n=block_n, page=page, interpret=True,
+    )[:n]
+    _eq(nbr, k_nbr)
+
+
+# ---------------------------------------------------------------------------
+# unique_compact
+# ---------------------------------------------------------------------------
+def _padded_ids(m, hi, invalid_frac, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, hi, size=m).astype(np.int32)
+    ids[rng.random(m) < invalid_frac] = INVALID
+    return ids
+
+
+@pytest.mark.parametrize("m,cap,hi,block_m", [
+    (512, 64, 100, 256),      # heavy duplication, overflow (cap < uniques)
+    (512, 600, 100, 256),     # cap > unique count
+    (256, 16, 8, 256),        # cap > value range
+    (1024, 128, 2**20, 256),  # near-distinct ids, overflow
+    (300, 64, 50, 128),       # m not a block multiple
+])
+def test_unique_compact_matches_jax_ref_and_pallas(m, cap, hi, block_m):
+    ids = _padded_ids(m, hi, 0.2, seed=m + cap)
+    uniq, inv = unique_with_inverse_ref(_t(ids), cap)
+    j_uniq, j_inv = j_unique_ref(jnp.asarray(ids), cap)
+    _eq(uniq, j_uniq)
+    _eq(inv, j_inv)
+    # = the reference frontier algebra
+    u0 = jfrontier.unique_padded(jnp.asarray(ids), cap)
+    _eq(uniq, u0)
+    _eq(inv, jfrontier.lookup(u0, jnp.asarray(ids)))
+    # the sorted-input function the CUDA kernel computes = the Pallas kernel
+    flat = np.pad(ids, (0, (-m) % block_m), constant_values=INVALID)
+    s = np.sort(flat)
+    inv_s, uniq_s = unique_compact_sorted_ref(_t(s), cap)
+    k_inv_s, k_uniq = unique_compact_pallas(
+        jnp.asarray(s), cap, block_m=block_m, interpret=True
+    )
+    _eq(inv_s, k_inv_s)
+    _eq(uniq_s, k_uniq)
+    w_uniq, w_inv = unique_with_inverse(_t(ids), cap)
+    assert torch.equal(w_uniq, uniq) and torch.equal(w_inv, inv)
+
+
+def test_unique_compact_all_invalid():
+    ids = np.full((256,), INVALID, np.int32)
+    uniq, inv = unique_with_inverse_ref(_t(ids), 32)
+    j_uniq, j_inv = j_unique_ref(jnp.asarray(ids), 32)
+    _eq(uniq, j_uniq)
+    _eq(inv, j_inv)
+    inv_s, uniq_s = unique_compact_sorted_ref(_t(ids), 32)
+    k_inv, k_uniq = unique_compact_pallas(jnp.asarray(ids), 32, block_m=256, interpret=True)
+    _eq(inv_s, k_inv)
+    _eq(uniq_s, k_uniq)
+
+
+def test_unique_compact_empty():
+    ids = np.zeros((0,), np.int32)
+    uniq, inv = unique_with_inverse_ref(_t(ids), 8)
+    u0 = jfrontier.unique_padded(jnp.asarray(ids), 8)
+    _eq(uniq, u0)
+    _eq(inv, jfrontier.lookup(u0, jnp.asarray(ids)))
+
+
+# ---------------------------------------------------------------------------
+# tag_probe
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S,W,n,page,block_n,seed", [
+    (64, 4, 512, 32, 256, 31),
+    (128, 8, 1024, 64, 512, 32),
+    (32, 1, 256, 32, 256, 33),
+])
+def test_tag_probe_matches_jax_ref_and_pallas(S, W, n, page, block_n, seed):
+    rng = np.random.default_rng(seed)
+    tags = rng.integers(0, 2000, (S, W)).astype(np.int32)
+    tags[rng.random((S, W)) < 0.3] = INVALID
+    sets = rng.integers(0, S, n).astype(np.int32)
+    ids = np.where(
+        rng.random(n) < 0.2, -1, tags[sets, rng.integers(0, W, n)]
+    ).astype(np.int32)
+    got = probe_ref(_t(tags), _t(sets), _t(ids))
+    _eq(got, j_probe_ref(jnp.asarray(tags), jnp.asarray(sets), jnp.asarray(ids)))
+    _eq(got, tag_probe_pallas(
+        jnp.asarray(tags), jnp.asarray(sets), jnp.asarray(ids),
+        block_n=block_n, page=page, interpret=True,
+    ))
+    assert torch.equal(tag_probe(_t(tags), _t(sets), _t(ids)), got)
+
+
+def test_tag_probe_duplicate_tags_take_first_way_and_empty():
+    tags = np.array([[5, 7, 5, INVALID], [9, 9, 9, 9]], np.int32)
+    sets = np.array([0, 0, 1, 1, 0], np.int32)
+    ids = np.array([5, 7, 9, -1, 3], np.int32)
+    got = probe_ref(_t(tags), _t(sets), _t(ids))
+    assert got.tolist() == [0, 1, 0, -1, -1]
+    _eq(got, j_probe_ref(jnp.asarray(tags), jnp.asarray(sets), jnp.asarray(ids)))
+    e = np.zeros((0,), np.int32)
+    _eq(probe_ref(_t(tags), _t(e), _t(e)),
+        j_probe_ref(jnp.asarray(tags), jnp.asarray(e), jnp.asarray(e)))

@@ -1,0 +1,125 @@
+"""Tiered feature store of the port vs the JAX package, bit for bit.
+
+The CLOCK state (``tags``, ``ref``, ``hand``) and the hit, miss and
+requested counters must be equal after every batch of a κ-scheduled id
+trace, and so must each access's outcome (``uniq``, ``hit``, ``slot``,
+``fill_slot``).  ``TieredFeatureStore.gather`` rows must equal
+``FeatureStore.gather`` bit for bit, with the same fetch accounting as
+the JAX tiered store.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.feature_loader import FeatureStore as JFeatureStore
+from repro.store import TieredFeatureStore as JTiered
+from repro.store import clock_access as j_clock_access
+from repro.store import clock_init as j_clock_init
+from repro.store import hash_set as j_hash_set
+from repro.store import unique_rows as j_unique_rows
+from repro_torch.core import FeatureStore
+from repro_torch.store import (
+    TieredFeatureStore,
+    clock_access,
+    clock_init,
+    hash_set,
+    unique_rows,
+)
+
+torch.set_num_threads(1)  # the suite runs files in parallel workers
+
+INVALID = np.int32(2**31 - 1)
+V = 2048
+BATCH = 128
+STEPS = 16
+
+
+def make_trace(schedule, kappa, steps=STEPS, batch=BATCH, num_ids=V, seed=0):
+    """(batch,) id arrays under an iid / smoothed / nested schedule, with padding."""
+    rng = np.random.default_rng(seed)
+    out, cur, pool = [], rng.integers(0, num_ids, batch), None
+    for s in range(steps):
+        if schedule == "iid":
+            cur = rng.integers(0, num_ids, batch)
+        elif schedule == "smoothed":
+            resample = rng.random(batch) < 1.0 / kappa
+            cur = np.where(resample, rng.integers(0, num_ids, batch), cur)
+        else:  # nested
+            if s % kappa == 0:
+                pool = rng.choice(num_ids, size=min(kappa * batch, num_ids), replace=False)
+            cur = rng.choice(pool, size=batch, replace=False)
+        ids = cur.astype(np.int32).copy()
+        ids[rng.random(batch) < 0.05] = INVALID
+        out.append(ids)
+    return out
+
+
+def test_hash_set_bit_equal():
+    ids = np.concatenate([np.arange(-5, 200_000, 3), [INVALID]]).astype(np.int32)
+    for S in (1, 64, 1000, 34816):
+        np.testing.assert_array_equal(
+            hash_set(torch.from_numpy(ids), S).numpy(),
+            np.asarray(j_hash_set(jnp.asarray(ids), S)),
+        )
+
+
+def test_unique_rows_bit_equal():
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 50, (3, 40)).astype(np.int32)
+    ids[rng.random((3, 40)) < 0.2] = INVALID
+    np.testing.assert_array_equal(
+        unique_rows(torch.from_numpy(ids)).numpy(), np.asarray(j_unique_rows(jnp.asarray(ids)))
+    )
+
+
+@pytest.mark.parametrize("schedule,kappa", [("iid", 1), ("smoothed", 8), ("nested", 4)])
+@pytest.mark.parametrize("capacity,ways,num_pes", [(256, 8, 1), (192, 4, 2), (64, 1, 1)])
+def test_clock_state_bit_equal_every_batch(schedule, kappa, capacity, ways, num_pes):
+    traces = [make_trace(schedule, kappa, seed=p + 3) for p in range(num_pes)]
+    js = j_clock_init(capacity, ways, num_pes)
+    ts = clock_init(capacity, ways, num_pes, device="cpu")
+    j_access = jax.jit(j_clock_access)
+    for step in range(STEPS):
+        ids = np.stack([tr[step] for tr in traces])
+        js, jacc = j_access(js, j_unique_rows(jnp.asarray(ids)))
+        ts, tacc = clock_access(ts, unique_rows(torch.from_numpy(ids)))
+        for name in js._fields:
+            np.testing.assert_array_equal(
+                getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                err_msg=f"{name} after batch {step}",
+            )
+        for name in jacc._fields:
+            np.testing.assert_array_equal(
+                getattr(tacc, name).numpy(), np.asarray(getattr(jacc, name)),
+                err_msg=f"access.{name} at batch {step}",
+            )
+    assert int(ts.hits.sum()) > 0 and int(ts.misses.sum()) > 0
+    np.testing.assert_array_equal((ts.hits + ts.misses).numpy(), ts.requested.numpy())
+
+
+@pytest.mark.parametrize("num_pes", [1, 2])
+def test_tiered_gather_bit_equal_with_accounting(num_pes):
+    rng = np.random.default_rng(9)
+    feats = rng.standard_normal((V, 16)).astype(np.float32)
+    plain = JFeatureStore(jnp.asarray(feats))
+    port_plain = FeatureStore(torch.from_numpy(feats))
+    jt = JTiered(feats, capacity=256, ways=8, num_pes=num_pes)
+    tt = TieredFeatureStore(feats, capacity=256, ways=8, num_pes=num_pes, device="cpu")
+    traces = [make_trace("smoothed", 8, seed=20 + p) for p in range(num_pes)]
+    for step in range(STEPS):
+        ids = np.stack([tr[step] for tr in traces])
+        if num_pes == 1:
+            ids = ids[0]
+        got = tt.gather(torch.from_numpy(ids)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(plain.gather(jnp.asarray(ids))))
+        np.testing.assert_array_equal(got, np.asarray(jt.gather(ids)))
+        np.testing.assert_array_equal(got, port_plain.gather(torch.from_numpy(ids)).numpy())
+        assert (tt.fetched_rows, tt.hits, tt.misses, tt.requested) == (
+            jt.fetched_rows, jt.hits, jt.misses, jt.requested
+        ), step
+    assert tt.requested == sum(
+        port_plain.count_fetched(np.stack([tr[s] for tr in traces])) for s in range(STEPS)
+    )
+    assert tt.hits > 0 and tt.fetched_rows == tt.misses
