@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py    # needs one CUDA card
 
@@ -8,31 +8,46 @@ Phases:
 0. Device and build: the card's name and power limit, torch and CUDA
    versions, TF32 off, and the build of every CUDA kernel of the port
    (``nvcc`` for ``sm_90a``, one process per source, in parallel).
-1. Kernels against their plain torch versions, on the card, at the
-   serving path's shapes on random inputs from a numpy seed: outputs
-   must be equal bit for bit (all three kernels return integers).  Each
-   kernel's median time, its plain version's time, a library yardstick
-   where one PyTorch call computes the same function, and its bound: the
-   larger of its bytes over the memory rate and its operations over the
-   scalar rate.
+1. Kernels against their plain torch versions, on the card, on inputs
+   from a numpy seed: the serving kernels at the serving path's shapes,
+   ``gather`` and ``spmm`` (forward and backward) at the training path's
+   largest shapes, with the index tables of a real training plan.  Every
+   kernel must be equal bit for bit to its plain version.  Each kernel's device
+   time (CUDA-graph replay) and event time, its plain version's, a
+   library yardstick where one PyTorch call computes the same function,
+   and its bound: the larger of its bytes over the memory rate and its
+   operations over the scalar rate.
 2. Serve: a 1.1M-vertex user-item graph (``make_recsys`` with 2**20
    users), the GCN at full width (in 64, hidden 256, 16 classes, two
    layers) with weights from a numpy seed, and a 500-request Poisson
    trace at 4000 requests/s through ``repro_torch.serve.GNNServer``
    with ``plan_backend="fused"`` and the device cache on.  The launch
    counters are zeroed right before and read right after; every kernel
-   must have launched.  The same trace through a ``device="cpu"``
-   server (the plain path) must give identical integer accounting, every
-   batch's plan entries equal bit for bit, and logits within
-   ``atol=1e-4``; the first 32 requests served one at a
-   time must agree with their coalesced logits.  Then, on the measured
-   clock (each batch's wall time), the same trace, which overloads the
-   server so its tails grow with the trace's length, and a 4000-request
-   trace at 1000 requests/s, which it keeps up with: latencies, wall ms
-   per batch and the server's own split of it into plan build, feature
-   gather and forward.  Last, a profile of one served trace: the device
-   idle share, the top kernels, and the host time in the LABOR variates
-   and the CLOCK access (profiler spans).
+   of the path (the GCN's ``spmm`` forward too) must have launched.  The
+   same trace through a ``device="cpu"`` server (the plain path) must give
+   identical integer accounting, every batch's plan entries equal bit for
+   bit, and logits within ``atol=1e-4``; ``spmm`` must equal its plain
+   version bit for bit on the largest layer of the largest served batch's
+   plan; the first 32 requests served one at a time must
+   agree with their coalesced logits.  Then, on the measured clock, the
+   same trace (which overloads the server) and a 4000-request trace at
+   1000 requests/s (which it keeps up with): latencies, wall ms per batch
+   and the server's split of it into plan build, feature gather and
+   forward; last, a profile of one served trace.
+3. Train: ``repro_torch.train.train_gnn`` with the training example's
+   configuration (cooperative, 4 PEs in the stacked ``SimExecutor``
+   layout, local batch 64, LABOR-0 fanout 10, smoothed kappa 16, hash
+   partition, ``plan_backend="fused"``) and a 3-layer GCN at full width
+   (in 64, hidden 256, 16 classes; weights from a numpy seed) on
+   ``rmat_graph(scale=18, edge_factor=8, max_degree=32)``, 4 steps on
+   the card and the same 4 steps on the CPU (the plain path).  The
+   counters are zeroed right before the card run; every kernel of the
+   path must have launched.  Seed batches, every integer leaf of every
+   step's plan and the plan stats must equal the CPU run's; losses agree
+   within ``rtol=1e-4`` and the final weights within ``atol=1e-4``.  Per
+   step: wall ms split into plan, gather, forward+backward and Adam (each
+   ended by a sync) and each kernel's launches; then the device idle
+   share over two more steps under the profiler.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -58,6 +73,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12
 ATOL = 1e-4
 STEADY_REQUESTS, STEADY_RPS = 4000, 1000.0
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-4  # losses; final weights
+TRAIN_STEPS, PROFILE_STEPS = 4, 2
 SPANS = ("rng.vertex_uniform", "store.clock_access")
 KERNELS = {
     "frontier_gather": {
@@ -72,7 +89,21 @@ KERNELS = {
         "source": "src/repro_torch/store/tag_probe.cu",
         "replaces": "src/repro/store/kernel.py:63",
     },
+    "gather": {
+        "source": "src/repro_torch/kernels/gather/gather.cu",
+        "replaces": "src/repro/kernels/gather/kernel.py:49",
+    },
+    "spmm": {
+        "source": "src/repro_torch/kernels/spmm/spmm.cu",
+        "replaces": "src/repro/kernels/spmm/kernel.py:43",
+    },
+    "spmm_backward": {
+        "source": "src/repro_torch/kernels/spmm/spmm.cu",
+        "replaces": "src/repro/kernels/spmm/kernel.py:43",
+    },
 }
+SERVE_KERNELS = ("frontier_gather", "unique_compact", "tag_probe", "spmm")
+TRAIN_KERNELS = ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward")
 
 
 class PhaseError(RuntimeError):
@@ -162,12 +193,14 @@ def device_ms(fn, iters: int = 20):
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
-def timings(fn, plain, library=None) -> dict:
-    """Device time (CUDA graph replay) and per-call event time of the
-    kernel and its plain version; a library yardstick, which syncs, gets
-    its profiled device time and its event time."""
-    out = {"ms": graph_ms(fn), "event_ms": event_ms(fn),
-           "plain_ms": graph_ms(plain), "plain_event_ms": event_ms(plain),
+def timings(fn, plain, library=None, calls: int = 20, plain_syncs: bool = False) -> dict:
+    """Device time (CUDA graph replay of ``calls`` calls) and per-call event
+    time of the kernel and its plain version; a library yardstick, and a
+    plain version that syncs (``plain_syncs``), get their profiled device
+    time instead of a graph replay."""
+    out = {"ms": graph_ms(fn, calls), "event_ms": event_ms(fn),
+           "plain_ms": device_ms(plain) if plain_syncs else graph_ms(plain, calls),
+           "plain_event_ms": event_ms(plain),
            "library_ms": None, "library_event_ms": None}
     if library is not None:
         out["library_ms"] = device_ms(library)
@@ -204,7 +237,8 @@ def phase0() -> dict:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
-    check(set(paths) == set(KERNELS), f"built {sorted(paths)}, want {sorted(KERNELS)}")
+    want = {Path(meta["source"]).stem for meta in KERNELS.values()}
+    check(set(paths) == want, f"built {sorted(paths)}, want {sorted(want)}")
     return {"card": card, "build_s": build_s}
 
 
@@ -305,19 +339,169 @@ def phase1(ds, caps, cache_rows: int) -> dict:
                   lambda: probe_ref(tags_t, sets, ids_t)),
     )]
 
+    report_bounds(out)
+    return out
+
+
+def report_bounds(out: dict) -> None:
+    """Add each row's bound and print it beside the measured times."""
     for name, rows in out.items():
         for r in rows:
             bytes_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S
             ops_ms = 1e3 * r["ops"] / SCALAR_OPS_PER_S
             r["bound_ms"] = max(bytes_ms, ops_ms)
             r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-            print(f"phase1 {name} [{r['shape']}]: equal bit for bit; device ms "
+            agree = ("equal bit for bit" if r["max_abs_err"] == 0
+                     else f"max abs err {r['max_abs_err']:.3e}")
+            print(f"phase1 {name} [{r['shape']}]: {agree}; device ms "
                   f"kernel {r['ms']:.5f} plain {r['plain_ms']:.5f} library "
                   f"{r['library_ms']}; event ms kernel {r['event_ms']:.5f} plain "
                   f"{r['plain_event_ms']:.5f} library {r['library_event_ms']}; "
                   f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (bytes "
                   f"{r['bytes']}, ops {r['ops']})")
+
+
+def phase1_train(engine) -> dict:
+    """Every kernel of the training path against its plain version at the
+    path's shapes: the inputs come from step 0's plan of ``engine`` (PE
+    0's frontiers and index tables) and features from a numpy seed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import INVALID
+    from repro_torch.kernels.frontier_gather import frontier_gather_cuda, frontier_gather_ref
+    from repro_torch.kernels.gather import gather_cuda, gather_ref
+    from repro_torch.kernels.unique_compact import unique_compact_cuda, unique_compact_sorted_ref
+
+    rng = np.random.default_rng(SEED + 2)
+    plan = engine.plan_at(0)
+    g = engine.graph
+    out = {}
+
+    # the plan build's two kernels at the deepest hop of PE 0: the neighbor
+    # expansion of its owned frontier, and the dedup of that frontier with
+    # its sampled neighbors (ids rebuilt from the plan's local indices)
+    deep = plan.layers[-1]
+    seeds, tilde = deep.seeds[0].contiguous(), deep.tilde_ids[0]
+    D = g.max_degree
+    got = frontier_gather_cuda(g.indptr, g.indices, seeds, D)
+    want, _ = frontier_gather_ref(g.indptr, g.indices, seeds, D)
+    check(torch.equal(got, want), "frontier_gather (training shape): differs from plain")
+    mae = max_abs_err(got, want)
+    n = seeds.shape[0]
+    valid = seeds != INVALID
+    sv = seeds[valid].long()
+    deg = (g.indptr[sv + 1] - g.indptr[sv]).clamp(max=D)
+    out["frontier_gather"] = [dict(
+        shape=f"n={n} D={D}", bytes=4 * n + 8 * int(valid.sum()) + 4 * int(deg.sum()) + 4 * n * D,
+        ops=2 * n + 2 * n * D, max_abs_err=mae,
+        **timings(lambda: frontier_gather_cuda(g.indptr, g.indices, seeds, D),
+                  lambda: frontier_gather_ref(g.indptr, g.indices, seeds, D)),
+    )]
+    nbr = torch.where(deep.mask[0], tilde[deep.nbr_idx[0].clamp(min=0).long()], INVALID)
+    s_ids, _ = torch.sort(torch.cat([seeds, nbr.reshape(-1)]))
+    m, cap = s_ids.shape[0], engine.caps.tilde_caps[-1]
+    inv, uniq = unique_compact_cuda(s_ids, cap)
+    inv_r, uniq_r = unique_compact_sorted_ref(s_ids, cap)
+    check(torch.equal(inv, inv_r) and torch.equal(uniq, uniq_r),
+          f"unique_compact m={m} cap={cap}: differs from plain")
+    mae = max(max_abs_err(inv, inv_r), max_abs_err(uniq, uniq_r))
+    out["unique_compact"] = [dict(
+        shape=f"m={m} cap={cap}", bytes=4 * m + 4 * m + 4 * cap, ops=4 * m, max_abs_err=mae,
+        **timings(lambda: unique_compact_cuda(s_ids, cap),
+                  lambda: unique_compact_sorted_ref(s_ids, cap),
+                  lambda: torch.unique(s_ids, sorted=True, return_inverse=True), calls=5),
+    )]
+
+    # gather: the feature table and all PEs' owned input ids of one step
+    table = engine.store.features
+    ids = plan.input_ids.reshape(-1).contiguous()
+    V, d = table.shape
+    n = ids.shape[0]
+    got, want = gather_cuda(table, ids), gather_ref(table, ids)
+    check(torch.equal(got, want), f"gather n={n}: differs from plain")
+    valid = ids[ids != INVALID]
+    rows_read = int(torch.unique(valid).numel())
+    out["gather"] = [dict(
+        shape=f"V={V} d={d} n={n} ({int(valid.numel())} valid)",
+        bytes=4 * n + 4 * d * rows_read + 4 * n * d, ops=n, max_abs_err=float_err(got, want),
+        **timings(lambda: gather_cuda(table, ids), lambda: gather_ref(table, ids),
+                  lambda: torch.index_select(table, 0, ids.clamp(0, V - 1)), calls=5),
+    )]
+
+    # spmm at every layer's (S~ rows, owned rows, d_in) for PE 0
+    fwd, bwd = [], []
+    for l, layer in enumerate(plan.layers):
+        d = 64 if l == len(plan.layers) - 1 else 256
+        f, b = spmm_rows(layer.nbr_idx[0], layer.mask[0], engine.caps.tilde_caps[l], d, rng)
+        fwd.append(f)
+        bwd.append(b)
+    out["spmm"], out["spmm_backward"] = fwd, bwd
+    report_bounds(out)
     return out
+
+
+def float_err(got, want) -> float:
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def spmm_rows(idx, mask, S: int, d: int, rng, backward: bool = True):
+    """``spmm`` (and its backward) against the plain versions on one
+    layer's index tables ``(n, w)`` over ``S`` source rows of width ``d``
+    (values from ``rng``), equal bit for bit in both modes; rows with
+    timings and bounds.  Bytes count what the function needs: the mask,
+    the index of each masked slot, each source row a masked slot reads
+    (forward) or each gradient row that has a masked slot (backward), and
+    the output written once."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.spmm import (
+        spmm_backward_cuda,
+        spmm_backward_ref,
+        spmm_cuda,
+        spmm_ref,
+    )
+
+    idx, mask = idx.contiguous(), mask.contiguous()
+    src = torch.from_numpy(rng.standard_normal((S, d)).astype(np.float32)).cuda()
+    n, w = idx.shape
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    nnz = int(mask.sum())
+    touched = int(torch.unique(idx[mask]).numel())
+    rows_hit = int(mask.any(dim=1).sum())
+    shape = f"S={S} n={n} w={w} d={d} nnz={nnz}"
+    err = 0.0
+    for mean in (False, True):
+        got, want = spmm_cuda(src, idx, mask, mean), spmm_ref(src, idx, mask, mean)
+        check(torch.equal(got, want), f"spmm {shape} mean={mean}: differs from plain")
+        err = max(err, float_err(got, want))
+    fwd = dict(
+        shape=shape, bytes=n * w + 4 * nnz + 4 * d * touched + 4 * n * d, ops=nnz * d,
+        max_abs_err=err,
+        **timings(lambda: spmm_cuda(src, idx, mask, False),
+                  lambda: spmm_ref(src, idx, mask, False),
+                  lambda: F.embedding_bag(idx.clamp(min=0), src, mode="sum",
+                                          per_sample_weights=mask.float()), calls=5),
+    )
+    if not backward:
+        return fwd, None
+    err = 0.0
+    for mean in (False, True):
+        got = spmm_backward_cuda(g, idx, mask, S, mean)
+        want = spmm_backward_ref(g, idx, mask, S, mean)
+        check(torch.equal(got, want), f"spmm_backward {shape} mean={mean}: differs from plain")
+        err = max(err, float_err(got, want))
+    leaf = src.clone().requires_grad_()
+    bag = F.embedding_bag(idx.clamp(min=0), leaf, mode="sum", per_sample_weights=mask.float())
+    bwd = dict(
+        shape=shape, bytes=n * w + 4 * nnz + 4 * d * rows_hit + 4 * S * d, ops=nnz * d,
+        max_abs_err=err,
+        **timings(lambda: spmm_backward_cuda(g, idx, mask, S, False),
+                  lambda: spmm_backward_ref(g, idx, mask, S, False),
+                  lambda: torch.autograd.grad(bag, leaf, g, retain_graph=True),
+                  calls=5, plain_syncs=True),
+    )
+    return fwd, bwd
 
 
 # --------------------------------------------------------------------------
@@ -357,8 +541,8 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
     print(f"phase2 card serve: {len(rep.batches)} batches in {gpu_s:.2f} s; "
           f"launches {launches}")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the serving path")
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the serving path")
 
     cpu = GNNServer(ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cpu"),
                     serve_cfg, device="cpu")
@@ -377,6 +561,7 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     print(f"phase2 plan leaves card vs cpu: {plan_entries} entries over "
           f"{len(rep.batches)} batches, {plan_diff} differ")
     check(plan_diff == 0, f"{plan_diff} plan entries differ from the CPU build")
+    spmm_row = serve_spmm_row(server, rep, gnn_cfg)
     by_rid = {s.request.rid: s.pred for s in ref.served}
     preds = np.stack([s.pred for s in rep.served])
     check(preds.shape == (len(trace), gnn_cfg.num_classes), f"logits shape {preds.shape}")
@@ -404,7 +589,27 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     report_measured(f"steady: {STEADY_REQUESTS} requests at {STEADY_RPS:.0f} rps",
                     measured, steady)
     profile_serve(measured, trace)
-    return {"launches": launches, "logit_err": err}
+    return {"launches": launches, "logit_err": err, "spmm": spmm_row}
+
+
+def serve_spmm_row(server, report, gnn_cfg) -> dict:
+    """``spmm`` against its plain version on the serving path's shapes: the
+    largest layer (by slots) of the plan of the largest served batch."""
+    import numpy as np
+
+    groups: dict[int, list] = {}
+    for s in report.served:
+        groups.setdefault(s.batch_index, []).append(s.request)
+    reqs = max(groups.values(), key=len)
+    plan = server.coalescer.build_plan(server.coalescer.coalesce(reqs, 0.0))
+    L = len(plan.layers)
+    l = max(range(L), key=lambda i: plan.layers[i].nbr_idx.numel())
+    S = (plan.layers[l + 1].seeds if l + 1 < L else plan.input_ids).shape[0]
+    row, _ = spmm_rows(plan.layers[l].nbr_idx, plan.layers[l].mask, S, gnn_cfg.dims(l)[0],
+                       np.random.default_rng(SEED + 3), backward=False)
+    row["shape"] = f"serving plan of {len(reqs)} requests, layer {l}: {row['shape']}"
+    report_bounds({"spmm": [row]})
+    return row
 
 
 def compare_plans(card, cpu, report) -> tuple[int, int]:
@@ -485,6 +690,134 @@ def profile_serve(server, trace) -> None:
         print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
 
 
+# --------------------------------------------------------------------------
+# phase 3
+# --------------------------------------------------------------------------
+def int_leaves(plan) -> dict:
+    """Every integer (and bool) leaf of a cooperative plan, by name."""
+    out = {"input_ids": plan.input_ids, "seed_ids": plan.seed_ids}
+    for l, layer in enumerate(plan.layers):
+        for name in ("seeds", "self_idx", "nbr_idx", "mask", "etypes",
+                     "slot_to_tilde", "req_idx", "tilde_ids"):
+            if getattr(layer, name) is not None:
+                out[f"{name}{l}"] = getattr(layer, name)
+    return out
+
+
+def phase3(tds, gnn_cfg, tc) -> dict:
+    """Cooperative training on the card and on the CPU from one init."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train import train_gnn
+
+    L = gnn_cfg.num_layers
+    for step in range(tc.num_steps):
+        a, b = (MinibatchEngine.from_config(tds.graph, tc.engine_config(L), dataset=tds,
+                                            device=dev).seed_batch(step)
+                for dev in ("cuda", "cpu"))
+        check(np.array_equal(a, b), f"seed_batch differs from the CPU at step {step}")
+    print(f"phase3 seed_batch card vs cpu: equal at steps 0..{tc.num_steps - 1}, "
+          f"shape {a.shape}")
+
+    runs, plans, per_step = {}, {"card": [], "cpu": []}, []
+
+    def on_card_step(step, plan):
+        plans["card"].append(plan)
+        per_step.append({k: LAUNCHES.get(k, 0) for k in KERNELS})
+
+    reset_launches()
+    t0 = time.perf_counter()
+    runs["card"] = train_gnn(tds, gnn_cfg, tc, model=make_model(gnn_cfg, "cuda"),
+                             device="cuda", stage_times=True, on_step=on_card_step)
+    card_s = time.perf_counter() - t0
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    print(f"phase3 card train: {tc.num_steps} steps in {card_s:.2f} s (engine set-up "
+          f"included); launches {launches}")
+    for k in TRAIN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the training path")
+    prev = {k: 0 for k in KERNELS}
+    for step, (st, cum) in enumerate(zip(runs["card"].stage_ms, per_step)):
+        per = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
+        prev = cum
+        print(f"phase3 card step {step}: wall {sum(st.values()):.3f} ms = "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+              + f"; loss {runs['card'].losses[step]:.6f}; launches {per}")
+
+    t0 = time.perf_counter()
+    runs["cpu"] = train_gnn(tds, gnn_cfg, tc, model=make_model(gnn_cfg, "cpu"),
+                            device="cpu", stage_times=True,
+                            on_step=lambda step, plan: plans["cpu"].append(plan))
+    print(f"phase3 cpu train (plain path): {time.perf_counter() - t0:.2f} s; per step "
+          + "; ".join(f"{sum(st.values()):.1f} ms" for st in runs["cpu"].stage_ms))
+
+    entries = differ = 0
+    for step, (a, b) in enumerate(zip(plans["card"], plans["cpu"])):
+        la, lb = int_leaves(a), int_leaves(b)
+        check(set(la) == set(lb), f"step {step}: plan leaves {sorted(la)} vs {sorted(lb)}")
+        for name in la:
+            check(la[name].dtype == lb[name].dtype, f"step {step} {name}: dtype differs")
+            entries += la[name].numel()
+            differ += int((la[name].cpu() != lb[name]).sum())
+        sa, sb = a.stats(), b.stats()
+        check(sa == sb, f"step {step}: plan_stats card {sa} != cpu {sb}")
+        print(f"phase3 step {step} plan_stats (equal on card and cpu): {sa}")
+    print(f"phase3 plan leaves card vs cpu: {entries} entries over {tc.num_steps} "
+          f"steps, {differ} differ")
+    check(differ == 0, f"{differ} plan entries differ from the CPU build")
+
+    lc, lp = np.asarray(runs["card"].losses), np.asarray(runs["cpu"].losses)
+    check(bool(np.isfinite(lc).all()), f"non-finite losses {lc}")
+    loss_rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
+    print(f"phase3 losses card {lc.tolist()} cpu {lp.tolist()}: max rel diff "
+          f"{loss_rel:.3e} (rtol {TRAIN_RTOL})")
+    check(loss_rel <= TRAIN_RTOL, f"losses differ from the CPU run by {loss_rel}")
+    w_err = max(float(np.abs(a[k] - b[k]).max())
+                for a, b in zip(runs["card"].params["layers"], runs["cpu"].params["layers"])
+                for k in ("w", "b"))
+    print(f"phase3 final weights card vs cpu: max abs diff {w_err:.3e} (atol {TRAIN_ATOL})")
+    check(w_err <= TRAIN_ATOL, f"final weights differ from the CPU run by {w_err}")
+    walls = [sum(st.values()) for st in runs["card"].stage_ms]
+    profile_train(tds, gnn_cfg, tc)
+    return {"launches": launches, "loss_rel": loss_rel, "walls": walls}
+
+
+def profile_train(tds, gnn_cfg, tc) -> None:
+    """Device busy and idle share over ``PROFILE_STEPS`` steps (steps 4 and
+    5 of a fresh engine and model, through ``train_step``, the step
+    ``train_gnn`` runs) under torch.profiler, the kernels that take the
+    device time, and the host time in the LABOR variates."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.train import adam_init, train_step
+
+    engine = MinibatchEngine.from_config(tds.graph, tc.engine_config(gnn_cfg.num_layers),
+                                         dataset=tds, device="cuda")
+    model = make_model(gnn_cfg, "cuda")
+    labels = torch.as_tensor(tds.labels).cuda()
+    opt = adam_init(list(model.parameters()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for step in range(tc.num_steps, tc.num_steps + PROFILE_STEPS):
+            loss, opt, _ = train_step(engine, gnn_cfg, model, opt, labels, step, tc.lr)
+            float(loss.detach())
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    stats = cuda_kernel_us(prof)
+    busy_ms = sum(d for d, _, _ in stats) / 1e3
+    rng_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
+                 if ev.key == SPANS[0] and ev.device_type == DeviceType.CPU) / 1e3
+    print(f"phase3 profile (profiler on), {PROFILE_STEPS} steps: wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; host ms "
+          f"per step in rng.vertex_uniform {rng_ms / PROFILE_STEPS:.3f}")
+    for dev_us, count, key in stats[:12]:
+        print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -503,9 +836,11 @@ def main() -> int:
         return 1
     try:
         from repro_torch.core.minibatch import CapacityPlan
-        from repro_torch.data import make_recsys
+        from repro_torch.data import SyntheticGraphDataset, make_recsys, rmat_graph
+        from repro_torch.engine import MinibatchEngine
         from repro_torch.models.gnn import GNNConfig
         from repro_torch.serve import ServeConfig, poisson_trace
+        from repro_torch.train import TrainConfig
 
         info = phase0()
         t0 = time.perf_counter()
@@ -521,21 +856,49 @@ def main() -> int:
         ).caps
         cache_rows = max(serve_cfg.cache_ways, g.num_vertices // 4)
         cache_rows -= cache_rows % serve_cfg.cache_ways
+        t0 = time.perf_counter()
+        tds = SyntheticGraphDataset(
+            rmat_graph(scale=18, edge_factor=8, max_degree=32, seed=SEED, device="cpu"),
+            feature_dim=64, num_classes=16, seed=SEED,
+        )
+        tg = tds.graph
+        train_cfg = GNNConfig(model="gcn", num_layers=3, in_dim=64, hidden_dim=256,
+                              num_classes=16)
+        tc = TrainConfig(mode="cooperative", num_pes=4, local_batch=64, fanout=10,
+                         sampler="labor0", schedule="smoothed", kappa=16,
+                         partition="hash", executor="sim", plan_backend="fused",
+                         eval_every=0, num_steps=TRAIN_STEPS)
+        engine = MinibatchEngine.from_config(tg, tc.engine_config(3), dataset=tds,
+                                             device="cuda")
+        print(f"rmat graph: V={tg.num_vertices} E={tg.num_edges} max_degree="
+              f"{tg.max_degree} features {tds.features.shape}, train ids "
+              f"{len(tds.train_ids)}, in {time.perf_counter() - t0:.1f} s; cooperative "
+              f"capacities per PE: caps {engine.caps.caps} tilde_caps "
+              f"{engine.caps.tilde_caps} bucket_caps {engine.caps.bucket_caps}; row width "
+              f"w={engine.sampler.row_width(engine.graph)}")
         k = phase1(ds, caps, cache_rows)
+        for name, rows in phase1_train(engine).items():
+            k[name] = k.get(name, []) + rows
+        del engine
         gnn_cfg = GNNConfig(model="gcn", num_layers=serve_cfg.num_layers,
                             in_dim=64, hidden_dim=256, num_classes=16)
         trace = poisson_trace(500, 4000.0, ds.user_ids, seed=SEED)
-        launches = phase2(ds, gnn_cfg, serve_cfg, trace)["launches"]
+        serve = phase2(ds, gnn_cfg, serve_cfg, trace)
+        serve_launches = serve["launches"]
+        k["spmm"].append(serve["spmm"])
+        train_launches = phase3(tds, train_cfg, tc)["launches"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     kernels = []
     for name, meta in KERNELS.items():
-        r = max(k[name], key=lambda row: row["bytes"])  # the largest serving shape
+        r = max(k[name], key=lambda row: row["bytes"])  # the largest shape of its paths
+        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[name],
+            "replaces": meta["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],

@@ -16,11 +16,17 @@ class FeatureStore:
     features: torch.Tensor  # (V, d)
 
     def gather(self, ids: torch.Tensor) -> torch.Tensor:
-        """Masked gather; INVALID rows come back as zeros."""
-        V = self.features.shape[0]
-        ids = ids.to(self.features.device)
-        h = self.features[ids.clamp(0, V - 1).long()]
-        return torch.where((ids != INVALID)[..., None], h, 0.0)
+        """Masked gather of ``(..., d)`` rows; INVALID (and any id outside
+        ``[0, V)``) comes back as a zero row.  On a CUDA device this is the
+        ``gather`` kernel, on the CPU its plain version.
+
+        This follows the ``paged_gather`` kernel it ports, not the JAX
+        ``FeatureStore.gather``: that one zeros only INVALID and clamps
+        every other id to ``[0, V)`` (``-2`` gives row 0).  The two agree on
+        every id a plan holds (INVALID and ids in ``[0, V)``)."""
+        from repro_torch.kernels.gather import gather
+
+        return gather(self.features, ids.to(self.features.device, torch.int32))
 
     def count_fetched(self, ids) -> int:
         """Rows actually transferred from storage (unique per PE batch)."""

@@ -90,3 +90,17 @@ def unique_compact(ids: torch.Tensor, cap: int, backend: str = "reference") -> t
 
         return kernels.unique_compact(ids.reshape(-1), cap)
     return unique_padded(ids, cap)
+
+
+def take_rows(H: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``H[idx]`` with a zero row wherever ``idx < 0`` (padding).
+
+    Differentiable in ``H``.  Padding slots read spread-out rows (their
+    position modulo ``len(H)``) before the mask zeroes them, instead of
+    all reading row 0: autograd's scatter-add for a row gather walks each
+    run of equal indices in one warp on CUDA, and a plan's padding, most
+    slots of the deep layers, made one run of ~10^5 slots on row 0.
+    """
+    valid = idx >= 0
+    spread = torch.arange(idx.numel(), device=idx.device).reshape(idx.shape) % H.shape[0]
+    return torch.where(valid[..., None], H[torch.where(valid, idx.long(), spread)], 0.0)

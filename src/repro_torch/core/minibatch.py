@@ -45,11 +45,13 @@ class Minibatch:
     def stats(self) -> dict:
         """Per-layer counts: S{l}, E{l}, inputs, comm{l+1} (= 0).
 
-        One host transfer for all counts.
+        Scalars for a single plan; the max over the PE axis for a stacked
+        plan.  One host transfer for all counts.
         """
-        counts = [(layer.seeds != INVALID).sum() for layer in self.layers]
-        counts += [layer.mask.sum() for layer in self.layers]
-        counts.append((self.input_ids != INVALID).sum())
+        red = lambda x: x.max() if self.input_ids.ndim > 1 else x
+        counts = [red((layer.seeds != INVALID).sum(-1)) for layer in self.layers]
+        counts += [red(layer.mask.sum((-2, -1))) for layer in self.layers]
+        counts.append(red((self.input_ids != INVALID).sum(-1)))
         vals = torch.stack(counts).tolist()
         L = len(self.layers)
         out = {}

@@ -20,13 +20,20 @@ for bit.  Two things make that hard, and this module handles both:
   sqrt, floor, bit casts) are used, so the CPU and a CUDA card give the same
   bits as each other.
 
-Smoothed interpolation between two seeds (A.7) is bit-equal as well
-(``tests/test_torch_plan.py`` pins c = 0 and two c > 0 states).
+Smoothed interpolation between two seeds (A.7) is bit-equal as well, to
+the form ``plan_at`` and the jitted train step compile, where the state
+``(z1, z2, c)`` is a traced value: XLA forms ``fma(cos, n1, sin * n2)``
+and calls the C library's ``cosf``/``sinf`` on ``c * (pi/2)``, so this
+module does the same (``tests/test_torch_plan.py`` pins c = 0 and c > 0
+states, and every ``c = i/kappa`` for kappa up to 64).
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -248,6 +255,25 @@ def ndtri(p: torch.Tensor) -> torch.Tensor:
     return torch.where(p == 0.0, torch.full_like(x, -math.inf), x)
 
 
+@lru_cache(maxsize=None)
+def _libm() -> ctypes.CDLL:
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name in ("cosf", "sinf"):
+        getattr(lib, name).argtypes = [ctypes.c_float]
+        getattr(lib, name).restype = ctypes.c_float
+    return lib
+
+
+def _cos_sin_half_pi(c: float) -> tuple[float, float]:
+    """float32 ``(cos(c pi/2), sin(c pi/2))`` as XLA's CPU code computes them
+    for a traced ``c``: one float32 product ``c * f32(pi/2)``, then the C
+    library's ``cosf``/``sinf`` (neither ``torch.cos`` nor a correctly
+    rounded cosine gives the same bits)."""
+    ang = float(np.float32(c) * np.float32(math.pi / 2))
+    lib = _libm()
+    return _f(lib.cosf(ang)), _f(lib.sinf(ang))
+
+
 def normal_from_ids(ids, seed, salt: int = 0) -> torch.Tensor:
     """Standard normal via inverse-CDF of the hashed uniform."""
     return ndtri(uniform_from_ids(ids, seed, salt))
@@ -267,18 +293,18 @@ class RNGState:
     def vertex_uniform(self, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
         """r_t ~ U(0,1), smoothly drifting with step (LABOR variates).
 
-        ``n = cos(c pi/2) n1 + sin(c pi/2) n2`` in float32.  At ``c == 0``
-        that is exactly ``n1`` (``n2`` is finite), so ``n2`` is not
-        computed.  Profiler span: ``rng.vertex_uniform``.
+        ``n = fma(cos(c pi/2), n1, sin(c pi/2) * n2)`` in float32, as XLA
+        compiles it for a traced ``c``.  At ``c == 0`` that is exactly
+        ``n1`` (``n2`` is finite), so ``n2`` is not computed.  Profiler
+        span: ``rng.vertex_uniform``.
         """
         with record_function("rng.vertex_uniform"):
             n1 = normal_from_ids(ids, self.z1, salt)
             if self.c == 0.0:
                 return ndtr(n1)
             n2 = normal_from_ids(ids, self.z2, salt)
-            ang = torch.tensor(self.c, dtype=torch.float32) * _f(math.pi) / 2.0
-            cos, sin = float(torch.cos(ang)), float(torch.sin(ang))
-            return ndtr(n1 * cos + n2 * sin)
+            cos, sin = _cos_sin_half_pi(self.c)
+            return ndtr(_fma(n1, cos, n2 * sin))
 
 
 @dataclass(frozen=True)

@@ -1,3 +1,7 @@
 from repro_torch.data.recsys import RecsysDataset, make_recsys, recsys_graph
+from repro_torch.data.synthetic import SyntheticGraphDataset, rmat_edges, rmat_graph
 
-__all__ = ["RecsysDataset", "make_recsys", "recsys_graph"]
+__all__ = [
+    "RecsysDataset", "SyntheticGraphDataset", "make_recsys", "recsys_graph",
+    "rmat_edges", "rmat_graph",
+]

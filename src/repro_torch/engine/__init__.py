@@ -1,11 +1,13 @@
 """Minibatching engine of the port: one facade from (graph, config) to plans.
 
-    cfg = EngineConfig(local_batch=64, num_layers=2, sampler="labor0",
-                       fanout=5, plan_backend="fused")
-    engine = MinibatchEngine.from_config(graph, cfg)          # on CUDA
-    plan = engine.build_plan(seeds)
+    cfg = EngineConfig(mode="cooperative", num_pes=4, local_batch=64,
+                       num_layers=3, sampler="labor0", fanout=10,
+                       schedule="smoothed", kappa=16, plan_backend="fused")
+    engine = MinibatchEngine.from_config(graph, cfg, dataset=ds)  # on CUDA
+    plan = engine.plan_at(step)
 """
 from repro_torch.engine.config import CacheConfig, CapacityPolicy, EngineConfig
 from repro_torch.engine.engine import MinibatchEngine
+from repro_torch.engine.plan import Plan
 
-__all__ = ["CacheConfig", "CapacityPolicy", "EngineConfig", "MinibatchEngine"]
+__all__ = ["CacheConfig", "CapacityPolicy", "EngineConfig", "MinibatchEngine", "Plan"]

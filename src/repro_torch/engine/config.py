@@ -2,9 +2,10 @@
 
 One :class:`EngineConfig` pins a minibatching pipeline: mode, sampler,
 layer/fanout budget, capacity policy, dependency schedule, partition,
-executor, plan-construction backend and the tiered feature cache.  The
-port builds ``mode="independent"`` plans; the cooperative fields are kept
-so configurations stay interchangeable between the two packages.
+executor, plan-construction backend and the tiered feature cache.
+Configurations are interchangeable between the two packages; the port
+runs both modes on the stacked-PE ``executor="sim"`` (``"shard"`` raises
+in ``MinibatchEngine.from_config`` until it is ported).
 """
 from __future__ import annotations
 

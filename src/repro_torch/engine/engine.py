@@ -1,33 +1,74 @@
 """``MinibatchEngine`` -- the minibatch-construction facade (port of
-``repro.engine.engine``, independent mode).
+``repro.engine.engine``).
 
-``from_config`` derives the sampler, capacity plan and feature stores
-from one :class:`EngineConfig`; ``build_plan`` samples a
-:class:`repro_torch.core.Minibatch`.  Cooperative mode (the all-to-all
-plan builder and executors) is the training slice's and raises
-``NotImplementedError`` here.
+The paper's central comparison (§3.1–§3.2, Fig. 7) runs *the same*
+training computation under two minibatching modes at identical global
+batch size.  ``from_config`` derives the sampler, capacity plan,
+partition, executor and feature stores from one :class:`EngineConfig`;
+``seed_batch``/``plan_at`` draw the step's seeds and build its plan;
+``apply_model`` holds the one mode dispatch (per-PE apply vs all-to-all
+redistribution).
+
+Dependency schedules (§3.2 + A.7): ``iid`` (fresh seed per step),
+``smoothed`` (κ-window RNG interpolation) and ``nested`` (κ sub-batches
+carved from one group batch under a frozen group RNG).
+
+The JAX package compiles ``plan_at`` into one program; here it runs
+eagerly with the step's RNG state as python scalars.  Seed draws and
+plans are bit-equal to the JAX package's on the CPU, and to the CPU run
+on a card.  ``executor="shard"`` (a real multi-device mesh) is not
+ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from functools import cached_property
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core.cooperative import (
+    CoopCapacityPlan,
+    CoopMinibatch,
+    Executor,
+    SimExecutor,
+    build_cooperative_minibatch,
+)
+from repro_torch.core.dependent import NestedSchedule
 from repro_torch.core.feature_loader import FeatureStore
-from repro_torch.core.graph import Graph
-from repro_torch.core.minibatch import CapacityPlan, Minibatch, build_minibatch
-from repro_torch.core.rng import DependentRNG
+from repro_torch.core.graph import INVALID, Graph
+from repro_torch.core.minibatch import CapacityPlan, build_minibatch
+from repro_torch.core.partition import Partition, make_partition
+from repro_torch.core.rng import _MASK32, DependentRNG, RNGState, _mix, hash_u32
 from repro_torch.core.samplers.base import Sampler, make_sampler
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.config import EngineConfig
+from repro_torch.engine.plan import Plan
 from repro_torch.store.tiers import TieredFeatureStore
 
-_COOPERATIVE_TODO = (
-    "cooperative minibatching is not ported to repro_torch yet "
-    "(ROADMAP.md queue A, items A2-A3: the training slice)"
-)
+_GOLDEN = 0x9E3779B9
+
+
+def _hash_permute_rows(rows: torch.Tensor, z: int) -> torch.Tensor:
+    """Row-wise hash-keyed permutation of an INVALID-padded pool table.
+
+    Valid ids get uint32 keys (held in int64, clamped below the sentinel
+    key) and sort by them; INVALID entries pin to the key maximum so
+    padding stays at every row's tail.  The stable sort makes collisions
+    deterministic, as the JAX package's stable argsort does.
+    """
+    salt = torch.arange(rows.shape[0], dtype=torch.int64, device=rows.device)[:, None]
+    key = hash_u32(rows, z, salt)
+    key = torch.where(rows != INVALID, key.clamp(max=0xFFFFFFFE), 0xFFFFFFFF)
+    order = torch.sort(key, dim=1, stable=True).indices
+    return torch.gather(rows, 1, order)
+
+
+def _draw_key(x: int, base: int) -> int:
+    """``_mix(x ^ base * 0x9E3779B9)`` on uint32 python ints."""
+    v = (x & _MASK32) ^ ((base * _GOLDEN) & _MASK32)
+    return int(_mix(torch.tensor(v, dtype=torch.int64)))
 
 
 @dataclass
@@ -37,32 +78,51 @@ class MinibatchEngine:
     config: EngineConfig
     graph: Graph
     sampler: Sampler
-    caps: CapacityPlan
+    caps: Union[CapacityPlan, CoopCapacityPlan]
     device: torch.device
-    dataset: Optional[object] = None
+    ex: Optional[Executor] = None           # cooperative only
+    part: Optional[Partition] = None        # cooperative only
+    dataset: Optional[object] = None        # seeds come from the train split if set
     store: Optional[FeatureStore] = None
     tiered: Optional[TieredFeatureStore] = None
 
+    # ------------------------------------------------------------------
+    # Construction
+    # ------------------------------------------------------------------
     @classmethod
     def from_config(
         cls, graph: Graph, config: EngineConfig, dataset=None,
         device: DeviceLike = None,
     ) -> "MinibatchEngine":
-        """Derive sampler, capacities and feature stores from the config.
+        """Derive sampler, capacities, partition, executor and stores.
 
         Runs on CUDA unless ``device="cpu"``; the graph moves there.
         """
         cfg, cap = config, config.capacity
-        if cfg.mode != "independent":
-            raise NotImplementedError(_COOPERATIVE_TODO)
         dev = resolve_device(device)
         graph = graph.to(dev).validate()  # malformed CSR fails here
         V = graph.num_vertices
         sampler = make_sampler(cfg.sampler, fanout=cfg.fanout, backend=cfg.plan_backend)
-        caps = CapacityPlan.geometric(
-            cfg.local_batch, cfg.num_layers, cfg.fanout, V,
-            safety=cap.safety, round_to=cap.round_to,
-        )
+        part, ex = None, None
+        if cfg.mode == "cooperative":
+            if cfg.executor != "sim":
+                raise NotImplementedError(
+                    "executor='shard' (multi-device cooperative execution) is "
+                    "not ported to repro_torch yet (ROADMAP.md queue A, item A7)"
+                )
+            caps = CoopCapacityPlan.geometric(
+                cfg.local_batch, cfg.num_layers, cfg.fanout, V, cfg.num_pes,
+                safety=cap.coop_safety, bucket_safety=cap.bucket_safety,
+                round_to=cap.round_to,
+            )
+            pseed = cfg.seed if cfg.partition_seed is None else cfg.partition_seed
+            part = make_partition(cfg.partition, graph, cfg.num_pes, seed=pseed)
+            ex = SimExecutor(cfg.num_pes)
+        else:
+            caps = CapacityPlan.geometric(
+                cfg.local_batch, cfg.num_layers, cfg.fanout, V,
+                safety=cap.safety, round_to=cap.round_to,
+            )
         store, tiered = None, None
         if dataset is not None:
             feats = np.asarray(dataset.features)
@@ -78,46 +138,173 @@ class MinibatchEngine:
                 )
         return cls(
             config=cfg, graph=graph, sampler=sampler, caps=caps, device=dev,
-            dataset=dataset, store=store, tiered=tiered,
+            ex=ex, part=part, dataset=dataset, store=store, tiered=tiered,
+        )
+
+    # ------------------------------------------------------------------
+    # RNG schedule
+    # ------------------------------------------------------------------
+    def _nested_sched(self) -> NestedSchedule:
+        cfg = self.config
+        return NestedSchedule(
+            base_seed=cfg.seed, kappa=cfg.kappa, sub_batch_size=cfg.local_batch
         )
 
     def rng_at(self, step: int) -> DependentRNG:
-        """RNG for ``step`` under the configured schedule (iid / smoothed)."""
+        """RNG for ``step`` under the configured schedule."""
         cfg = self.config
         if cfg.schedule == "nested":
-            raise NotImplementedError(
-                "the nested schedule is not ported to repro_torch yet "
-                "(ROADMAP.md queue A, item A2)"
-            )
+            return self._nested_sched().rng_for_group(step)  # frozen per group
         return DependentRNG(cfg.seed, cfg.effective_kappa, step)
 
-    def build_plan(self, seeds, rng: Optional[DependentRNG] = None, step: int = 0) -> Minibatch:
-        """Sample an L-layer plan from a 1-D seed frontier ``(b,)``.
+    def rng_state(self, step: int) -> RNGState:
+        """The step's RNG state (seeds and interpolation coefficient), equal
+        to what ``repro``'s traced ``rng_state`` computes."""
+        return self.rng_at(step).state
 
-        Bit-equal to ``repro.engine.MinibatchEngine.build_plan`` on the
-        same seeds; ``config.plan_backend`` picks plain torch or the CUDA
-        kernels, with identical outputs.
+    # ------------------------------------------------------------------
+    # Seed batches
+    # ------------------------------------------------------------------
+    def _seed_pool(self) -> np.ndarray:
+        if self.dataset is not None:
+            return np.asarray(self.dataset.train_ids)
+        return np.arange(self.graph.num_vertices, dtype=np.int32)
+
+    @cached_property
+    def _owned_pools(self) -> list[np.ndarray]:
+        pool = self._seed_pool()
+        owner = self.part.owner.cpu().numpy()
+        return [pool[owner[pool] == p] for p in range(self.config.num_pes)]
+
+    @cached_property
+    def _seed_rows(self) -> torch.Tensor:
+        """(R, C) int32 device pool table, INVALID-padded rows.
+
+        Cooperative: row p = PE p's owned train ids.  Independent nested:
+        the global pool replicated P times (each PE permutes its own
+        copy).  Independent otherwise: ONE global row -- the first P·b
+        entries of its per-step permutation are the global batch, which
+        keeps the draw without replacement *across* PEs.
+        """
+        cfg = self.config
+        P, b = cfg.num_pes, cfg.local_batch
+        if cfg.mode == "cooperative":
+            rows = self._owned_pools
+        elif cfg.schedule == "nested":
+            rows = [self._seed_pool()] * P
+        else:
+            rows = [self._seed_pool()]
+        need = cfg.kappa * b if cfg.schedule == "nested" else (
+            P * b if len(rows) == 1 else b
+        )
+        C = max(need, max(len(r) for r in rows))
+        out = np.full((len(rows), C), np.int32(INVALID), np.int32)
+        for i, r in enumerate(rows):
+            out[i, : len(r)] = np.asarray(r, np.int32)
+        return torch.from_numpy(out).to(self.device)
+
+    def _seed_batch(self, step: int) -> torch.Tensor:
+        """(P, b) int32 seed rows for ``step``, on the engine's device.
+
+        Each draw is a hash-keyed permutation of the pool table under a
+        per-(step-or-group, row) salt; pools smaller than the draw pad
+        with INVALID.
+        """
+        cfg = self.config
+        P, b = cfg.num_pes, cfg.local_batch
+        step = int(step)
+        rows = self._seed_rows
+        if cfg.schedule == "nested":
+            k = cfg.kappa
+            perm = _hash_permute_rows(rows, _draw_key(step // k, cfg.seed))
+            i = step % k
+            return perm[:, i * b : (i + 1) * b].contiguous()
+        perm = _hash_permute_rows(rows, _draw_key(step, cfg.seed))
+        if rows.shape[0] == 1:
+            return perm[0, : P * b].reshape(P, b)
+        return perm[:, :b].contiguous()
+
+    def seed_batch(self, step: int) -> np.ndarray:
+        """(P, b) int32 seed rows for ``step`` (INVALID-padded short rows).
+
+        The same bits as the seeds ``plan_at`` consumes, and as
+        ``repro.engine.MinibatchEngine.seed_batch``.  Independent: P·b ids
+        drawn from the global pool without replacement.  Cooperative: row
+        p holds only vertices PE p owns.  Nested schedules carve b-sized
+        sub-batches out of a κ·b group batch redrawn every κ steps.
+        """
+        return self._seed_batch(step).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Plan construction
+    # ------------------------------------------------------------------
+    def build_plan(self, seeds, rng=None, step: int = 0) -> Plan:
+        """Sample an L-layer plan from a seed frontier.
+
+        ``seeds``: 1-D ``(b,)`` for a single independent plan or stacked
+        ``(P, b)`` for per-PE plans (cooperative plans are always
+        stacked).  ``rng`` (a :class:`DependentRNG` or :class:`RNGState`)
+        defaults to the schedule's RNG at ``step``.  ``config.plan_backend``
+        picks plain torch or the CUDA kernels, with identical outputs.
         """
         if rng is None:
             rng = self.rng_at(step)
         if not isinstance(seeds, torch.Tensor):
             seeds = torch.from_numpy(np.asarray(seeds, np.int32))
         seeds = seeds.to(device=self.device, dtype=torch.int32)
-        if seeds.ndim != 1:
-            raise NotImplementedError(
-                "stacked (P, b) plans are not ported to repro_torch yet "
-                "(ROADMAP.md queue A, items A2-A3: the training slice)"
-            )
         cfg = self.config
-        return build_minibatch(
-            self.graph, self.sampler, seeds, rng, cfg.num_layers, self.caps,
-            backend=cfg.plan_backend,
+        backend = cfg.plan_backend
+        if cfg.mode == "cooperative":
+            return build_cooperative_minibatch(
+                self.graph, self.sampler, self.part, seeds, rng,
+                cfg.num_layers, self.caps, self.ex, backend=backend,
+            )
+        build_one = lambda s: build_minibatch(
+            self.graph, self.sampler, s, rng, cfg.num_layers, self.caps,
+            backend=backend,
         )
+        if seeds.ndim == 1:
+            return build_one(seeds)
+        return SimExecutor(seeds.shape[0]).pe(build_one, seeds)
 
-    def gather_features(self, plan: Minibatch) -> torch.Tensor:
+    def plan_at(self, step: int) -> Plan:
+        """The plan for ``step``: the seed draw, the schedule's RNG state and
+        sampling, always in the stacked ``(P, b)`` layout -- identical to
+        ``build_plan(seed_batch(step), rng=rng_state(step))``."""
+        return self.build_plan(self._seed_batch(step), rng=self.rng_state(step))
+
+    # ------------------------------------------------------------------
+    # Feature loading -- through the tiered store when configured
+    # ------------------------------------------------------------------
+    def gather_features(self, plan: Plan) -> torch.Tensor:
         """Input-layer embeddings for ``plan`` (through the cache if configured)."""
         if self.tiered is not None:
             return self.tiered.gather(plan.input_ids)
         if self.store is None:
             raise ValueError("engine has no feature store; construct with a dataset")
         return plan.gather_inputs(self.store)
+
+    # ------------------------------------------------------------------
+    # Model application -- the one remaining mode dispatch
+    # ------------------------------------------------------------------
+    def apply_model(self, model, gnn_cfg, plan: Plan, H: torch.Tensor) -> torch.Tensor:
+        """Seed logits from input embeddings ``H = plan.gather_inputs(...)``.
+
+        Independent: per-PE bipartite compute (one apply per PE when
+        stacked).  Cooperative: Alg. 1 forward -- all-to-all
+        redistribution between layers; the backward all-to-alls come from
+        autograd.
+        """
+        from repro_torch.models.gnn import (
+            gnn_apply,
+            gnn_apply_cooperative,
+            gnn_apply_stacked,
+        )
+
+        if isinstance(plan, CoopMinibatch):
+            return gnn_apply_cooperative(
+                model, gnn_cfg, self.ex, plan.layers, H, self.caps.tilde_caps
+            )
+        if plan.input_ids.ndim > 1:  # stacked (P, ...) independent plans
+            return gnn_apply_stacked(model, gnn_cfg, plan.layers, H)
+        return gnn_apply(model, gnn_cfg, plan.layers, H)

@@ -11,14 +11,20 @@ Ported so far (TPU kernel it replaces in brackets):
   [``repro/kernels/frontier_gather/kernel.py``];
 * ``unique_compact``  -- frontier dedup + rank resolution after a sort
   [``repro/kernels/unique_compact/kernel.py``];
+* ``gather``          -- masked embedding-row gather (feature loading)
+  [``repro/kernels/gather/kernel.py``];
+* ``spmm``            -- masked neighbor sum/mean, with a backward kernel
+  (counted as ``spmm_backward``) [``repro/kernels/spmm/kernel.py``];
 * ``tag_probe``       -- device cache tag lookup, in
   :mod:`repro_torch.store.kernel` [``repro/store/kernel.py``].
 """
 from repro_torch.kernels._build import LAUNCHES, reset_launches
 from repro_torch.kernels.frontier_gather.ops import frontier_gather
+from repro_torch.kernels.gather.ops import gather
+from repro_torch.kernels.spmm.ops import spmm_mean, spmm_sum
 from repro_torch.kernels.unique_compact.ops import unique_compact, unique_with_inverse
 
 __all__ = [
-    "LAUNCHES", "frontier_gather", "reset_launches", "unique_compact",
-    "unique_with_inverse",
+    "LAUNCHES", "frontier_gather", "gather", "reset_launches", "spmm_mean",
+    "spmm_sum", "unique_compact", "unique_with_inverse",
 ]

@@ -111,8 +111,9 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def launch(name: str, fn: str, *args) -> None:
-    """Call C entry point ``fn`` of kernel ``name`` and check its error code.
+def launch(name: str, fn: str, *args, counter: str | None = None) -> None:
+    """Call C entry point ``fn`` of kernel library ``name``, check its error
+    code, and count the launch under ``counter`` (default ``name``).
 
     Each argument is a tensor (passed as its device pointer) or a python
     int (passed as a 64-bit integer); the current CUDA stream is
@@ -131,16 +132,21 @@ def launch(name: str, fn: str, *args) -> None:
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
     err = cfn(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    count_launch(name)
+        raise RuntimeError(f"{name}.{fn}: CUDA launch failed with error {err}")
+    count_launch(counter or name)
+
+
+def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
+    for key, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {key} is on {t.device}, not CUDA")
+        if t.dtype != dtype:
+            raise ValueError(f"{kernel}: {key} has dtype {t.dtype}, not {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {key} is not contiguous")
 
 
 def require_cuda_int32(kernel: str, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous int32 CUDA tensor."""
-    for key, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{kernel}: {key} is on {t.device}, not CUDA")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{kernel}: {key} has dtype {t.dtype}, not int32")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {key} is not contiguous")
+    require_cuda(kernel, torch.int32, **tensors)

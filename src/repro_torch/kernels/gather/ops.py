@@ -1,0 +1,40 @@
+"""Public wrapper for the masked embedding gather.
+
+A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor
+launches the hand-written kernel ``gather.cu`` or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gather.ref import gather_ref
+
+
+def gather_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(n, d) rows of a float32 ``(V, d)`` table from the CUDA kernel."""
+    _build.require_cuda("gather", torch.float32, table=table)
+    _build.require_cuda_int32("gather", ids=ids)
+    if table.ndim != 2 or ids.ndim != 1:
+        raise ValueError(
+            f"gather: want a (V, d) table and (n,) ids, got {tuple(table.shape)} "
+            f"and {tuple(ids.shape)}"
+        )
+    V, d = table.shape
+    (n,) = ids.shape
+    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    if n * d:
+        vec4 = d % 4 == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        _build.launch("gather", "gather_launch", table, ids, out, n, d, V, int(vec4))
+    return out
+
+
+def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``(..., d)`` rows of ``table`` for ``ids`` of any shape; INVALID,
+    negative and out-of-range ids give zero rows, on either device."""
+    if ids.device.type == "cpu":
+        return gather_ref(table, ids)
+    if ids.device.type != "cuda":
+        raise ValueError(f"gather: unsupported device {ids.device}")
+    out = gather_cuda(table.contiguous(), ids.reshape(-1).contiguous())
+    return out.reshape(*ids.shape, table.shape[1])

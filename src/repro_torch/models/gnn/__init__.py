@@ -3,8 +3,13 @@ from repro_torch.models.gnn.layers import (
     GCNLayer,
     GNNConfig,
     gnn_apply,
+    gnn_apply_cooperative,
+    gnn_apply_stacked,
     init_gnn,
     params_from_jax,
 )
 
-__all__ = ["GCNLayer", "GNN", "GNNConfig", "gnn_apply", "init_gnn", "params_from_jax"]
+__all__ = [
+    "GCNLayer", "GNN", "GNNConfig", "gnn_apply", "gnn_apply_cooperative",
+    "gnn_apply_stacked", "init_gnn", "params_from_jax",
+]

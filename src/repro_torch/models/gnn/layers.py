@@ -7,19 +7,27 @@ Every layer consumes ``H~`` -- embeddings indexed by the next frontier
 logits.
 
 Ported: the GCN.  Weights keep the JAX package's ``(d_in, d_out)`` layout
-so :func:`params_from_jax` copies them over unchanged.  Neighbor
-aggregation is plain torch, as the JAX layer is plain jnp (it does not
-call the ``spmm`` kernel either).
+so :func:`params_from_jax` copies them over unchanged.  The neighbor sum
+goes through the ``spmm`` kernel (with its backward kernel) on a CUDA
+device; the JAX layer computes the same function in plain jnp.
+
+Three applies, as in the JAX package: :func:`gnn_apply` (one plan),
+:func:`gnn_apply_stacked` (``P`` stacked independent plans, one apply per
+PE) and :func:`gnn_apply_cooperative` (a ``redistribute`` before each
+layer, then one apply per PE).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.frontier import take_rows
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.spmm import spmm_sum
 
 _MODEL_TODO = (
     "only the GCN is ported to repro_torch yet (ROADMAP.md queue A, item A9)"
@@ -44,12 +52,6 @@ class GNNConfig:
         return d_in, d_out
 
 
-def _gather(Ht: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather with -1 -> zeros."""
-    out = Ht[idx.clamp(min=0).long()]
-    return torch.where((idx >= 0)[..., None], out, 0.0)
-
-
 class GCNLayer(nn.Module):
     """Mean over {self} ∪ N(s), then ``x @ w + b`` (ReLU except on layer 0)."""
 
@@ -61,10 +63,9 @@ class GCNLayer(nn.Module):
         self.relu = relu
 
     def forward(self, Ht, self_idx, nbr_idx, mask):
-        h_self = _gather(Ht, self_idx)              # (n, d_in)
-        h_nbr = _gather(Ht, nbr_idx)                # (n, w, d_in)
+        h_self = take_rows(Ht, self_idx)            # (n, d_in)
         deg = mask.sum(dim=-1, keepdim=True) + 1
-        agg = (torch.where(mask[..., None], h_nbr, 0.0).sum(-2) + h_self) / deg
+        agg = (spmm_sum(Ht, nbr_idx, mask) + h_self) / deg
         out = agg @ self.w + self.b
         return torch.relu(out) if self.relu else out
 
@@ -136,3 +137,45 @@ def gnn_apply(model: GNN, cfg: GNNConfig, plan_layers, H_input: torch.Tensor) ->
     if cfg.model != "gcn":
         raise NotImplementedError(_MODEL_TODO)
     return model(plan_layers, H_input)
+
+
+def _pe_slice(blk, p: int):
+    """PE ``p``'s block of a stacked plan layer."""
+    return dataclasses.replace(blk, **{
+        f.name: getattr(blk, f.name)[p] for f in dataclasses.fields(blk)
+        if getattr(blk, f.name) is not None
+    })
+
+
+def gnn_apply_stacked(model: GNN, cfg: GNNConfig, plan_layers, H_input: torch.Tensor) -> torch.Tensor:
+    """``P`` stacked independent plans (leaves ``(P, ...)``): one apply per
+    PE, logits stacked to ``(P, cap_0, C)``."""
+    return torch.stack([
+        gnn_apply(model, cfg, [_pe_slice(blk, p) for blk in plan_layers], H_input[p])
+        for p in range(H_input.shape[0])
+    ])
+
+
+def gnn_apply_cooperative(
+    model: GNN,
+    cfg: GNNConfig,
+    ex,                     # cooperative.Executor
+    plan_layers,            # CoopLayer blocks
+    H_input: torch.Tensor,  # per-PE owned input embeddings (P, cap_L, d)
+    tilde_caps,             # S~ capacities per layer
+) -> torch.Tensor:
+    """Cooperative forward (Alg. 1): redistribute, then per-PE compute.
+
+    The redistribution is a global exchange (all PEs take part); the
+    bipartite layer compute is per PE and goes through ``ex.pe``.
+    """
+    from repro_torch.core.cooperative import redistribute
+
+    if cfg.model != "gcn":
+        raise NotImplementedError(_MODEL_TODO)
+    H = H_input
+    for l in reversed(range(cfg.num_layers)):
+        blk = plan_layers[l]
+        Ht = redistribute(ex, blk, H, tilde_caps[l])
+        H = ex.pe(model.layers[l], Ht, blk.self_idx, blk.nbr_idx, blk.mask)
+    return H

@@ -1,0 +1,210 @@
+"""GNN training loop over :class:`MinibatchEngine` (port of ``repro.train.loop``).
+
+Both minibatching modes run the same model code, the same loss path and
+the same global batch size, the paper's controlled comparison (§4.3,
+Fig. 9).  The mode lives inside the engine:
+
+* independent: P PEs × local batch b, P separate plans (stacked),
+  gradients of the mean loss over all PEs' seeds;
+* cooperative: ONE global batch of size b·P partitioned by ownership,
+  all-to-all exchanges during sampling and forward/backward (Alg. 1).
+
+One step: the seed draw and plan (``engine.plan_at``), the gather of the
+input features (the ``gather`` kernel on a card), the GCN (``spmm``
+forward and backward kernels on a card), masked cross-entropy, backward
+and Adam.  ``train_gnn`` can end each of these stages with a device sync
+and record its wall time (``stage_times=True``).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import frontier
+from repro_torch.core.graph import INVALID
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.engine import EngineConfig, MinibatchEngine
+from repro_torch.models.gnn import GNN, GNNConfig, init_gnn
+from repro_torch.train.metrics import masked_softmax_xent, micro_f1
+from repro_torch.train.optim import AdamState, adam_init, adam_update
+
+STAGES = ("plan", "gather", "forward_backward", "adam")
+
+
+@dataclass
+class TrainConfig:
+    mode: str = "cooperative"        # independent | cooperative
+    num_pes: int = 4
+    local_batch: int = 64            # b; global batch = b * P
+    num_steps: int = 100
+    lr: float = 1e-3
+    sampler: str = "labor0"
+    fanout: int = 10
+    schedule: str = "smoothed"       # iid | smoothed | nested
+    kappa: Optional[int] = 1         # dependent-minibatching window
+    partition: str = "hash"
+    seed: int = 0
+    eval_every: int = 25
+    plan_backend: str = "reference"  # reference | fused (the CUDA kernels on a card)
+    executor: str = "sim"            # sim (shard is not ported)
+
+    def engine_config(self, num_layers: int) -> EngineConfig:
+        return EngineConfig(
+            mode=self.mode, num_pes=self.num_pes, local_batch=self.local_batch,
+            num_layers=num_layers, sampler=self.sampler, fanout=self.fanout,
+            schedule=self.schedule, kappa=self.kappa, partition=self.partition,
+            seed=self.seed, plan_backend=self.plan_backend,
+            executor=self.executor,
+        )
+
+
+@dataclass
+class TrainResult:
+    model: GNN
+    losses: list = field(default_factory=list)
+    val_f1: list = field(default_factory=list)
+    stage_ms: list = field(default_factory=list)  # per step {stage: ms}, if timed
+
+    @property
+    def params(self) -> dict:
+        """Parameters in the JAX package's pytree layout, as numpy arrays."""
+        return {"layers": [
+            {"w": layer.w.detach().cpu().numpy(), "b": layer.b.detach().cpu().numpy()}
+            for layer in self.model.layers
+        ]}
+
+
+def plan_loss(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, plan,
+              H: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Masked mean cross-entropy of the seed logits of one plan."""
+    V = engine.graph.num_vertices
+    logits = engine.apply_model(model, gnn_cfg, plan, H)
+    y = labels[plan.seed_ids.clamp(0, V - 1).long()]
+    valid = plan.seed_ids != INVALID
+    return masked_softmax_xent(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1), valid.reshape(-1)
+    )
+
+
+def step_loss(engine: MinibatchEngine, gnn_cfg: GNNConfig, store, labels: torch.Tensor,
+              model: GNN, step: int, mark: Callable = lambda: None):
+    """Plan -> features -> logits -> xent for one step; ``(loss, plan)``.
+    ``mark()`` is called after the plan and after the feature gather."""
+    plan = engine.plan_at(step)
+    mark()
+    H = plan.gather_inputs(store)
+    mark()
+    return plan_loss(engine, gnn_cfg, model, plan, H, labels), plan
+
+
+def make_loss_fn(engine: MinibatchEngine, gnn_cfg: GNNConfig, store, labels):
+    """Single mode-agnostic loss path: plan -> features -> logits -> xent."""
+    labels = torch.as_tensor(np.asarray(labels)).to(engine.device)
+
+    def loss_fn(model: GNN, step: int) -> torch.Tensor:
+        return step_loss(engine, gnn_cfg, store, labels, model, step)[0]
+
+    return loss_fn
+
+
+def train_step(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: AdamState,
+               labels: torch.Tensor, step: int, lr: float, mark: Callable = lambda: None):
+    """One training step: the plan, the input gather, loss and gradients,
+    Adam; ``(loss, opt, plan)``.  ``mark()`` ends each of ``STAGES``."""
+    params = list(model.parameters())
+    loss, plan = step_loss(engine, gnn_cfg, engine.store, labels, model, step, mark)
+    grads = torch.autograd.grad(loss, params)
+    mark()
+    opt = adam_update(params, grads, opt, lr=lr)
+    mark()
+    return loss, opt, plan
+
+
+def train_gnn(
+    dataset,
+    gnn_cfg: GNNConfig,
+    tc: TrainConfig,
+    model: Optional[GNN] = None,
+    device: DeviceLike = None,
+    stage_times: bool = False,
+    on_step: Optional[Callable] = None,
+) -> TrainResult:
+    """Train for ``tc.num_steps`` steps on ``device`` (CUDA unless ``"cpu"``).
+
+    ``model`` (e.g. from :func:`repro_torch.models.gnn.params_from_jax`)
+    moves to the device and is trained in place; by default the weights
+    are drawn from ``tc.seed``.  ``stage_times`` ends every stage with a
+    sync and records its wall ms in ``TrainResult.stage_ms``;
+    ``on_step(step, plan)`` sees each step's plan.
+    """
+    dev = resolve_device(device)
+    engine = MinibatchEngine.from_config(
+        dataset.graph, tc.engine_config(gnn_cfg.num_layers), dataset=dataset,
+        device=dev,
+    )
+    if model is None:
+        model = init_gnn(gnn_cfg, torch.Generator().manual_seed(tc.seed), device=dev)
+    model = model.to(dev)
+    opt = adam_init(list(model.parameters()))
+    labels = torch.as_tensor(np.asarray(dataset.labels)).to(dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+
+    result = TrainResult(model=model)
+    for step in range(tc.num_steps):
+        marks = [time.perf_counter()]
+
+        def mark():
+            if stage_times:
+                sync()
+                marks.append(time.perf_counter())
+
+        loss, opt, plan = train_step(engine, gnn_cfg, model, opt, labels, step, tc.lr, mark)
+        result.losses.append(float(loss.detach()))
+        if stage_times:
+            result.stage_ms.append({
+                s: 1e3 * (b - a) for s, a, b in zip(STAGES, marks, marks[1:])
+            })
+        if on_step is not None:
+            on_step(step, plan)
+        if tc.eval_every and (step + 1) % tc.eval_every == 0:
+            result.val_f1.append(evaluate(dataset, gnn_cfg, model, tc, device=dev))
+    return result
+
+
+@torch.no_grad()
+def evaluate(
+    dataset, gnn_cfg: GNNConfig, model: GNN, tc: TrainConfig, split: str = "val",
+    max_batches: int = 4, device: DeviceLike = None,
+) -> float:
+    """Micro-F1 with (independent) sampled neighborhoods -- Fig. 4 style."""
+    dev = resolve_device(device)
+    eval_engine = MinibatchEngine.from_config(
+        dataset.graph,
+        EngineConfig(
+            mode="independent", num_pes=1, local_batch=tc.local_batch,
+            num_layers=gnn_cfg.num_layers, sampler=tc.sampler,
+            fanout=tc.fanout, schedule="iid", seed=tc.seed + 999,
+        ),
+        dataset=dataset, device=dev,
+    )
+    ids_all = {"val": dataset.val_ids, "test": dataset.test_ids}[split]
+    labels = np.asarray(dataset.labels)
+    preds, ys = [], []
+    for i in range(max_batches):
+        lo = i * tc.local_batch
+        ids = ids_all[lo : lo + tc.local_batch]
+        if len(ids) == 0:
+            break
+        seeds = frontier.pad_to(torch.from_numpy(np.asarray(ids, np.int32)), tc.local_batch)
+        plan = eval_engine.build_plan(seeds, step=i)  # iid schedule @ seed+999
+        h = plan.gather_inputs(eval_engine.store)
+        logits = eval_engine.apply_model(model, gnn_cfg, plan, h)
+        seed_ids = plan.seed_ids.cpu().numpy()
+        valid = seed_ids != INVALID
+        preds.append(logits.argmax(-1).cpu().numpy()[valid])
+        ys.append(labels[seed_ids[valid]])
+    return micro_f1(np.concatenate(preds), np.concatenate(ys))

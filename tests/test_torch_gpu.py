@@ -7,8 +7,11 @@ that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Each kernel must equal its plain torch version bit for bit on the card,
-including overflow, all-INVALID and empty inputs, and a served trace
-must give the same integer accounting and plan entries as on the CPU.
+including overflow, all-INVALID and empty inputs (the ``spmm`` backward
+also equals the CPU's plain version); each rejects a wrongly typed or
+non-contiguous input by raising.  A served
+trace must give the same integer accounting and plan entries as on the
+CPU, and a few cooperative training steps the same plans and losses.
 """
 import numpy as np
 import pytest
@@ -16,10 +19,21 @@ import torch
 
 from repro_torch.data import make_recsys
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.data import SyntheticGraphDataset, rmat_graph
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
+from repro_torch.kernels.gather import gather, gather_cuda, gather_ref
+from repro_torch.kernels.spmm import (
+    spmm_backward_cuda,
+    spmm_backward_ref,
+    spmm_cuda,
+    spmm_mean,
+    spmm_ref,
+    spmm_sum,
+)
 from repro_torch.kernels.unique_compact import unique_with_inverse, unique_with_inverse_ref
 from repro_torch.models.gnn import GNNConfig, init_gnn
 from repro_torch.serve import GNNServer, ServeConfig, poisson_trace
+from repro_torch.train import TrainConfig, train_gnn
 from repro_torch.store import probe_ref, tag_probe
 
 INVALID = 2**31 - 1
@@ -100,3 +114,110 @@ def test_served_trace_matches_cpu(cuda):
             b.bucket, b.num_unique, b.edges, b.fetched_rows)
     for a, b in zip(got.served, want.served):
         np.testing.assert_allclose(a.pred, b.pred, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("V,d,n", [(5000, 64, 20000), (300, 7, 1000), (64, 256, 1), (10, 4, 0)])
+def test_gather_matches_plain(cuda, V, d, n):
+    rng = np.random.default_rng(V + d)
+    table = torch.from_numpy(rng.standard_normal((V, d)).astype(np.float32)).to(cuda)
+    ids = rng.integers(-3, V + 3, n).astype(np.int32)
+    ids[rng.random(n) < 0.1] = INVALID
+    ids = torch.from_numpy(ids).to(cuda)
+    assert torch.equal(gather(table, ids), gather_ref(table, ids))
+    # an unaligned table view takes the scalar path
+    if d % 4 == 0 and V > 1:
+        view = table.reshape(-1)[1 : 1 + (V - 1) * d].reshape(V - 1, d)
+        assert torch.equal(gather(view, ids), gather_ref(view, ids))
+    torch.cuda.synchronize()
+
+
+def _spmm_inputs(S, d, n, w, seed, device):
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(rng.standard_normal((S, d)).astype(np.float32)).to(device)
+    idx = rng.integers(-1, S, (n, w)).astype(np.int32)
+    mask = (rng.random((n, w)) < 0.4) & (idx >= 0)
+    idx[rng.random((n, w)) < 0.05] = S + 5  # masked-out junk must be ignored
+    mask &= idx < S
+    return src, torch.from_numpy(idx).to(device), torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.parametrize("S,d,n,w", [
+    (262144, 64, 39208, 32), (26136, 256, 1584, 32), (1056, 256, 64, 32), (50, 3, 7, 1),
+    (10, 8, 0, 4),
+])
+def test_spmm_forward_matches_plain(cuda, S, d, n, w):
+    src, idx, mask = _spmm_inputs(S, d, n, w, S + n, cuda)
+    for mean, fn in ((False, spmm_sum), (True, spmm_mean)):
+        assert torch.equal(fn(src, idx, mask), spmm_ref(src, idx, mask, mean=mean)), mean
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("S,d,n,w", [
+    (262144, 64, 39208, 32), (26136, 256, 1584, 32), (1056, 256, 64, 32), (50, 3, 7, 1),
+    (10, 8, 0, 4),
+])
+def test_spmm_backward_matches_plain(cuda, S, d, n, w):
+    src, idx, mask = _spmm_inputs(S, d, n, w, S * w, cuda)
+    g = torch.randn((n, d), generator=torch.Generator().manual_seed(S)).to(cuda)
+    for mean, fn in ((False, spmm_sum), (True, spmm_mean)):
+        reset_launches()
+        s = src.clone().requires_grad_()
+        (got,) = torch.autograd.grad(fn(s, idx, mask), s, g)
+        if n:
+            assert LAUNCHES["spmm"] == 1 and LAUNCHES["spmm_backward"] == 1
+        assert torch.equal(got, spmm_backward_ref(g, idx, mask, S, mean=mean)), mean
+        cpu = src.cpu().requires_grad_()
+        (ref,) = torch.autograd.grad(fn(cpu, idx.cpu(), mask.cpu()), cpu, g.cpu())
+        assert torch.equal(got.cpu(), ref), mean
+    torch.cuda.synchronize()
+
+
+def test_kernels_reject_bad_inputs(cuda):
+    table = torch.zeros((8, 4), device=cuda)
+    ids = torch.zeros(6, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_cuda(table.double(), ids)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_cuda(table, ids.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_cuda(table.t(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_cuda(table, torch.zeros(12, dtype=torch.int32, device=cuda)[::2])
+    src, idx, mask = _spmm_inputs(8, 4, 6, 3, 0, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        spmm_cuda(src.half(), idx, mask, mean=False)
+    with pytest.raises(ValueError, match="dtype"):
+        spmm_cuda(src, idx, mask.to(torch.uint8), mean=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_cuda(src, idx.t(), mask.t(), mean=False)
+    grad = torch.zeros((6, 4), device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        spmm_backward_cuda(grad, idx.long(), mask, 8, mean=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_backward_cuda(grad.t().contiguous().t(), idx, mask, 8, mean=True)
+
+
+def test_cooperative_training_matches_cpu(cuda):
+    ds = SyntheticGraphDataset(rmat_graph(scale=11, edge_factor=8, max_degree=16,
+                                          device="cpu"), feature_dim=16, num_classes=4)
+    cfg = GNNConfig(num_layers=2, in_dim=16, hidden_dim=32, num_classes=4)
+    tc = TrainConfig(num_pes=4, local_batch=16, fanout=5, num_steps=3, kappa=4,
+                     eval_every=0, plan_backend="fused")
+    plans = {}
+    runs = {}
+    for dev in (cuda, "cpu"):
+        model = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+        reset_launches()
+        runs[str(dev)] = train_gnn(
+            ds, cfg, tc, model=model, device=dev,
+            on_step=lambda step, plan, d=str(dev): plans.setdefault(d, []).append(plan))
+        if dev is cuda:
+            for k in ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"):
+                assert LAUNCHES.get(k, 0) > 0, k
+    for a, b in zip(plans["cuda"], plans["cpu"]):
+        for la, lb in zip(a.layers, b.layers):
+            for name in ("seeds", "self_idx", "nbr_idx", "mask", "slot_to_tilde",
+                         "req_idx", "tilde_ids"):
+                assert torch.equal(getattr(la, name).cpu(), getattr(lb, name)), name
+        assert torch.equal(a.input_ids.cpu(), b.input_ids)
+    np.testing.assert_allclose(runs["cuda"].losses, runs["cpu"].losses, rtol=1e-4)

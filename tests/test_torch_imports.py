@@ -16,7 +16,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import FeatureStore
 from repro_torch.kernels import _build
+from repro_torch.kernels.gather import gather, gather_cuda, gather_ref
+from repro_torch.kernels.spmm import (
+    spmm_backward_cuda,
+    spmm_backward_ref,
+    spmm_cuda,
+    spmm_mean,
+    spmm_ref,
+    spmm_sum,
+)
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
 from repro_torch.kernels.unique_compact import unique_with_inverse, unique_with_inverse_ref
 from repro_torch.store import probe_ref, tag_probe
@@ -42,7 +52,9 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_has_modules_and_chip_smoke():
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "src/repro_torch/serve/server.py",
-                 "src/repro_torch/kernels/_build.py", "src/repro_torch/store/kernel.py"):
+                 "src/repro_torch/kernels/_build.py", "src/repro_torch/store/kernel.py",
+                 "src/repro_torch/train/loop.py", "src/repro_torch/core/cooperative.py",
+                 "src/repro_torch/kernels/gather/ops.py", "src/repro_torch/kernels/spmm/ops.py"):
         assert want in rel
 
 
@@ -85,6 +97,27 @@ def test_wrappers_take_plain_path_on_cpu(no_launch):
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
+def test_training_wrappers_take_plain_path_on_cpu(no_launch):
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.standard_normal((30, 8)).astype(np.float32))
+    ids = torch.tensor([[3, INVALID, 29], [0, -2, 30]], dtype=torch.int32)
+    got = gather(table, ids)
+    assert got.shape == (2, 3, 8)
+    assert torch.equal(got.reshape(-1, 8), gather_ref(table, ids.reshape(-1)))
+    assert torch.equal(FeatureStore(table).gather(ids), got)
+
+    src = torch.from_numpy(rng.standard_normal((30, 8)).astype(np.float32)).requires_grad_()
+    idx = torch.from_numpy(rng.integers(-1, 30, (12, 5)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((12, 5)) < 0.6) & (idx >= 0)
+    for fn, mean in ((spmm_sum, False), (spmm_mean, True)):
+        out = fn(src, idx, mask)
+        assert torch.equal(out.detach(), spmm_ref(src.detach(), idx, mask, mean=mean))
+        g = torch.ones_like(out)
+        (grad,) = torch.autograd.grad(out, src, g)
+        assert torch.equal(grad, spmm_backward_ref(g, idx, mask, 30, mean=mean))
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
 def test_wrappers_reject_other_devices():
     meta = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
@@ -93,6 +126,10 @@ def test_wrappers_reject_other_devices():
         unique_with_inverse(meta, 2)
     with pytest.raises(ValueError):
         tag_probe(meta.reshape(2, 2), meta, meta)
+    with pytest.raises(ValueError):
+        gather(meta.reshape(2, 2).float(), meta)
+    with pytest.raises(ValueError):
+        spmm_sum(meta.reshape(2, 2).float(), meta.reshape(2, 2), meta.reshape(2, 2).bool())
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -101,6 +138,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     t = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="not CUDA"):
         frontier_gather_cuda(t, t, t, 2)
+    f = torch.zeros((4, 2))
+    with pytest.raises(ValueError, match="not CUDA"):
+        gather_cuda(f, t)
+    with pytest.raises(ValueError, match="not CUDA"):
+        spmm_cuda(f, t.reshape(2, 2), t.reshape(2, 2).bool(), mean=False)
+    with pytest.raises(ValueError, match="not CUDA"):
+        spmm_backward_cuda(f, t.reshape(2, 2), t.reshape(2, 2).bool(), 4, mean=False)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -125,8 +169,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         MinibatchEngine.from_config(ds.graph, EngineConfig(local_batch=8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TieredFeatureStore(ds.features, capacity=16, ways=4)
+    from repro_torch.data import SyntheticGraphDataset, rmat_graph
+    from repro_torch.train import TrainConfig, train_gnn
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rmat_graph(scale=5, max_degree=4)
+    syn = SyntheticGraphDataset(rmat_graph(scale=5, max_degree=4, device="cpu"),
+                                feature_dim=8, num_classes=4)
+    tc = TrainConfig(num_pes=2, local_batch=4, fanout=2, num_steps=1, eval_every=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_gnn(syn, cfg, tc)
     # the same calls run when the CPU is asked for
     GNNServer(ds.graph, ds.features, cfg, model, ServeConfig(), device="cpu")
+    assert len(train_gnn(syn, cfg, tc, device="cpu").losses) == 1
 
 
 def test_unported_paths_raise_not_implemented():
@@ -142,7 +197,8 @@ def test_unported_paths_raise_not_implemented():
                      feature_dim=8, max_degree=16, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MinibatchEngine.from_config(
-            ds.graph, EngineConfig(mode="cooperative", num_pes=2), device="cpu"
+            ds.graph, EngineConfig(mode="cooperative", num_pes=2, executor="shard"),
+            device="cpu",
         )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GNN(GNNConfig(model="gat"), device="cpu")

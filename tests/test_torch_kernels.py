@@ -5,6 +5,9 @@ equal bit for bit to the JAX ``ref``/``probe_ref`` AND to the Pallas
 kernel run in interpret mode, on the sweeps of ``tests/test_kernels.py``
 and ``tests/test_feature_store.py`` plus overflow, all-INVALID and empty
 cases.  Inputs are numpy arrays from seeds handed to both packages.
+``spmm`` is the exception: its plain version adds the ``w`` slots in
+order where the JAX ones use ``jnp.sum``, so it is held within
+``atol=1e-5``, and its backward likewise against ``jax.grad``.
 
 The CUDA kernels themselves are held against these plain versions on
 a card by ``tests/test_torch_gpu.py``.
@@ -14,7 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.core import frontier as jfrontier
+from repro.kernels.gather.kernel import paged_gather_pallas
+from repro.kernels.gather.ref import gather_ref as j_gather_ref
+from repro.kernels.spmm.kernel import spmm_pallas
+from repro.kernels.spmm.ref import spmm_ref as j_spmm_ref
 from repro.kernels.frontier_gather.kernel import frontier_gather_pallas
 from repro.kernels.frontier_gather.ref import frontier_gather_ref as j_frontier_ref
 from repro.kernels.unique_compact.kernel import unique_compact_pallas
@@ -22,6 +31,8 @@ from repro.kernels.unique_compact.ref import unique_with_inverse_ref as j_unique
 from repro.store.kernel import probe_ref as j_probe_ref
 from repro.store.kernel import tag_probe_pallas
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
+from repro_torch.kernels.gather import gather, gather_ref
+from repro_torch.kernels.spmm import spmm_backward_ref, spmm_mean, spmm_ref, spmm_sum
 from repro_torch.kernels.unique_compact import (
     unique_compact_sorted_ref,
     unique_with_inverse,
@@ -173,3 +184,82 @@ def test_tag_probe_duplicate_tags_take_first_way_and_empty():
     e = np.zeros((0,), np.int32)
     _eq(probe_ref(_t(tags), _t(e), _t(e)),
         j_probe_ref(jnp.asarray(tags), jnp.asarray(e), jnp.asarray(e)))
+
+
+# ---------------------------------------------------------------------------
+# gather (feature loading) and spmm (neighbor aggregation)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("V,d,n,page,block_n", [
+    (2048, 128, 512, 512, 512), (4096, 256, 1024, 1024, 512), (1024, 128, 512, 256, 256),
+])
+def test_gather_matches_jax_ref_and_pallas(V, d, n, page, block_n):
+    rng = np.random.default_rng(V + n)
+    tab = rng.standard_normal((V, d)).astype(np.float32)
+    ids = np.concatenate([rng.integers(0, V, n - 32), np.full(32, INVALID)]).astype(np.int32)
+    rng.shuffle(ids)
+    got = gather_ref(_t(tab), _t(ids))
+    _eq(got, j_gather_ref(jnp.asarray(tab), jnp.asarray(ids)))
+    _eq(got, paged_gather_pallas(jnp.asarray(tab), jnp.asarray(ids), block_n=block_n,
+                                 block_d=128, page=page, interpret=True))
+    assert torch.equal(gather(_t(tab), _t(ids)), got)
+
+
+def test_gather_out_of_range_and_empty():
+    tab = np.arange(12, dtype=np.float32).reshape(4, 3)
+    ids = np.array([[3, -1, 4], [INVALID, 0, -7]], np.int32)
+    got = gather(_t(tab), _t(ids))
+    _eq(got, j_gather_ref(jnp.asarray(tab), jnp.asarray(ids)))
+    assert got.shape == (2, 3, 3) and int((got != 0).any(-1).sum()) == 2
+    e = np.zeros((0,), np.int32)
+    _eq(gather(_t(tab), _t(e)), j_gather_ref(jnp.asarray(tab), jnp.asarray(e)))
+
+
+SPMM_SWEEP = [  # (S, d, n, w, block_n, block_d) of tests/test_kernels.py
+    (256, 128, 128, 8, 128, 128),
+    (512, 256, 256, 12, 128, 128),
+    (128, 128, 128, 1, 64, 128),
+    (1024, 384, 384, 16, 128, 128),
+]
+
+
+@pytest.mark.parametrize("S,d,n,w,block_n,block_d", SPMM_SWEEP)
+def test_spmm_matches_jax_ref_and_pallas(S, d, n, w, block_n, block_d):
+    rng = np.random.default_rng(S + w)
+    src = rng.standard_normal((S, d)).astype(np.float32)
+    idx = rng.integers(0, S, (n, w)).astype(np.int32)
+    mask = rng.random((n, w)) < 0.6
+    for mean, fn in ((True, spmm_mean), (False, spmm_sum)):
+        got = spmm_ref(_t(src), _t(idx), _t(mask), mean=mean)
+        want = j_spmm_ref(jnp.asarray(src), jnp.asarray(idx), jnp.asarray(mask), mean=mean)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+        pallas = spmm_pallas(jnp.asarray(src), jnp.asarray(idx), jnp.asarray(mask), mean=mean,
+                             block_n=block_n, block_d=block_d, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=1e-5)
+        assert torch.equal(fn(_t(src), _t(idx), _t(mask)), got)
+
+
+@pytest.mark.parametrize("S,d,n,w,block_n,block_d", SPMM_SWEEP)
+def test_spmm_backward_matches_jax_grad(S, d, n, w, block_n, block_d):
+    rng = np.random.default_rng(S * w)
+    src = rng.standard_normal((S, d)).astype(np.float32)
+    idx = rng.integers(-1, S, (n, w)).astype(np.int32)
+    mask = (rng.random((n, w)) < 0.6) & (idx >= 0)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    for mean, fn in ((True, spmm_mean), (False, spmm_sum)):
+        want = jax.grad(lambda s: jnp.sum(
+            j_spmm_ref(s, jnp.asarray(idx), jnp.asarray(mask), mean=mean) * g))(jnp.asarray(src))
+        got = spmm_backward_ref(_t(g), _t(idx), _t(mask), S, mean=mean)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+        s = _t(src).requires_grad_()
+        (auto,) = torch.autograd.grad(fn(s, _t(idx), _t(mask)), s, _t(g))
+        assert torch.equal(auto, got)
+
+
+def test_spmm_all_masked_rows_zero_and_empty():
+    src = torch.ones((128, 16))
+    idx = torch.zeros((128, 4), dtype=torch.int32)
+    mask = torch.zeros((128, 4), dtype=torch.bool)
+    assert float(spmm_mean(src, idx, mask).abs().max()) == 0.0
+    assert float(spmm_sum(src, idx, mask).abs().max()) == 0.0
+    e = torch.zeros((0, 4), dtype=torch.int32)
+    assert spmm_sum(src, e, e.bool()).shape == (0, 16)

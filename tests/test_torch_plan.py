@@ -64,14 +64,27 @@ def test_hash_and_uniform_bit_equal(ids, seed, salt):
     (0, 0, 8, 3), (5, 1, 16, 21),               # smoothed: c > 0
 ])
 def test_vertex_uniform_bit_equal_to_jitted_jax(ids, base_seed, salt, kappa, step):
+    # the step is a traced argument, as in ``plan_at`` and the jitted train step
     ids = ids[: 1 << 18]
-    jstate = jrng.DependentRNG(base_seed, kappa, step).state
-    want = np.asarray(jax.jit(lambda i: jstate.vertex_uniform(i, salt))(jnp.asarray(ids)))
+    sched = jrng.DependentRNG(base_seed, kappa)
+    want = np.asarray(jax.jit(lambda i, s: sched.state_at(s).vertex_uniform(i, salt))(
+        jnp.asarray(ids), jnp.int32(step)))
     got = trng.DependentRNG(base_seed, kappa, step).state.vertex_uniform(
         torch.from_numpy(ids), salt
     ).numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
+
+
+def test_smoothed_cos_sin_bit_equal_to_traced_jax():
+    # every interpolation coefficient c = i / kappa the smoothed schedule
+    # takes for kappa <= 64, with c traced as in ``plan_at``
+    f = jax.jit(lambda c: (jnp.cos(c * jnp.pi / 2), jnp.sin(c * jnp.pi / 2)))
+    cs = sorted({float(np.float32(i) / np.float32(k)) for k in range(1, 65) for i in range(k)})
+    want = f(jnp.asarray(cs, jnp.float32))
+    got = np.asarray([trng._cos_sin_half_pi(c) for c in cs], np.float32)
+    np.testing.assert_array_equal(got[:, 0], np.asarray(want[0]))
+    np.testing.assert_array_equal(got[:, 1], np.asarray(want[1]))
 
 
 def test_vertex_uniform_accept_masks_match_eager_jax(ids):
