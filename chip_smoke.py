@@ -10,9 +10,12 @@ Phases:
    (``nvcc`` for ``sm_90a``, one process per source, in parallel).
 1. Kernels against their plain torch versions, on the card, on inputs
    from a numpy seed: the serving kernels at the serving path's shapes,
-   ``gather`` and ``spmm`` (forward and backward) at the training path's
-   largest shapes, with the index tables of a real training plan.  Every
-   kernel must be equal bit for bit to its plain version.  Each kernel's device
+   ``gather``, ``spmm`` (forward and backward), ``seg_softmax`` (forward
+   and backward, 4 heads) and ``expand_indptr`` at the training path's
+   shapes, with the index tables and masks of a real training plan.  Every
+   kernel must be equal bit for bit to its plain version, except
+   ``seg_softmax``: forward within ``atol=1e-6``, backward within
+   ``atol=1e-6 * max|g|``, masked slots exactly 0.  Each kernel's device
    time (CUDA-graph replay) and event time, its plain version's, a
    library yardstick where one PyTorch call computes the same function,
    and its bound: the larger of its bytes over the memory rate and its
@@ -48,6 +51,14 @@ Phases:
    step: wall ms split into plan, gather, forward+backward and Adam (each
    ended by a sync) and each kernel's launches; then the device idle
    share over two more steps under the profiler.
+4. Train the GAT: phase 3 again with a 3-layer GAT at the same width and
+   4 heads (``GNNConfig(model="gat", num_heads=4)``), same graph, plans
+   and checks; its attention softmax runs through ``seg_softmax`` and its
+   backward kernel.
+5. COO: ``repro_torch.core.layer_to_coo(backend="fused")`` on PE 0's
+   block of every layer of phase 4's step-0 card plan, counters zeroed
+   right before; ``expand_indptr`` must have launched and every output
+   must equal the CPU's ``layer_to_coo`` on the same plan.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -56,6 +67,7 @@ without the rest of the repository next to this file, it exits 1.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -101,9 +113,31 @@ KERNELS = {
         "source": "src/repro_torch/kernels/spmm/spmm.cu",
         "replaces": "src/repro/kernels/spmm/kernel.py:43",
     },
+    "seg_softmax": {
+        "source": "src/repro_torch/kernels/seg_softmax/seg_softmax.cu",
+        "replaces": "src/repro/kernels/seg_softmax/kernel.py:33",
+    },
+    "seg_softmax_backward": {
+        "source": "src/repro_torch/kernels/seg_softmax/seg_softmax.cu",
+        "replaces": "src/repro/kernels/seg_softmax/kernel.py:33",
+    },
+    "expand_indptr": {
+        "source": "src/repro_torch/kernels/expand_indptr/expand_indptr.cu",
+        "replaces": "src/repro/kernels/expand_indptr/kernel.py:33",
+    },
 }
-SERVE_KERNELS = ("frontier_gather", "unique_compact", "tag_probe", "spmm")
-TRAIN_KERNELS = ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward")
+# the kernels each path must launch
+PATH_KERNELS = {
+    "serve": ("frontier_gather", "unique_compact", "tag_probe", "spmm"),
+    "train": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "train_gat": ("frontier_gather", "unique_compact", "gather", "seg_softmax",
+                  "seg_softmax_backward"),
+    "coo": ("expand_indptr",),
+}
+# seg_softmax against its plain version on the card: the kernel calls CUDA's
+# expf where the plain version calls torch.exp; the backward's bound scales
+# with the largest output gradient
+SEG_ATOL, SEG_BWD_ATOL = 1e-6, 1e-6
 
 
 class PhaseError(RuntimeError):
@@ -436,8 +470,96 @@ def phase1_train(engine) -> dict:
         fwd.append(f)
         bwd.append(b)
     out["spmm"], out["spmm_backward"] = fwd, bwd
+
+    # seg_softmax (GAT, 4 heads) and expand_indptr (layer_to_coo) on every
+    # layer's mask of PE 0
+    fwd, bwd, coo = [], [], []
+    for layer in plan.layers:
+        f, b = seg_softmax_rows(layer.mask[0].contiguous(), 4, rng)
+        fwd.append(f)
+        bwd.append(b)
+        coo.append(expand_indptr_row(layer.mask[0]))
+    out["seg_softmax"], out["seg_softmax_backward"], out["expand_indptr"] = fwd, bwd, coo
     report_bounds(out)
     return out
+
+
+def seg_softmax_rows(mask, h: int, rng):
+    """``seg_softmax`` and its backward against the plain versions on the
+    card, on one layer's ``(n, w)`` mask with ``h`` heads (logits and
+    gradients from ``rng``), within ``SEG_ATOL`` / ``SEG_BWD_ATOL * max|g|``
+    with masked slots exactly 0; rows with timings and bounds.  Bytes: the
+    mask, the logits (forward) or alpha and g (backward) of the valid
+    slots, and the whole output."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.seg_softmax import (
+        seg_softmax_backward_cuda,
+        seg_softmax_backward_ref,
+        seg_softmax_cuda,
+        seg_softmax_ref,
+    )
+
+    n, w = mask.shape
+    e = torch.from_numpy((3 * rng.standard_normal((n, w, h))).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal((n, w, h)).astype(np.float32)).cuda()
+    valid = mask[..., None].expand(n, w, h)
+    nnz = int(mask.sum())
+    shape = f"n={n} w={w} h={h} valid slots={nnz}"
+    got, want = seg_softmax_cuda(e, mask), seg_softmax_ref(e, mask)
+    err = float_err(got, want)
+    check(err <= SEG_ATOL, f"seg_softmax {shape}: max abs err {err} > {SEG_ATOL}")
+    check(not bool(got[~valid].any()), f"seg_softmax {shape}: masked slots not 0")
+    pre = torch.where(valid, e, -1e9)
+    fwd = dict(
+        shape=shape, bytes=n * w + 4 * h * nnz + 4 * n * w * h, ops=5 * h * nnz + n * h,
+        max_abs_err=err,
+        **timings(lambda: seg_softmax_cuda(e, mask), lambda: seg_softmax_ref(e, mask),
+                  lambda: torch.softmax(pre, dim=1), calls=5),
+    )
+    alpha = want
+    got = seg_softmax_backward_cuda(alpha, g, mask)
+    want = seg_softmax_backward_ref(alpha, g, mask)
+    err = float_err(got, want)
+    atol = SEG_BWD_ATOL * float(g.abs().max())
+    check(err <= atol, f"seg_softmax_backward {shape}: max abs err {err} > {atol}")
+    check(not bool(got[~valid].any()), f"seg_softmax_backward {shape}: masked slots not 0")
+    leaf = pre.clone().requires_grad_()
+    y = torch.softmax(leaf, dim=1)
+    bwd = dict(
+        shape=shape, bytes=n * w + 8 * h * nnz + 4 * n * w * h, ops=4 * h * nnz,
+        max_abs_err=err,
+        **timings(lambda: seg_softmax_backward_cuda(alpha, g, mask),
+                  lambda: seg_softmax_backward_ref(alpha, g, mask),
+                  lambda: torch.autograd.grad(y, leaf, g, retain_graph=True), calls=5),
+    )
+    return fwd, bwd
+
+
+def expand_indptr_row(mask) -> dict:
+    """``expand_indptr`` against its plain version, equal bit for bit, on
+    the indptr of one layer's ``(n, w)`` mask with ``n * w`` edge slots
+    (``layer_to_coo``'s capacity).  Bytes: indptr read once, the rows
+    written once; operations: a compare per slot and a binary search per
+    slot that holds an edge."""
+    import math
+
+    import torch
+    from repro_torch.kernels.expand_indptr import expand_indptr_cuda, expand_indptr_ref
+
+    n, w = mask.shape
+    counts = mask.sum(dim=1).to(torch.int32)
+    indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0).to(torch.int32)])
+    E, total = n * w, int(indptr[-1])
+    got, want = expand_indptr_cuda(indptr, E), expand_indptr_ref(indptr, E)
+    check(torch.equal(got, want), f"expand_indptr R={n} E={E}: differs from plain")
+    slots = torch.arange(E, dtype=torch.int32, device=indptr.device)
+    return dict(
+        shape=f"R={n} E={E} edges={total}", bytes=4 * (n + 1) + 4 * E,
+        ops=E + total * math.ceil(math.log2(n + 1)), max_abs_err=max_abs_err(got, want),
+        **timings(lambda: expand_indptr_cuda(indptr, E), lambda: expand_indptr_ref(indptr, E),
+                  lambda: torch.searchsorted(indptr, slots, right=True), calls=5),
+    )
 
 
 def float_err(got, want) -> float:
@@ -508,25 +630,24 @@ def spmm_rows(idx, mask, S: int, d: int, rng, backward: bool = True):
 # phase 2
 # --------------------------------------------------------------------------
 def make_model(gnn_cfg, device):
-    """GCN with glorot-uniform weights from a numpy seed (JAX layout)."""
+    """The model with the JAX package's glorot-uniform limits and shapes,
+    weights drawn from a numpy seed in parameter order, zero biases."""
     import numpy as np
-    from repro_torch.models.gnn import params_from_jax
+    from repro_torch.models.gnn import GNN, glorot_limit, params_from_jax
 
     rng = np.random.default_rng(SEED)
     layers = []
-    for l in range(gnn_cfg.num_layers):
-        d_in, d_out = gnn_cfg.dims(l)
-        lim = np.sqrt(6.0 / (d_in + d_out))
-        layers.append({
-            "w": rng.uniform(-lim, lim, (d_in, d_out)).astype(np.float32),
-            "b": np.zeros((d_out,), np.float32),
-        })
+    for layer in GNN(gnn_cfg, device="cpu").layers:
+        p = {}
+        for name, t in layer.named_parameters():
+            lim = glorot_limit(name, tuple(t.shape))
+            p[name] = rng.uniform(-lim, lim, tuple(t.shape)).astype(np.float32) if lim else (
+                np.zeros(tuple(t.shape), np.float32))
+        layers.append(p)
     return params_from_jax({"layers": layers}, gnn_cfg, device=device)
 
 
 def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
-    import dataclasses
-
     import numpy as np
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -541,7 +662,7 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
     print(f"phase2 card serve: {len(rep.batches)} batches in {gpu_s:.2f} s; "
           f"launches {launches}")
-    for k in SERVE_KERNELS:
+    for k in PATH_KERNELS["serve"]:
         check(launches[k] > 0, f"kernel {k} was not launched on the serving path")
 
     cpu = GNNServer(ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cpu"),
@@ -704,8 +825,10 @@ def int_leaves(plan) -> dict:
     return out
 
 
-def phase3(tds, gnn_cfg, tc) -> dict:
-    """Cooperative training on the card and on the CPU from one init."""
+def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False) -> dict:
+    """Cooperative training of ``gnn_cfg`` on the card and on the CPU from
+    one init; ``path`` names the kernels it must launch.  Returns the
+    launches, the loss gap, the walls and the card's step-0 plan."""
     import numpy as np
     import torch
     from repro_torch.engine import MinibatchEngine
@@ -713,13 +836,14 @@ def phase3(tds, gnn_cfg, tc) -> dict:
     from repro_torch.train import train_gnn
 
     L = gnn_cfg.num_layers
-    for step in range(tc.num_steps):
-        a, b = (MinibatchEngine.from_config(tds.graph, tc.engine_config(L), dataset=tds,
-                                            device=dev).seed_batch(step)
-                for dev in ("cuda", "cpu"))
-        check(np.array_equal(a, b), f"seed_batch differs from the CPU at step {step}")
-    print(f"phase3 seed_batch card vs cpu: equal at steps 0..{tc.num_steps - 1}, "
-          f"shape {a.shape}")
+    if check_seeds:
+        for step in range(tc.num_steps):
+            a, b = (MinibatchEngine.from_config(tds.graph, tc.engine_config(L), dataset=tds,
+                                                device=dev).seed_batch(step)
+                    for dev in ("cuda", "cpu"))
+            check(np.array_equal(a, b), f"seed_batch differs from the CPU at step {step}")
+        print(f"{tag} seed_batch card vs cpu: equal at steps 0..{tc.num_steps - 1}, "
+              f"shape {a.shape}")
 
     runs, plans, per_step = {}, {"card": [], "cpu": []}, []
 
@@ -728,28 +852,30 @@ def phase3(tds, gnn_cfg, tc) -> dict:
         per_step.append({k: LAUNCHES.get(k, 0) for k in KERNELS})
 
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     runs["card"] = train_gnn(tds, gnn_cfg, tc, model=make_model(gnn_cfg, "cuda"),
                              device="cuda", stage_times=True, on_step=on_card_step)
     card_s = time.perf_counter() - t0
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
-    print(f"phase3 card train: {tc.num_steps} steps in {card_s:.2f} s (engine set-up "
-          f"included); launches {launches}")
-    for k in TRAIN_KERNELS:
-        check(launches[k] > 0, f"kernel {k} was not launched on the training path")
+    print(f"{tag} card train ({gnn_cfg.model}): {tc.num_steps} steps in {card_s:.2f} s "
+          f"(engine set-up included); launches {launches}")
+    for k in PATH_KERNELS[path]:
+        check(launches[k] > 0, f"kernel {k} was not launched on the {path} path")
     prev = {k: 0 for k in KERNELS}
     for step, (st, cum) in enumerate(zip(runs["card"].stage_ms, per_step)):
         per = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
         prev = cum
-        print(f"phase3 card step {step}: wall {sum(st.values()):.3f} ms = "
+        print(f"{tag} card step {step}: wall {sum(st.values()):.3f} ms = "
               + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
               + f"; loss {runs['card'].losses[step]:.6f}; launches {per}")
+    print(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     t0 = time.perf_counter()
     runs["cpu"] = train_gnn(tds, gnn_cfg, tc, model=make_model(gnn_cfg, "cpu"),
                             device="cpu", stage_times=True,
                             on_step=lambda step, plan: plans["cpu"].append(plan))
-    print(f"phase3 cpu train (plain path): {time.perf_counter() - t0:.2f} s; per step "
+    print(f"{tag} cpu train (plain path): {time.perf_counter() - t0:.2f} s; per step "
           + "; ".join(f"{sum(st.values()):.1f} ms" for st in runs["cpu"].stage_ms))
 
     entries = differ = 0
@@ -762,28 +888,58 @@ def phase3(tds, gnn_cfg, tc) -> dict:
             differ += int((la[name].cpu() != lb[name]).sum())
         sa, sb = a.stats(), b.stats()
         check(sa == sb, f"step {step}: plan_stats card {sa} != cpu {sb}")
-        print(f"phase3 step {step} plan_stats (equal on card and cpu): {sa}")
-    print(f"phase3 plan leaves card vs cpu: {entries} entries over {tc.num_steps} "
+        print(f"{tag} step {step} plan_stats (equal on card and cpu): {sa}")
+    print(f"{tag} plan leaves card vs cpu: {entries} entries over {tc.num_steps} "
           f"steps, {differ} differ")
     check(differ == 0, f"{differ} plan entries differ from the CPU build")
 
     lc, lp = np.asarray(runs["card"].losses), np.asarray(runs["cpu"].losses)
     check(bool(np.isfinite(lc).all()), f"non-finite losses {lc}")
     loss_rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
-    print(f"phase3 losses card {lc.tolist()} cpu {lp.tolist()}: max rel diff "
+    print(f"{tag} losses card {lc.tolist()} cpu {lp.tolist()}: max rel diff "
           f"{loss_rel:.3e} (rtol {TRAIN_RTOL})")
     check(loss_rel <= TRAIN_RTOL, f"losses differ from the CPU run by {loss_rel}")
     w_err = max(float(np.abs(a[k] - b[k]).max())
                 for a, b in zip(runs["card"].params["layers"], runs["cpu"].params["layers"])
-                for k in ("w", "b"))
-    print(f"phase3 final weights card vs cpu: max abs diff {w_err:.3e} (atol {TRAIN_ATOL})")
+                for k in a)
+    print(f"{tag} final weights card vs cpu: max abs diff {w_err:.3e} (atol {TRAIN_ATOL})")
     check(w_err <= TRAIN_ATOL, f"final weights differ from the CPU run by {w_err}")
     walls = [sum(st.values()) for st in runs["card"].stage_ms]
-    profile_train(tds, gnn_cfg, tc)
-    return {"launches": launches, "loss_rel": loss_rel, "walls": walls}
+    profile_train(tag, tds, gnn_cfg, tc)
+    return {"launches": launches, "loss_rel": loss_rel, "walls": walls,
+            "plan0": plans["card"][0]}
 
 
-def profile_train(tds, gnn_cfg, tc) -> None:
+def phase_coo(plan) -> dict:
+    """``layer_to_coo(backend="fused")`` on PE 0's block of every layer of a
+    card plan (``cap_edges`` = its ``n * w`` slots), counters zeroed right
+    before; every output must equal the CPU's ``layer_to_coo`` on the same
+    plan, and ``expand_indptr`` must have launched."""
+    import torch
+    from repro_torch.core import MinibatchLayer, layer_to_coo
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    blocks = [MinibatchLayer(layer.seeds[0], layer.self_idx[0], layer.nbr_idx[0],
+                             layer.mask[0], None) for layer in plan.layers]
+    reset_launches()
+    got = [layer_to_coo(blk, blk.mask.numel(), backend="fused") for blk in blocks]
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    for k in PATH_KERNELS["coo"]:
+        check(launches[k] > 0, f"kernel {k} was not launched by layer_to_coo")
+    for l, (blk, out) in enumerate(zip(blocks, got)):
+        cpu = MinibatchLayer(*(t.cpu() for t in (blk.seeds, blk.self_idx, blk.nbr_idx,
+                                                  blk.mask)), None)
+        want = layer_to_coo(cpu, cpu.mask.numel(), backend="fused")
+        for name, a, b in zip(("rows", "cols", "indptr"), out, want):
+            check(torch.equal(a.cpu(), b), f"layer_to_coo layer {l} {name} differs from the CPU")
+        print(f"coo layer {l}: n={blk.mask.shape[0]} w={blk.mask.shape[1]} edges "
+              f"{int(want[2][-1])}, rows/cols/indptr equal to the CPU's")
+    print(f"coo launches {launches}")
+    return {"launches": launches}
+
+
+def profile_train(tag: str, tds, gnn_cfg, tc) -> None:
     """Device busy and idle share over ``PROFILE_STEPS`` steps (steps 4 and
     5 of a fresh engine and model, through ``train_step``, the step
     ``train_gnn`` runs) under torch.profiler, the kernels that take the
@@ -811,7 +967,7 @@ def profile_train(tds, gnn_cfg, tc) -> None:
     busy_ms = sum(d for d, _, _ in stats) / 1e3
     rng_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
                  if ev.key == SPANS[0] and ev.device_type == DeviceType.CPU) / 1e3
-    print(f"phase3 profile (profiler on), {PROFILE_STEPS} steps: wall {wall_ms:.1f} ms, "
+    print(f"{tag} profile (profiler on), {PROFILE_STEPS} steps: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; host ms "
           f"per step in rng.vertex_uniform {rng_ms / PROFILE_STEPS:.3f}")
     for dev_us, count, key in stats[:12]:
@@ -864,6 +1020,7 @@ def main() -> int:
         tg = tds.graph
         train_cfg = GNNConfig(model="gcn", num_layers=3, in_dim=64, hidden_dim=256,
                               num_classes=16)
+        gat_cfg = dataclasses.replace(train_cfg, model="gat", num_heads=4)
         tc = TrainConfig(mode="cooperative", num_pes=4, local_batch=64, fanout=10,
                          sampler="labor0", schedule="smoothed", kappa=16,
                          partition="hash", executor="sim", plan_backend="fused",
@@ -884,9 +1041,13 @@ def main() -> int:
                             in_dim=64, hidden_dim=256, num_classes=16)
         trace = poisson_trace(500, 4000.0, ds.user_ids, seed=SEED)
         serve = phase2(ds, gnn_cfg, serve_cfg, trace)
-        serve_launches = serve["launches"]
         k["spmm"].append(serve["spmm"])
-        train_launches = phase3(tds, train_cfg, tc)["launches"]
+        launches = {"serve": serve["launches"]}
+        launches["train"] = phase_train("phase3", "train", tds, train_cfg, tc,
+                                        check_seeds=True)["launches"]
+        gat = phase_train("phase4", "train_gat", tds, gat_cfg, tc)
+        launches["train_gat"] = gat["launches"]
+        launches["coo"] = phase_coo(gat["plan0"])["launches"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -894,7 +1055,7 @@ def main() -> int:
     kernels = []
     for name, meta in KERNELS.items():
         r = max(k[name], key=lambda row: row["bytes"])  # the largest shape of its paths
-        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
+        by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": sum(by_path.values()),

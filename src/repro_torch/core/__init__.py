@@ -18,6 +18,7 @@ from repro_torch.core.minibatch import (
     Minibatch,
     MinibatchLayer,
     build_minibatch,
+    layer_to_coo,
 )
 from repro_torch.core.partition import (
     Partition,
@@ -34,6 +35,6 @@ __all__ = [
     "GraphValidationError", "INVALID", "LaborSampler", "LayerSample",
     "Minibatch", "MinibatchLayer", "NestedSchedule", "Partition", "RNGState",
     "SimExecutor", "build_cooperative_minibatch", "build_minibatch",
-    "cross_edge_ratio", "make_partition", "make_sampler", "ownership_balance",
-    "plan_stats", "redistribute",
+    "cross_edge_ratio", "layer_to_coo", "make_partition", "make_sampler",
+    "ownership_balance", "plan_stats", "redistribute",
 ]

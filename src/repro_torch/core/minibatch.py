@@ -5,6 +5,7 @@ Builds an L-layer ``Minibatch`` plan from a seed frontier: frontiers
 per layer with neighbor indices resolved *into the next frontier*, so the
 forward pass is pure gathers.  Capacities come from :class:`CapacityPlan`
 exactly as in the JAX package, so plan shapes match leaf by leaf.
+:func:`layer_to_coo` gives the padded COO view of one block.
 """
 from __future__ import annotations
 
@@ -127,3 +128,46 @@ def build_minibatch(
         )
         S_l = S_next
     return Minibatch(layers=tuple(layers), input_ids=S_l, seed_ids=layers[0].seeds)
+
+
+def layer_to_coo(
+    layer,
+    cap_edges: int,
+    backend: str = "reference",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Padded COO view of one bipartite block for plan-local assembly.
+
+    ``layer`` is one (unstacked) plan layer: anything with an ``(n, w)``
+    ``mask`` and ``nbr_idx``.  Returns ``(rows, cols, indptr)``:
+    ``indptr`` (n+1,) counts valid edges per dst row; ``rows[e]``/``cols[e]``
+    give the dst row and the src position (into ``S^{l+1}``) of edge slot
+    ``e`` in row-major mask order, ``-1`` past the total edge count.  Edges
+    beyond ``cap_edges`` are dropped deterministically (callers size
+    ``cap_edges`` at ``n * w`` so this never fires).  ``"fused"`` computes
+    ``rows`` with the ``expand_indptr`` kernel (on a CUDA tensor); both
+    backends are bit-identical.
+    """
+    frontier._check_backend(backend)
+    mask = layer.mask
+    dev = mask.device
+    counts = mask.sum(dim=1).to(torch.int32)
+    indptr = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
+                        torch.cumsum(counts, 0).to(torch.int32)])
+    if backend == "fused":
+        from repro_torch import kernels
+
+        rows = kernels.expand_indptr(indptr, cap_edges)
+    else:
+        from repro_torch.kernels.expand_indptr.ref import expand_indptr_ref
+
+        rows = expand_indptr_ref(indptr, cap_edges)
+    pos = torch.cumsum(mask, dim=1).to(torch.int32) - 1
+    flat = indptr[:-1, None] + pos
+    # dropped and masked slots all go to a ghost slot one past the end, so
+    # no kept index repeats
+    flat = torch.where(mask & (flat < cap_edges), flat, cap_edges)
+    cols = torch.full((cap_edges + 1,), -1, dtype=torch.int32, device=dev)
+    cols[flat.reshape(-1).long()] = torch.where(mask, layer.nbr_idx, -1).reshape(-1)
+    cols = cols[:cap_edges]
+    rows = torch.where(cols >= 0, rows, -1)
+    return rows, cols, indptr

@@ -15,16 +15,22 @@ Ported so far (TPU kernel it replaces in brackets):
   [``repro/kernels/gather/kernel.py``];
 * ``spmm``            -- masked neighbor sum/mean, with a backward kernel
   (counted as ``spmm_backward``) [``repro/kernels/spmm/kernel.py``];
+* ``seg_softmax``     -- masked edge softmax (GAT), with a backward kernel
+  (counted as ``seg_softmax_backward``) [``repro/kernels/seg_softmax/kernel.py``];
+* ``expand_indptr``   -- CSR indptr -> row id of each edge slot
+  (``layer_to_coo``) [``repro/kernels/expand_indptr/kernel.py``];
 * ``tag_probe``       -- device cache tag lookup, in
   :mod:`repro_torch.store.kernel` [``repro/store/kernel.py``].
 """
 from repro_torch.kernels._build import LAUNCHES, reset_launches
+from repro_torch.kernels.expand_indptr.ops import expand_indptr
 from repro_torch.kernels.frontier_gather.ops import frontier_gather
 from repro_torch.kernels.gather.ops import gather
+from repro_torch.kernels.seg_softmax.ops import seg_softmax
 from repro_torch.kernels.spmm.ops import spmm_mean, spmm_sum
 from repro_torch.kernels.unique_compact.ops import unique_compact, unique_with_inverse
 
 __all__ = [
-    "LAUNCHES", "frontier_gather", "gather", "reset_launches", "spmm_mean",
-    "spmm_sum", "unique_compact", "unique_with_inverse",
+    "LAUNCHES", "expand_indptr", "frontier_gather", "gather", "reset_launches",
+    "seg_softmax", "spmm_mean", "spmm_sum", "unique_compact", "unique_with_inverse",
 ]

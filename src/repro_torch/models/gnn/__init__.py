@@ -1,7 +1,9 @@
 from repro_torch.models.gnn.layers import (
     GNN,
+    GATLayer,
     GCNLayer,
     GNNConfig,
+    glorot_limit,
     gnn_apply,
     gnn_apply_cooperative,
     gnn_apply_stacked,
@@ -10,6 +12,6 @@ from repro_torch.models.gnn.layers import (
 )
 
 __all__ = [
-    "GCNLayer", "GNN", "GNNConfig", "gnn_apply", "gnn_apply_cooperative",
-    "gnn_apply_stacked", "init_gnn", "params_from_jax",
+    "GATLayer", "GCNLayer", "GNN", "GNNConfig", "glorot_limit", "gnn_apply",
+    "gnn_apply_cooperative", "gnn_apply_stacked", "init_gnn", "params_from_jax",
 ]

@@ -6,10 +6,12 @@ Every layer consumes ``H~`` -- embeddings indexed by the next frontier
 ``S^l``.  Plan layer ``L-1`` consumes raw features, layer 0 emits class
 logits.
 
-Ported: the GCN.  Weights keep the JAX package's ``(d_in, d_out)`` layout
-so :func:`params_from_jax` copies them over unchanged.  The neighbor sum
-goes through the ``spmm`` kernel (with its backward kernel) on a CUDA
-device; the JAX layer computes the same function in plain jnp.
+Ported: the GCN and the GAT.  Parameters keep the JAX package's names
+and layouts (``(d_in, d_out)`` weights) so :func:`params_from_jax`
+copies them over unchanged.  On a CUDA device the GCN's neighbor sum
+goes through the ``spmm`` kernel and the GAT's attention softmax through
+the ``seg_softmax`` kernel (each with its backward kernel); the JAX
+layers compute the same functions in plain jnp.
 
 Three applies, as in the JAX package: :func:`gnn_apply` (one plan),
 :func:`gnn_apply_stacked` (``P`` stacked independent plans, one apply per
@@ -23,20 +25,28 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.frontier import take_rows
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.seg_softmax import seg_softmax
 from repro_torch.kernels.spmm import spmm_sum
 
-_MODEL_TODO = (
-    "only the GCN is ported to repro_torch yet (ROADMAP.md queue A, item A9)"
-)
+MODELS = ("gcn", "gat")
+
+
+def _check_model(cfg) -> None:
+    if cfg.model not in MODELS:
+        raise NotImplementedError(
+            f"GNN model {cfg.model!r} is not ported to repro_torch yet; ported: "
+            f"{MODELS} (ROADMAP.md queue A, item A9)"
+        )
 
 
 @dataclass(frozen=True)
 class GNNConfig:
-    model: str = "gcn"           # gcn (sage | gat | rgcn not ported yet)
+    model: str = "gcn"           # gcn | gat (sage | rgcn not ported yet)
     num_layers: int = 3
     in_dim: int = 64
     hidden_dim: int = 256
@@ -70,19 +80,60 @@ class GCNLayer(nn.Module):
         return torch.relu(out) if self.relu else out
 
 
+class GATLayer(nn.Module):
+    """Multi-head graph attention over {self} and the sampled neighbors.
+
+    Per head: ``z = x @ w``, logits ``leaky_relu(a_src·z_nbr + a_dst·z_self,
+    0.2)``, ``alpha`` their masked softmax over the neighbor slots,
+    ``agg = sum_w alpha · z_nbr``; then ``(agg + z_self) @ w_out + b``, heads
+    concatenated (ReLU except on layer 0), as ``layer_apply``'s ``gat``
+    branch computes.  ``Ht`` is projected once over its rows and rows of
+    the product are gathered, where the JAX layer gathers ``Ht`` and
+    projects every slot: row for row the same function, fewer operations.
+    """
+
+    def __init__(self, d_in: int, d_out: int, heads: int, relu: bool,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        dh = max(1, d_out // heads)
+        zeros = lambda *shape: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
+        self.w = zeros(d_in, heads * dh)
+        self.a_src = zeros(heads, dh)
+        self.a_dst = zeros(heads, dh)
+        self.w_out = zeros(heads * dh, d_out)
+        self.b = zeros(d_out)
+        self.heads, self.relu = heads, relu
+
+    def forward(self, Ht, self_idx, nbr_idx, mask):
+        h, (n, w) = self.heads, nbr_idx.shape
+        z = Ht @ self.w                                               # (S, h*dh)
+        src_logit = torch.einsum("shd,hd->sh", z.reshape(z.shape[0], h, -1), self.a_src)
+        z_self = take_rows(z, self_idx)                               # (n, h*dh)
+        e_dst = torch.einsum("nhd,hd->nh", z_self.reshape(n, h, -1), self.a_dst)
+        e = F.leaky_relu(take_rows(src_logit, nbr_idx) + e_dst[:, None, :], 0.2)
+        alpha = seg_softmax(e, mask)                                  # (n, w, h)
+        z_nbr = take_rows(z, nbr_idx).reshape(n, w, h, -1)            # (n, w, h, dh)
+        agg = torch.einsum("nwh,nwhd->nhd", alpha, z_nbr).reshape(n, -1)
+        out = (agg + z_self) @ self.w_out + self.b
+        return torch.relu(out) if self.relu else out
+
+
 class GNN(nn.Module):
     """``layers[l]`` is plan layer ``l`` (layer 0 emits logits)."""
 
     def __init__(self, cfg: GNNConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.model != "gcn":
-            raise NotImplementedError(_MODEL_TODO)
+        _check_model(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.layers = nn.ModuleList(
-            GCNLayer(*cfg.dims(l), relu=l != 0, dtype=cfg.dtype, device=dev)
-            for l in range(cfg.num_layers)
-        )
+
+        def layer(l):
+            if cfg.model == "gat":
+                return GATLayer(*cfg.dims(l), cfg.num_heads, relu=l != 0, dtype=cfg.dtype,
+                                device=dev)
+            return GCNLayer(*cfg.dims(l), relu=l != 0, dtype=cfg.dtype, device=dev)
+
+        self.layers = nn.ModuleList(layer(l) for l in range(cfg.num_layers))
 
     def forward(self, plan_layers, H_input: torch.Tensor) -> torch.Tensor:
         """Seed logits (cap_0, C) from input embeddings over an L-layer plan."""
@@ -93,25 +144,38 @@ class GNN(nn.Module):
         return H
 
 
+def glorot_limit(name: str, shape) -> float:
+    """The JAX package's Glorot-uniform limit for parameter ``name``; 0 for
+    a bias.  ``a_src``/``a_dst`` (h, dh) are drawn there with shape
+    (h, dh, 1), so their fans are dh and 1."""
+    if name == "b":
+        return 0.0
+    fan_in, fan_out = (shape[-1], 1) if name.startswith("a_") else shape
+    return float(np.sqrt(6.0 / (fan_in + fan_out)))
+
+
 def init_gnn(cfg: GNNConfig, generator: torch.Generator,
              device: DeviceLike = None) -> GNN:
     """Glorot-uniform weights and zero biases, drawn from ``generator``."""
     model = GNN(cfg, device=device)
     with torch.no_grad():
         for layer in model.layers:
-            d_in, d_out = layer.w.shape
-            lim = float(np.sqrt(6.0 / (d_in + d_out)))
-            w = torch.rand((d_in, d_out), generator=generator, dtype=cfg.dtype)
-            layer.w.copy_(w * (2 * lim) - lim)
+            for name, p in layer.named_parameters():
+                lim = glorot_limit(name, p.shape)
+                if lim:
+                    u = torch.rand(p.shape, generator=generator, dtype=cfg.dtype)
+                    p.copy_(u * (2 * lim) - lim)
     return model
 
 
 def params_from_jax(params_np: dict, cfg: GNNConfig, device: DeviceLike = None) -> GNN:
     """A :class:`GNN` holding ``repro.models.gnn.init_gnn``'s parameters.
 
-    ``params_np`` is that pytree with numpy leaves:
-    ``{"layers": [{"w": (d_in, d_out), "b": (d_out,)}, ...]}``.  Any numpy
-    weights in that layout work the same way.
+    ``params_np`` is that pytree with numpy leaves, one dict per layer with
+    the JAX names and shapes: ``{"w": (d_in, d_out), "b": (d_out,)}`` for
+    the GCN; ``w`` (d_in, h*dh), ``a_src`` and ``a_dst`` (h, dh), ``w_out``
+    (h*dh, d_out) and ``b`` for the GAT.  Any numpy weights in that layout
+    work the same way.
     """
     model = GNN(cfg, device=device)
     if len(params_np["layers"]) != cfg.num_layers:
@@ -120,13 +184,15 @@ def params_from_jax(params_np: dict, cfg: GNNConfig, device: DeviceLike = None) 
             f"num_layers={cfg.num_layers}"
         )
     with torch.no_grad():
-        for layer, p in zip(model.layers, params_np["layers"]):
-            for name in ("w", "b"):
+        for l, (layer, p) in enumerate(zip(model.layers, params_np["layers"])):
+            names = dict(layer.named_parameters())
+            if set(p) != set(names):
+                raise ValueError(f"layer {l}: parameters {sorted(p)}, want {sorted(names)}")
+            for name, dst in names.items():
                 src = torch.from_numpy(np.array(p[name], dtype=np.float32))
-                dst = getattr(layer, name)
                 if tuple(src.shape) != tuple(dst.shape):
                     raise ValueError(
-                        f"{name}: shape {tuple(src.shape)} != {tuple(dst.shape)}"
+                        f"layer {l} {name}: shape {tuple(src.shape)} != {tuple(dst.shape)}"
                     )
                 dst.copy_(src)
     return model
@@ -134,8 +200,7 @@ def params_from_jax(params_np: dict, cfg: GNNConfig, device: DeviceLike = None) 
 
 def gnn_apply(model: GNN, cfg: GNNConfig, plan_layers, H_input: torch.Tensor) -> torch.Tensor:
     """Forward pass over an L-layer plan; returns seed logits (cap_0, C)."""
-    if cfg.model != "gcn":
-        raise NotImplementedError(_MODEL_TODO)
+    _check_model(cfg)
     return model(plan_layers, H_input)
 
 
@@ -171,8 +236,7 @@ def gnn_apply_cooperative(
     """
     from repro_torch.core.cooperative import redistribute
 
-    if cfg.model != "gcn":
-        raise NotImplementedError(_MODEL_TODO)
+    _check_model(cfg)
     H = H_input
     for l in reversed(range(cfg.num_layers)):
         blk = plan_layers[l]

@@ -11,9 +11,10 @@ Fig. 9).  The mode lives inside the engine:
 
 One step: the seed draw and plan (``engine.plan_at``), the gather of the
 input features (the ``gather`` kernel on a card), the GCN (``spmm``
-forward and backward kernels on a card), masked cross-entropy, backward
-and Adam.  ``train_gnn`` can end each of these stages with a device sync
-and record its wall time (``stage_times=True``).
+forward and backward kernels on a card) or the GAT (``seg_softmax``
+forward and backward kernels), masked cross-entropy, backward and Adam.
+``train_gnn`` can end each of these stages with a device sync and record
+its wall time (``stage_times=True``).
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ class TrainResult:
     def params(self) -> dict:
         """Parameters in the JAX package's pytree layout, as numpy arrays."""
         return {"layers": [
-            {"w": layer.w.detach().cpu().numpy(), "b": layer.b.detach().cpu().numpy()}
+            {name: p.detach().cpu().numpy() for name, p in layer.named_parameters()}
             for layer in self.model.layers
         ]}
 

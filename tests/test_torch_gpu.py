@@ -8,20 +8,32 @@ that has only PyTorch:
 
 Each kernel must equal its plain torch version bit for bit on the card,
 including overflow, all-INVALID and empty inputs (the ``spmm`` backward
-also equals the CPU's plain version); each rejects a wrongly typed or
-non-contiguous input by raising.  A served
-trace must give the same integer accounting and plan entries as on the
-CPU, and a few cooperative training steps the same plans and losses.
+also equals the CPU's plain version), except ``seg_softmax``: its
+forward is held within ``atol=1e-6`` of the plain version on the card and
+its backward within ``atol=1e-6 * max|g|`` (the kernel calls CUDA's
+``expf``, the plain version ``torch.exp``), with masked slots and
+all-masked rows exactly 0.  Each kernel rejects a wrongly typed or
+non-contiguous input by raising.  A served trace must give the same
+integer accounting and plan entries as on the CPU, and a few
+cooperative training steps (GCN and GAT) the same plans and losses.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.data import make_recsys
+from repro_torch.core import MinibatchLayer, layer_to_coo
+from repro_torch.data import SyntheticGraphDataset, make_recsys, rmat_graph
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.data import SyntheticGraphDataset, rmat_graph
+from repro_torch.kernels.expand_indptr import expand_indptr, expand_indptr_cuda, expand_indptr_ref
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
 from repro_torch.kernels.gather import gather, gather_cuda, gather_ref
+from repro_torch.kernels.seg_softmax import (
+    seg_softmax,
+    seg_softmax_backward_cuda,
+    seg_softmax_backward_ref,
+    seg_softmax_cuda,
+    seg_softmax_ref,
+)
 from repro_torch.kernels.spmm import (
     spmm_backward_cuda,
     spmm_backward_ref,
@@ -31,6 +43,7 @@ from repro_torch.kernels.spmm import (
     spmm_sum,
 )
 from repro_torch.kernels.unique_compact import unique_with_inverse, unique_with_inverse_ref
+from repro_torch.engine import MinibatchEngine
 from repro_torch.models.gnn import GNNConfig, init_gnn
 from repro_torch.serve import GNNServer, ServeConfig, poisson_trace
 from repro_torch.train import TrainConfig, train_gnn
@@ -197,22 +210,93 @@ def test_kernels_reject_bad_inputs(cuda):
         spmm_backward_cuda(grad.t().contiguous().t(), idx, mask, 8, mean=True)
 
 
-def test_cooperative_training_matches_cpu(cuda):
+@pytest.mark.parametrize("n,w,h,frac", [
+    (39208, 32, 4, 0.01),   # the GAT training path's layer 2 (mostly padding)
+    (1584, 32, 4, 0.6), (64, 32, 4, 0.9), (480, 64, 4, 0.5), (300, 70, 1, 0.5),
+    (100, 5, 0, 0.5), (0, 32, 4, 0.5),
+])
+def test_seg_softmax_matches_plain(cuda, n, w, h, frac):
+    rng = np.random.default_rng(n + w)
+    shape = (n, w, h) if h else (n, w)
+    e = torch.from_numpy((3 * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+    mask_np = rng.random((n, w)) < frac
+    mask_np[: n // 8] = False  # all-masked rows
+    mask = torch.from_numpy(mask_np).to(cuda)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    m = (mask[..., None] if h else mask).expand(shape)
+    reset_launches()
+    x = e.clone().requires_grad_()
+    alpha = seg_softmax(x, mask)
+    (grad,) = torch.autograd.grad(alpha, x, g)
+    if n:
+        assert LAUNCHES["seg_softmax"] == 1 and LAUNCHES["seg_softmax_backward"] == 1
+    want = seg_softmax_ref(e, mask)
+    torch.testing.assert_close(alpha.detach(), want, rtol=0, atol=1e-6)
+    assert bool((alpha.detach()[~m] == 0).all())
+    want_g = seg_softmax_backward_ref(alpha.detach(), g, mask)
+    atol = 1e-6 * float(g.abs().max()) if n else 0.0
+    torch.testing.assert_close(grad, want_g, rtol=0, atol=atol)
+    assert bool((grad[~m] == 0).all())
+    # and against the CPU's plain versions
+    torch.testing.assert_close(alpha.detach().cpu(), seg_softmax_ref(e.cpu(), mask.cpu()),
+                               rtol=0, atol=1e-6)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("R,num_edges,max_deg", [
+    (39208, 1254656, 1), (1584, 50688, 32), (8, 512, 8), (1, 300, 3), (0, 5, 0), (50, 0, 3),
+])
+def test_expand_indptr_matches_plain(cuda, R, num_edges, max_deg):
+    deg = np.random.default_rng(R).integers(0, max_deg + 1, size=R)
+    iptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)).to(cuda)
+    reset_launches()
+    got = expand_indptr(iptr, num_edges)
+    assert LAUNCHES.get("expand_indptr", 0) == (1 if num_edges else 0)
+    assert torch.equal(got, expand_indptr_ref(iptr, num_edges))
+    assert torch.equal(got.cpu(), expand_indptr_ref(iptr.cpu(), num_edges))
+    torch.cuda.synchronize()
+
+
+def test_gat_and_coo_kernels_reject_bad_inputs(cuda):
+    e = torch.zeros((6, 3, 2), device=cuda)
+    mask = torch.ones((6, 3), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        seg_softmax_cuda(e.double(), mask)
+    with pytest.raises(ValueError, match="dtype"):
+        seg_softmax_cuda(e, mask.to(torch.uint8))
+    with pytest.raises(ValueError, match="contiguous"):
+        seg_softmax_cuda(e.transpose(0, 2).contiguous().transpose(0, 2), mask)
+    with pytest.raises(ValueError, match="mask"):
+        seg_softmax_cuda(e[:, :2].contiguous(), mask)
+    with pytest.raises(ValueError, match="alpha"):
+        seg_softmax_backward_cuda(e, e[..., :1].contiguous(), mask)
+    iptr = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        expand_indptr_cuda(iptr.long(), 8)
+    with pytest.raises(ValueError, match="indptr"):
+        expand_indptr_cuda(iptr[:0], 8)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_cooperative_training_matches_cpu(cuda, model):
     ds = SyntheticGraphDataset(rmat_graph(scale=11, edge_factor=8, max_degree=16,
                                           device="cpu"), feature_dim=16, num_classes=4)
-    cfg = GNNConfig(num_layers=2, in_dim=16, hidden_dim=32, num_classes=4)
+    cfg = GNNConfig(model=model, num_layers=2, in_dim=16, hidden_dim=32, num_classes=4,
+                    num_heads=2)
     tc = TrainConfig(num_pes=4, local_batch=16, fanout=5, num_steps=3, kappa=4,
                      eval_every=0, plan_backend="fused")
     plans = {}
     runs = {}
     for dev in (cuda, "cpu"):
-        model = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+        net = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
         reset_launches()
         runs[str(dev)] = train_gnn(
-            ds, cfg, tc, model=model, device=dev,
+            ds, cfg, tc, model=net, device=dev,
             on_step=lambda step, plan, d=str(dev): plans.setdefault(d, []).append(plan))
         if dev is cuda:
-            for k in ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"):
+            agg = ("spmm", "spmm_backward") if model == "gcn" else (
+                "seg_softmax", "seg_softmax_backward")
+            for k in ("frontier_gather", "unique_compact", "gather", *agg):
                 assert LAUNCHES.get(k, 0) > 0, k
     for a, b in zip(plans["cuda"], plans["cpu"]):
         for la, lb in zip(a.layers, b.layers):
@@ -221,3 +305,25 @@ def test_cooperative_training_matches_cpu(cuda):
                 assert torch.equal(getattr(la, name).cpu(), getattr(lb, name)), name
         assert torch.equal(a.input_ids.cpu(), b.input_ids)
     np.testing.assert_allclose(runs["cuda"].losses, runs["cpu"].losses, rtol=1e-4)
+
+
+def test_layer_to_coo_matches_cpu(cuda):
+    ds = SyntheticGraphDataset(rmat_graph(scale=11, edge_factor=8, max_degree=16,
+                                          device="cpu"), feature_dim=16, num_classes=4)
+    tc = TrainConfig(num_pes=4, local_batch=16, fanout=5, num_steps=1, kappa=4,
+                     eval_every=0, plan_backend="fused")
+    plans = {}
+    for dev in (cuda, "cpu"):
+        engine = MinibatchEngine.from_config(ds.graph, tc.engine_config(2), dataset=ds,
+                                             device=dev)
+        plans[str(dev)] = engine.plan_at(0)
+    reset_launches()
+    for la, lb in zip(plans["cuda"].layers, plans["cpu"].layers):
+        blk_a, blk_b = (MinibatchLayer(x.seeds[0], x.self_idx[0], x.nbr_idx[0], x.mask[0], None)
+                        for x in (la, lb))
+        cap = blk_a.mask.numel()
+        got = layer_to_coo(blk_a, cap, backend="fused")
+        want = layer_to_coo(blk_b, cap, backend="reference")
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert LAUNCHES.get("expand_indptr", 0) == len(plans["cpu"].layers)
+    torch.cuda.synchronize()

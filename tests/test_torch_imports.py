@@ -18,7 +18,15 @@ import torch
 
 from repro_torch.core import FeatureStore
 from repro_torch.kernels import _build
+from repro_torch.kernels.expand_indptr import expand_indptr, expand_indptr_cuda, expand_indptr_ref
 from repro_torch.kernels.gather import gather, gather_cuda, gather_ref
+from repro_torch.kernels.seg_softmax import (
+    seg_softmax,
+    seg_softmax_backward_cuda,
+    seg_softmax_backward_ref,
+    seg_softmax_cuda,
+    seg_softmax_ref,
+)
 from repro_torch.kernels.spmm import (
     spmm_backward_cuda,
     spmm_backward_ref,
@@ -54,7 +62,9 @@ def test_port_has_modules_and_chip_smoke():
     for want in ("chip_smoke.py", "src/repro_torch/serve/server.py",
                  "src/repro_torch/kernels/_build.py", "src/repro_torch/store/kernel.py",
                  "src/repro_torch/train/loop.py", "src/repro_torch/core/cooperative.py",
-                 "src/repro_torch/kernels/gather/ops.py", "src/repro_torch/kernels/spmm/ops.py"):
+                 "src/repro_torch/kernels/gather/ops.py", "src/repro_torch/kernels/spmm/ops.py",
+                 "src/repro_torch/kernels/seg_softmax/ops.py",
+                 "src/repro_torch/kernels/expand_indptr/ops.py"):
         assert want in rel
 
 
@@ -118,6 +128,28 @@ def test_training_wrappers_take_plain_path_on_cpu(no_launch):
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
+def test_gat_and_coo_wrappers_take_plain_path_on_cpu(no_launch):
+    from repro_torch.core import MinibatchLayer, layer_to_coo
+
+    rng = np.random.default_rng(2)
+    e = torch.from_numpy(rng.standard_normal((12, 5, 3)).astype(np.float32)).requires_grad_()
+    mask = torch.from_numpy(rng.random((12, 5)) < 0.6)
+    alpha = seg_softmax(e, mask)
+    assert torch.equal(alpha.detach(), seg_softmax_ref(e.detach(), mask))
+    g = torch.from_numpy(rng.standard_normal((12, 5, 3)).astype(np.float32))
+    (grad,) = torch.autograd.grad(alpha, e, g)
+    assert torch.equal(grad, seg_softmax_backward_ref(alpha.detach(), g, mask))
+
+    indptr = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
+    assert torch.equal(expand_indptr(indptr, 7), expand_indptr_ref(indptr, 7))
+    idx = torch.from_numpy(rng.integers(0, 9, (12, 5)).astype(np.int32))
+    layer = MinibatchLayer(idx[:, 0], idx[:, 0], idx, mask, None)
+    got = layer_to_coo(layer, 60, backend="fused")
+    want = layer_to_coo(layer, 60, backend="reference")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
 def test_wrappers_reject_other_devices():
     meta = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
@@ -130,6 +162,10 @@ def test_wrappers_reject_other_devices():
         gather(meta.reshape(2, 2).float(), meta)
     with pytest.raises(ValueError):
         spmm_sum(meta.reshape(2, 2).float(), meta.reshape(2, 2), meta.reshape(2, 2).bool())
+    with pytest.raises(ValueError):
+        seg_softmax(meta.reshape(2, 2).float(), meta.reshape(2, 2).bool())
+    with pytest.raises(ValueError):
+        expand_indptr(meta, 3)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -145,6 +181,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         spmm_cuda(f, t.reshape(2, 2), t.reshape(2, 2).bool(), mean=False)
     with pytest.raises(ValueError, match="not CUDA"):
         spmm_backward_cuda(f, t.reshape(2, 2), t.reshape(2, 2).bool(), 4, mean=False)
+    m = t.reshape(2, 2).bool()
+    with pytest.raises(ValueError, match="not CUDA"):
+        seg_softmax_cuda(f.reshape(2, 2, 2), m)
+    with pytest.raises(ValueError, match="not CUDA"):
+        seg_softmax_backward_cuda(f.reshape(2, 2, 2), f.reshape(2, 2, 2), m)
+    with pytest.raises(ValueError, match="not CUDA"):
+        expand_indptr_cuda(t, 3)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -200,8 +243,9 @@ def test_unported_paths_raise_not_implemented():
             ds.graph, EngineConfig(mode="cooperative", num_pes=2, executor="shard"),
             device="cpu",
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GNN(GNNConfig(model="gat"), device="cpu")
+    for model in ("sage", "rgcn"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            GNN(GNNConfig(model=model), device="cpu")
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -7,7 +7,11 @@ and ``tests/test_feature_store.py`` plus overflow, all-INVALID and empty
 cases.  Inputs are numpy arrays from seeds handed to both packages.
 ``spmm`` is the exception: its plain version adds the ``w`` slots in
 order where the JAX ones use ``jnp.sum``, so it is held within
-``atol=1e-5``, and its backward likewise against ``jax.grad``.
+``atol=1e-5``, and its backward likewise against ``jax.grad``; so is
+``seg_softmax``, whose plain versions add in the CUDA warp's order:
+forward within ``atol=1e-6`` of the JAX ref and the Pallas kernel,
+backward within ``atol=1e-6`` of ``jax.grad`` of the JAX ref.
+``expand_indptr`` is integer and equal bit for bit.
 
 The CUDA kernels themselves are held against these plain versions on
 a card by ``tests/test_torch_gpu.py``.
@@ -20,8 +24,12 @@ import torch
 import jax
 
 from repro.core import frontier as jfrontier
+from repro.kernels.expand_indptr.kernel import expand_indptr_pallas
+from repro.kernels.expand_indptr.ref import expand_indptr_ref as j_expand_ref
 from repro.kernels.gather.kernel import paged_gather_pallas
 from repro.kernels.gather.ref import gather_ref as j_gather_ref
+from repro.kernels.seg_softmax.kernel import seg_softmax_pallas
+from repro.kernels.seg_softmax.ref import seg_softmax_ref as j_seg_softmax_ref
 from repro.kernels.spmm.kernel import spmm_pallas
 from repro.kernels.spmm.ref import spmm_ref as j_spmm_ref
 from repro.kernels.frontier_gather.kernel import frontier_gather_pallas
@@ -30,8 +38,15 @@ from repro.kernels.unique_compact.kernel import unique_compact_pallas
 from repro.kernels.unique_compact.ref import unique_with_inverse_ref as j_unique_ref
 from repro.store.kernel import probe_ref as j_probe_ref
 from repro.store.kernel import tag_probe_pallas
+from repro_torch.kernels.expand_indptr import expand_indptr, expand_indptr_ref
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
 from repro_torch.kernels.gather import gather, gather_ref
+from repro_torch.kernels.seg_softmax import (
+    seg_softmax,
+    seg_softmax_backward_ref,
+    seg_softmax_ref,
+    warp_sum,
+)
 from repro_torch.kernels.spmm import spmm_backward_ref, spmm_mean, spmm_ref, spmm_sum
 from repro_torch.kernels.unique_compact import (
     unique_compact_sorted_ref,
@@ -263,3 +278,103 @@ def test_spmm_all_masked_rows_zero_and_empty():
     assert float(spmm_sum(src, idx, mask).abs().max()) == 0.0
     e = torch.zeros((0, 4), dtype=torch.int32)
     assert spmm_sum(src, e, e.bool()).shape == (0, 16)
+
+
+# ---------------------------------------------------------------------------
+# seg_softmax (GAT edge softmax) and expand_indptr (layer_to_coo)
+# ---------------------------------------------------------------------------
+SEG_SWEEP = [  # (n, w, frac): tests/test_kernels.py's range, plus w = 32 and 64
+    (256, 1, 0.5), (256, 7, 0.1), (512, 13, 0.5), (256, 24, 0.9), (512, 32, 0.3),
+    (256, 64, 0.6), (256, 70, 0.5),
+]
+
+
+def _seg_inputs(n, w, frac, h, seed):
+    rng = np.random.default_rng(seed)
+    e = (3 * rng.standard_normal((n, w, h) if h else (n, w))).astype(np.float32)
+    mask = rng.random((n, w)) < frac
+    mask[: n // 16] = False  # all-masked rows
+    return e, mask
+
+
+@pytest.mark.parametrize("h", [0, 4], ids=["nw", "nwh"])
+@pytest.mark.parametrize("n,w,frac", SEG_SWEEP)
+def test_seg_softmax_matches_jax_ref_and_pallas(n, w, frac, h):
+    e, mask = _seg_inputs(n, w, frac, h, seed=n + w)
+    got = seg_softmax_ref(_t(e), _t(mask))
+    want = j_seg_softmax_ref(jnp.asarray(e), jnp.asarray(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    # the Pallas kernel takes (n, w): fold the heads into rows as its wrapper does
+    e2 = np.moveaxis(e, 2, 1).reshape(-1, w) if h else e
+    m2 = np.repeat(mask, h, axis=0) if h else mask
+    pallas = np.asarray(seg_softmax_pallas(jnp.asarray(e2), jnp.asarray(m2), block_n=256,
+                                           interpret=True))
+    if h:
+        pallas = np.moveaxis(pallas.reshape(n, h, w), 1, 2)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=0, atol=1e-6)
+    m = mask[..., None] if h else mask
+    out = got.numpy()
+    assert (np.broadcast_to(~m, out.shape) & (out != 0)).sum() == 0  # masked slots exactly 0
+    np.testing.assert_allclose(out.sum(1)[mask.any(1)], 1.0, atol=1e-5)
+    assert torch.equal(seg_softmax(_t(e), _t(mask)), got)
+
+
+@pytest.mark.parametrize("h", [0, 4], ids=["nw", "nwh"])
+@pytest.mark.parametrize("n,w,frac", SEG_SWEEP)
+def test_seg_softmax_backward_matches_jax_grad(n, w, frac, h):
+    e, mask = _seg_inputs(n, w, frac, h, seed=n * w)
+    g = np.random.default_rng(w).standard_normal(e.shape).astype(np.float32)
+    want = jax.grad(lambda x: jnp.sum(j_seg_softmax_ref(x, jnp.asarray(mask)) * g))(
+        jnp.asarray(e))
+    alpha = seg_softmax_ref(_t(e), _t(mask))
+    got = seg_softmax_backward_ref(alpha, _t(g), _t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6 * float(np.abs(g).max()))
+    m = np.broadcast_to((mask[..., None] if h else mask), e.shape)
+    assert (got.numpy()[~m] == 0).all()
+    x = _t(e).requires_grad_()
+    (auto,) = torch.autograd.grad(seg_softmax(x, _t(mask)), x, _t(g))
+    assert torch.equal(auto, got)
+
+
+def test_warp_sum_order():
+    """Lane k adds slots k, k+32, ... in turn; then a butterfly over lanes."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((5, 70, 3)).astype(np.float32))
+    lanes = torch.zeros((5, 32, 3))
+    for k in range(70):
+        lanes[:, k % 32] = x[:, k] if k < 32 else lanes[:, k % 32] + x[:, k]
+    off = 16
+    while off:
+        lanes = torch.stack([lanes[:, i] + lanes[:, i ^ off] for i in range(32)], dim=1)
+        off //= 2
+    assert torch.equal(warp_sum(x), lanes[:, 0])
+    assert torch.equal(warp_sum(x[:, :0]), torch.zeros((5, 3)))
+
+
+def _indptr(R, max_deg, seed, empty_tail=0):
+    deg = np.random.default_rng(seed).integers(0, max_deg + 1, size=R)
+    deg[R - empty_tail:] = 0
+    return np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("R,num_edges,empty_tail", [
+    (8, 512, 0), (256, 1024, 0), (1, 512, 0),  # tests/test_kernels.py's sweep
+    (64, 512, 16),                             # empty rows at the end of indptr
+    (256, 512, 0),                             # num_edges < indptr[-1]: cut short
+])
+def test_expand_indptr_matches_jax_ref_and_pallas(R, num_edges, empty_tail):
+    iptr = _indptr(R, 8, R, empty_tail)
+    got = expand_indptr_ref(_t(iptr), num_edges)
+    assert got.dtype == torch.int32
+    _eq(got, j_expand_ref(jnp.asarray(iptr), num_edges))
+    _eq(got, expand_indptr_pallas(jnp.asarray(iptr), num_edges, block_e=512, interpret=True))
+    assert torch.equal(expand_indptr(_t(iptr), num_edges), got)
+
+
+@pytest.mark.parametrize("iptr,num_edges", [
+    ([0], 5), ([0, 0, 0], 3), ([0, 3], 0), ([0, 2, 2, 5], 300),
+])
+def test_expand_indptr_edge_cases(iptr, num_edges):
+    iptr = np.asarray(iptr, np.int32)
+    got = expand_indptr(_t(iptr), num_edges)
+    _eq(got, j_expand_ref(jnp.asarray(iptr), num_edges))

@@ -11,6 +11,8 @@
   ``input_ids``) equal for labor0 and labor*, L in {1, 2, 3}, fanout in
   {3, 5}, under both plan backends, on ``rmat_graph(scale=10)`` and a
   small ``make_recsys``; the engine facade likewise.
+* ``layer_to_coo`` (rows, cols, indptr) equal on every layer of one plan,
+  under both backends, with and without dropped edges.
 """
 import jax
 import jax.numpy as jnp
@@ -21,13 +23,14 @@ import torch
 from repro.core import rng as jrng
 from repro.core.minibatch import CapacityPlan as JCapacityPlan
 from repro.core.minibatch import build_minibatch as j_build
+from repro.core.minibatch import layer_to_coo as j_layer_to_coo
 from repro.core.samplers import make_sampler as j_make_sampler
 from repro.data.recsys import make_recsys as j_make_recsys
 from repro.engine import EngineConfig as JEngineConfig
 from repro.engine import MinibatchEngine as JEngine
-from repro_torch.core import Graph, build_minibatch, make_sampler
+from repro_torch.core import Graph, build_minibatch, layer_to_coo, make_sampler
 from repro_torch.core import rng as trng
-from repro_torch.core.minibatch import CapacityPlan
+from repro_torch.core.minibatch import CapacityPlan, MinibatchLayer
 from repro_torch.data import make_recsys
 from repro_torch.engine import EngineConfig, MinibatchEngine
 
@@ -155,6 +158,28 @@ def test_minibatch_leaves_bit_equal_rmat(small_graph, sampler, L, fanout, backen
     )
     _assert_plans_equal(got, want)
     assert got.stats()["E0"] > 0
+
+
+@pytest.mark.parametrize("cap", ["slots", "half", "odd"])
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_layer_to_coo_bit_equal(small_graph, backend, cap):
+    g = small_graph
+    seeds = np.random.default_rng(5).choice(g.num_vertices, 64, replace=False).astype(np.int32)
+    caps = JCapacityPlan.geometric(64, 2, 5, g.num_vertices)
+    plan = _jax_plan(("rmat", "labor0", 2, 5), g, "labor0", 2, 5, seeds, caps)
+    for jl in plan.layers:
+        n, w = jl.nbr_idx.shape
+        total = int(jl.mask.sum())
+        # every slot; half the edges (the rest dropped); past the edges, no block multiple
+        cap_edges = {"slots": n * w, "half": total // 2, "odd": total + 7}[cap]
+        want = j_layer_to_coo(jl, cap_edges, backend=backend)
+        port = MinibatchLayer(*(torch.from_numpy(np.array(x)) for x in (
+            jl.seeds, jl.self_idx, jl.nbr_idx, jl.mask)), etypes=None)
+        got = layer_to_coo(port, cap_edges, backend=backend)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert int((got[0] >= 0).sum()) == min(total, cap_edges)
 
 
 @pytest.fixture(scope="module")
