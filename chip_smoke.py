@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # needs one CUDA card
+    python3 chip_smoke.py                  # needs one CUDA card
+    python3 chip_smoke.py --kernels-only   # phases 0-1 only (a kernel edit's check)
 
 Phases:
 
@@ -10,16 +11,21 @@ Phases:
    (``nvcc`` for ``sm_90a``, one process per source, in parallel).
 1. Kernels against their plain torch versions, on the card, on inputs
    from a numpy seed: the serving kernels at the serving path's shapes,
-   ``gather``, ``spmm`` (forward and backward), ``seg_softmax`` (forward
+   ``unique_compact`` at all 7 dedups of a training step, ``gather``,
+   ``spmm`` (forward and backward, every layer), ``seg_softmax`` (forward
    and backward, 4 heads) and ``expand_indptr`` at the training path's
    shapes, with the index tables and masks of a real training plan.  Every
-   kernel must be equal bit for bit to its plain version, except
-   ``seg_softmax``: forward within ``atol=1e-6``, backward within
-   ``atol=1e-6 * max|g|``, masked slots exactly 0.  Each kernel's device
-   time (CUDA-graph replay) and event time, its plain version's, a
-   library yardstick where one PyTorch call computes the same function,
-   and its bound: the larger of its bytes over the memory rate and its
-   operations over the scalar rate.
+   kernel must be equal bit for bit to its plain version (the ``spmm``
+   backward also to itself over two calls), except ``seg_softmax``:
+   forward within ``atol=1e-6``, backward within ``atol=1e-6 * max|g|``,
+   masked slots exactly 0.  Each row names the paths that run its shape
+   (the ``spmm`` backward at the last plan layer runs on none: that layer
+   reads the raw features) and its launches per batch or step.  Each
+   kernel's device time (CUDA-graph replay) and event time, its plain
+   version's, a library yardstick where one PyTorch call computes the same
+   function, and its bound: the larger of its bytes over the memory rate
+   and its operations over the scalar rate.  The two deepest dedups are
+   also timed whole (sort + kernel) beside ``torch.unique``.
 2. Serve: a 1.1M-vertex user-item graph (``make_recsys`` with 2**20
    users), the GCN at full width (in 64, hidden 256, 16 classes, two
    layers) with weights from a numpy seed, and a 500-request Poisson
@@ -50,7 +56,9 @@ Phases:
    within ``rtol=1e-4`` and the final weights within ``atol=1e-4``.  Per
    step: wall ms split into plan, gather, forward+backward and Adam (each
    ended by a sync) and each kernel's launches; then the device idle
-   share over two more steps under the profiler.
+   share over two more steps under the profiler, with the device ms per
+   step of the ``unique_compact`` and ``spmm`` backward kernels and of
+   every sort, beside the plan ms per step.
 4. Train the GAT: phase 3 again with a 3-layer GAT at the same width and
    4 heads (``GNNConfig(model="gat", num_heads=4)``), same graph, plans
    and checks; its attention softmax runs through ``seg_softmax`` and its
@@ -61,8 +69,8 @@ Phases:
    must equal the CPU's ``layer_to_coo`` on the same plan.
 
 The second-to-last line of output is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
-phase exits non-zero without that line.  Without a CUDA device, or
+kernel, at its largest shape on a path; the last line is ``{"ok": true,
+"device": {...}}``.  Any failed phase exits non-zero without that line.  Without a CUDA device, or
 without the rest of the repository next to this file, it exits 1.
 """
 from __future__ import annotations
@@ -211,6 +219,28 @@ def cuda_kernel_us(prof) -> list:
     return sorted(rows, reverse=True)
 
 
+def kernel_split(fn, iters: int = 20) -> str:
+    """Device us per call of each kernel (and memset) that ``fn`` launches,
+    and how many of each per call, from a torch.profiler trace."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for us, count, key in cuda_kernel_us(prof):
+        name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
+        parts.append(f"{name.group(1) if name else key[:24]} {us / iters:.2f} us "
+                     f"x{count / iters:g}")
+    return ", ".join(parts)
+
+
 def device_ms(fn, iters: int = 20):
     """Device time of one call that cannot be graph-captured (it syncs):
     its CUDA kernels summed from a torch.profiler trace, None if empty."""
@@ -289,7 +319,6 @@ def phase1(ds, caps, cache_rows: int) -> dict:
     import torch
     from repro_torch.core.graph import INVALID
     from repro_torch.kernels.frontier_gather import frontier_gather_cuda, frontier_gather_ref
-    from repro_torch.kernels.unique_compact import unique_compact_cuda, unique_compact_sorted_ref
     from repro_torch.store import hash_set, probe_ref, tag_probe_cuda
 
     dev = torch.device("cuda")
@@ -317,32 +346,21 @@ def phase1(ds, caps, cache_rows: int) -> dict:
         ops = 2 * n + 2 * n * D
         rows.append(dict(
             shape=f"n={n} D={D}", bytes=nbytes, ops=ops, max_abs_err=mae,
+            paths=["serve"], per="1/batch",
             **timings(lambda: frontier_gather_cuda(g.indptr, g.indices, s, D),
                       lambda: frontier_gather_ref(g.indptr, g.indices, s, D)),
         ))
     out["frontier_gather"] = rows
 
-    # unique_compact at m = cap_l * (1 + max_degree) sorted ids, cap = cap_{l+1}
+    # unique_compact at m = cap_l * (1 + max_degree) ids, cap = cap_{l+1}
     rows = []
     for l in range(len(caps) - 1):
         m, cap = caps[l] * (1 + D), caps[l + 1]
         ids = rng.integers(0, V, size=m).astype(np.int32)
         ids[rng.random(m) < 0.5] = INVALID          # masked neighbor slots
         ids[: m // 4] = ids[rng.integers(0, m // 4, m // 4)]  # shared neighbors
-        s, _ = torch.sort(torch.from_numpy(ids).to(dev))
-        inv, uniq = unique_compact_cuda(s, cap)
-        inv_r, uniq_r = unique_compact_sorted_ref(s, cap)
-        err = int((inv != inv_r).sum() + (uniq != uniq_r).sum())
-        check(err == 0, f"unique_compact m={m} cap={cap}: {err} entries differ")
-        mae = max(max_abs_err(inv, inv_r), max_abs_err(uniq, uniq_r))
-        # per id: first-occurrence test, scan add, rank < cap, id != INVALID
-        rows.append(dict(
-            shape=f"m={m} cap={cap}", bytes=4 * m + 4 * m + 4 * cap, ops=4 * m,
-            max_abs_err=mae,
-            **timings(lambda: unique_compact_cuda(s, cap),
-                      lambda: unique_compact_sorted_ref(s, cap),
-                      lambda: torch.unique(s, sorted=True, return_inverse=True)),
-        ))
+        rows.append(dedup_row(torch.from_numpy(ids).to(dev), cap, ["serve"], "1/batch",
+                              f"serve hop {l}"))
     out["unique_compact"] = rows
 
     # tag_probe at n = the unique ids of one batch, S = capacity / 8, W = 8
@@ -368,7 +386,7 @@ def phase1(ds, caps, cache_rows: int) -> dict:
     ops = len(ids) + int(torch.where(want >= 0, want + 1, W).sum())
     out["tag_probe"] = [dict(
         shape=f"n={len(ids)} S={S} W={W}", bytes=nbytes, ops=ops,
-        max_abs_err=max_abs_err(got, want),
+        max_abs_err=max_abs_err(got, want), paths=["serve"], per="1/batch",
         **timings(lambda: tag_probe_cuda(tags_t, sets, ids_t),
                   lambda: probe_ref(tags_t, sets, ids_t)),
     )]
@@ -387,35 +405,38 @@ def report_bounds(out: dict) -> None:
             r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
             agree = ("equal bit for bit" if r["max_abs_err"] == 0
                      else f"max abs err {r['max_abs_err']:.3e}")
-            print(f"phase1 {name} [{r['shape']}]: {agree}; device ms "
+            where = ", ".join(r["paths"]) + f" ({r['per']})" if r["paths"] else "off the paths"
+            print(f"phase1 {name} [{r['shape']}] {where}: {agree}; device ms "
                   f"kernel {r['ms']:.5f} plain {r['plain_ms']:.5f} library "
                   f"{r['library_ms']}; event ms kernel {r['event_ms']:.5f} plain "
                   f"{r['plain_event_ms']:.5f} library {r['library_event_ms']}; "
                   f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (bytes "
-                  f"{r['bytes']}, ops {r['ops']})")
+                  f"{r['bytes']}, ops {r['ops']})"
+                  + "".join(f"; {k} {r[k]}" for k in r if k.startswith("extra_")))
 
 
 def phase1_train(engine) -> dict:
     """Every kernel of the training path against its plain version at the
     path's shapes: the inputs come from step 0's plan of ``engine`` (PE
-    0's frontiers and index tables) and features from a numpy seed."""
+    0's frontiers and index tables) and features from a numpy seed.  Each
+    row names the paths that run its shape and its launches per step."""
     import numpy as np
     import torch
     from repro_torch.core.graph import INVALID
     from repro_torch.kernels.frontier_gather import frontier_gather_cuda, frontier_gather_ref
     from repro_torch.kernels.gather import gather_cuda, gather_ref
-    from repro_torch.kernels.unique_compact import unique_compact_cuda, unique_compact_sorted_ref
 
     rng = np.random.default_rng(SEED + 2)
     plan = engine.plan_at(0)
     g = engine.graph
+    P = plan.seed_ids.shape[0]
+    per_pe = f"{P}/step"  # one launch per PE
+    train = ["train", "train_gat"]
     out = {}
 
-    # the plan build's two kernels at the deepest hop of PE 0: the neighbor
-    # expansion of its owned frontier, and the dedup of that frontier with
-    # its sampled neighbors (ids rebuilt from the plan's local indices)
+    # the neighbor expansion of PE 0's deepest owned frontier
     deep = plan.layers[-1]
-    seeds, tilde = deep.seeds[0].contiguous(), deep.tilde_ids[0]
+    seeds = deep.seeds[0].contiguous()
     D = g.max_degree
     got = frontier_gather_cuda(g.indptr, g.indices, seeds, D)
     want, _ = frontier_gather_ref(g.indptr, g.indices, seeds, D)
@@ -427,24 +448,30 @@ def phase1_train(engine) -> dict:
     deg = (g.indptr[sv + 1] - g.indptr[sv]).clamp(max=D)
     out["frontier_gather"] = [dict(
         shape=f"n={n} D={D}", bytes=4 * n + 8 * int(valid.sum()) + 4 * int(deg.sum()) + 4 * n * D,
-        ops=2 * n + 2 * n * D, max_abs_err=mae,
+        ops=2 * n + 2 * n * D, max_abs_err=mae, paths=train, per=per_pe,
         **timings(lambda: frontier_gather_cuda(g.indptr, g.indices, seeds, D),
                   lambda: frontier_gather_ref(g.indptr, g.indices, seeds, D)),
     )]
-    nbr = torch.where(deep.mask[0], tilde[deep.nbr_idx[0].clamp(min=0).long()], INVALID)
-    s_ids, _ = torch.sort(torch.cat([seeds, nbr.reshape(-1)]))
-    m, cap = s_ids.shape[0], engine.caps.tilde_caps[-1]
-    inv, uniq = unique_compact_cuda(s_ids, cap)
-    inv_r, uniq_r = unique_compact_sorted_ref(s_ids, cap)
-    check(torch.equal(inv, inv_r) and torch.equal(uniq, uniq_r),
-          f"unique_compact m={m} cap={cap}: differs from plain")
-    mae = max(max_abs_err(inv, inv_r), max_abs_err(uniq, uniq_r))
-    out["unique_compact"] = [dict(
-        shape=f"m={m} cap={cap}", bytes=4 * m + 4 * m + 4 * cap, ops=4 * m, max_abs_err=mae,
-        **timings(lambda: unique_compact_cuda(s_ids, cap),
-                  lambda: unique_compact_sorted_ref(s_ids, cap),
-                  lambda: torch.unique(s_ids, sorted=True, return_inverse=True), calls=5),
-    )]
+
+    # the 7 dedups of a step on PE 0 (build_cooperative_minibatch), ids
+    # rebuilt from the plan: the local seeds; per hop, the frontier with its
+    # sampled neighbors, and the ids peers request here
+    dev = seeds.device
+    caps = engine.caps
+    dedups = [(torch.from_numpy(engine.seed_batch(0)[0]).to(dev), caps.caps[0], "seeds")]
+    L = len(plan.layers)
+    for l, layer in enumerate(plan.layers):
+        S_l, tilde = layer.seeds[0], layer.tilde_ids[0]
+        nbr = torch.where(layer.mask[0], tilde[layer.nbr_idx[0].clamp(min=0).long()], INVALID)
+        dedups.append((torch.cat([S_l, nbr.reshape(-1)]), caps.tilde_caps[l], f"hop {l}"))
+        nxt = plan.layers[l + 1].seeds[0] if l + 1 < L else plan.input_ids[0]
+        req_idx = layer.req_idx[0]
+        req = torch.where(req_idx >= 0, nxt[req_idx.clamp(min=0).long()], INVALID)
+        dedups.append((req.reshape(-1), caps.caps[l + 1], f"requests {l}"))
+    out["unique_compact"] = [dedup_row(ids.contiguous(), cap, train, per_pe, label)
+                             for ids, cap, label in dedups]
+    deepest = sorted(dedups, key=lambda t: -t[0].numel())[:2]
+    dedup_whole(deepest)
 
     # gather: the feature table and all PEs' owned input ids of one step
     table = engine.store.features
@@ -458,15 +485,20 @@ def phase1_train(engine) -> dict:
     out["gather"] = [dict(
         shape=f"V={V} d={d} n={n} ({int(valid.numel())} valid)",
         bytes=4 * n + 4 * d * rows_read + 4 * n * d, ops=n, max_abs_err=float_err(got, want),
+        paths=train, per="1/step",
         **timings(lambda: gather_cuda(table, ids), lambda: gather_ref(table, ids),
                   lambda: torch.index_select(table, 0, ids.clamp(0, V - 1)), calls=5),
     )]
 
-    # spmm at every layer's (S~ rows, owned rows, d_in) for PE 0
+    # spmm at every layer's (S~ rows, owned rows, d_in) for PE 0: the GCN
+    # runs the forward at every layer, the backward where its input needs a
+    # gradient (not plan layer L-1, which reads the raw features)
     fwd, bwd = [], []
     for l, layer in enumerate(plan.layers):
-        d = 64 if l == len(plan.layers) - 1 else 256
-        f, b = spmm_rows(layer.nbr_idx[0], layer.mask[0], engine.caps.tilde_caps[l], d, rng)
+        d = 64 if l == L - 1 else 256
+        f, b = spmm_rows(layer.nbr_idx[0], layer.mask[0], caps.tilde_caps[l], d, rng,
+                         paths=["train"], per=per_pe, backward_on_path=l < L - 1,
+                         label=f"layer {l}")
         fwd.append(f)
         bwd.append(b)
     out["spmm"], out["spmm_backward"] = fwd, bwd
@@ -476,12 +508,67 @@ def phase1_train(engine) -> dict:
     fwd, bwd, coo = [], [], []
     for layer in plan.layers:
         f, b = seg_softmax_rows(layer.mask[0].contiguous(), 4, rng)
-        fwd.append(f)
-        bwd.append(b)
-        coo.append(expand_indptr_row(layer.mask[0]))
+        fwd.append(dict(f, paths=["train_gat"], per=per_pe))
+        bwd.append(dict(b, paths=["train_gat"], per=per_pe))
+        coo.append(dict(expand_indptr_row(layer.mask[0]), paths=["coo"], per="1/coo layer"))
     out["seg_softmax"], out["seg_softmax_backward"], out["expand_indptr"] = fwd, bwd, coo
     report_bounds(out)
     return out
+
+
+def dedup_row(ids, cap: int, paths: list, per: str, label: str) -> dict:
+    """``unique_compact`` on the sorted ``ids`` against its plain version,
+    equal bit for bit with the inverse in sorted and in input order; timed
+    as the path runs it (with the sort's permutation, the inverse written in
+    input order), and in sorted order as ``extra_ms_sorted_order``.  Bytes:
+    the ids and the permutation read once, the inverse and ``cap`` unique
+    ids written once; per id a compare, a scan add and two tests."""
+    import torch
+    from repro_torch.kernels.unique_compact import unique_compact_cuda, unique_compact_sorted_ref
+
+    s, order = torch.sort(ids)
+    m = s.shape[0]
+    mae = 0
+    for o in (None, order):
+        inv, uniq = unique_compact_cuda(s, cap, o)
+        inv_r, uniq_r = unique_compact_sorted_ref(s, cap, o)
+        check(torch.equal(inv, inv_r) and torch.equal(uniq, uniq_r),
+              f"unique_compact m={m} cap={cap} ({label}, order={o is not None}): "
+              "differs from plain")
+        mae = max(mae, max_abs_err(inv, inv_r), max_abs_err(uniq, uniq_r))
+    calls = 5 if m > 100_000 else 20
+    row = dict(
+        shape=f"{label}: m={m} cap={cap} unique={int((uniq_r != 0x7fffffff).sum())}",
+        bytes=4 * m + 8 * m + 4 * m + 4 * cap, ops=4 * m, max_abs_err=mae, paths=paths, per=per,
+        **timings(lambda: unique_compact_cuda(s, cap, order),
+                  lambda: unique_compact_sorted_ref(s, cap, order),
+                  lambda: torch.unique(s, sorted=True, return_inverse=True), calls=calls),
+    )
+    row["extra_ms_sorted_order"] = graph_ms(lambda: unique_compact_cuda(s, cap), calls)
+    row["extra_split"] = kernel_split(lambda: unique_compact_cuda(s, cap, order))
+    return row
+
+
+def dedup_whole(cases) -> None:
+    """The whole dedup as the path runs it -- ``unique_with_inverse``: the
+    sort, then the kernel -- beside ``torch.unique(return_inverse=True)`` on
+    the same unsorted ids and ``torch.sort`` alone (profiled device ms, and
+    per-call event ms)."""
+    import torch
+    from repro_torch.kernels.unique_compact import unique_with_inverse, unique_with_inverse_ref
+
+    for ids, cap, label in cases:
+        uniq, inv = unique_with_inverse(ids, cap)
+        uniq_r, inv_r = unique_with_inverse_ref(ids, cap)
+        check(torch.equal(uniq, uniq_r) and torch.equal(inv, inv_r),
+              f"unique_with_inverse ({label}) differs from plain")
+        fns = {"unique_with_inverse": lambda: unique_with_inverse(ids, cap),
+               "torch.sort": lambda: torch.sort(ids),
+               "torch.unique(return_inverse)":
+                   lambda: torch.unique(ids, sorted=True, return_inverse=True)}
+        parts = "; ".join(f"{k} device {device_ms(f)} event {event_ms(f):.5f}"
+                          for k, f in fns.items())
+        print(f"phase1 dedup ({label}: m={ids.numel()} cap={cap}), ms: {parts}")
 
 
 def seg_softmax_rows(mask, h: int, rng):
@@ -566,14 +653,16 @@ def float_err(got, want) -> float:
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
-def spmm_rows(idx, mask, S: int, d: int, rng, backward: bool = True):
+def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: bool = True,
+              backward_on_path: bool = True, label: str = ""):
     """``spmm`` (and its backward) against the plain versions on one
     layer's index tables ``(n, w)`` over ``S`` source rows of width ``d``
-    (values from ``rng``), equal bit for bit in both modes; rows with
-    timings and bounds.  Bytes count what the function needs: the mask,
-    the index of each masked slot, each source row a masked slot reads
-    (forward) or each gradient row that has a masked slot (backward), and
-    the output written once."""
+    (values from ``rng``), equal bit for bit in both modes, and the backward
+    equal to itself over two calls; rows with timings and bounds.  Bytes
+    count what the function needs: the mask, the index of each masked slot,
+    each source row a masked slot reads (forward) or each gradient row that
+    has a masked slot (backward), and the output written once.  ``paths``
+    run the forward at this shape; the backward too if ``backward_on_path``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -589,9 +678,11 @@ def spmm_rows(idx, mask, S: int, d: int, rng, backward: bool = True):
     n, w = idx.shape
     g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
     nnz = int(mask.sum())
-    touched = int(torch.unique(idx[mask]).numel())
+    keys = idx[mask].clamp(0, S - 1).long()
+    touched = int(torch.unique(keys).numel())
+    longest = int(torch.bincount(keys).max()) if nnz else 0
     rows_hit = int(mask.any(dim=1).sum())
-    shape = f"S={S} n={n} w={w} d={d} nnz={nnz}"
+    shape = f"{label + ': ' if label else ''}S={S} n={n} w={w} d={d} nnz={nnz}"
     err = 0.0
     for mean in (False, True):
         got, want = spmm_cuda(src, idx, mask, mean), spmm_ref(src, idx, mask, mean)
@@ -599,7 +690,7 @@ def spmm_rows(idx, mask, S: int, d: int, rng, backward: bool = True):
         err = max(err, float_err(got, want))
     fwd = dict(
         shape=shape, bytes=n * w + 4 * nnz + 4 * d * touched + 4 * n * d, ops=nnz * d,
-        max_abs_err=err,
+        max_abs_err=err, paths=paths, per=per,
         **timings(lambda: spmm_cuda(src, idx, mask, False),
                   lambda: spmm_ref(src, idx, mask, False),
                   lambda: F.embedding_bag(idx.clamp(min=0), src, mode="sum",
@@ -612,12 +703,16 @@ def spmm_rows(idx, mask, S: int, d: int, rng, backward: bool = True):
         got = spmm_backward_cuda(g, idx, mask, S, mean)
         want = spmm_backward_ref(g, idx, mask, S, mean)
         check(torch.equal(got, want), f"spmm_backward {shape} mean={mean}: differs from plain")
+        check(torch.equal(spmm_backward_cuda(g, idx, mask, S, mean), got),
+              f"spmm_backward {shape} mean={mean}: two calls differ")
         err = max(err, float_err(got, want))
     leaf = src.clone().requires_grad_()
     bag = F.embedding_bag(idx.clamp(min=0), leaf, mode="sum", per_sample_weights=mask.float())
     bwd = dict(
         shape=shape, bytes=n * w + 4 * nnz + 4 * d * rows_hit + 4 * S * d, ops=nnz * d,
-        max_abs_err=err,
+        max_abs_err=err, paths=paths if backward_on_path else [], per=per,
+        extra_longest_run=longest,
+        extra_split=kernel_split(lambda: spmm_backward_cuda(g, idx, mask, S, False)),
         **timings(lambda: spmm_backward_cuda(g, idx, mask, S, False),
                   lambda: spmm_backward_ref(g, idx, mask, S, False),
                   lambda: torch.autograd.grad(bag, leaf, g, retain_graph=True),
@@ -727,7 +822,7 @@ def serve_spmm_row(server, report, gnn_cfg) -> dict:
     l = max(range(L), key=lambda i: plan.layers[i].nbr_idx.numel())
     S = (plan.layers[l + 1].seeds if l + 1 < L else plan.input_ids).shape[0]
     row, _ = spmm_rows(plan.layers[l].nbr_idx, plan.layers[l].mask, S, gnn_cfg.dims(l)[0],
-                       np.random.default_rng(SEED + 3), backward=False)
+                       np.random.default_rng(SEED + 3), ["serve"], "1/batch", backward=False)
     row["shape"] = f"serving plan of {len(reqs)} requests, layer {l}: {row['shape']}"
     report_bounds({"spmm": [row]})
     return row
@@ -905,7 +1000,7 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
     print(f"{tag} final weights card vs cpu: max abs diff {w_err:.3e} (atol {TRAIN_ATOL})")
     check(w_err <= TRAIN_ATOL, f"final weights differ from the CPU run by {w_err}")
     walls = [sum(st.values()) for st in runs["card"].stage_ms]
-    profile_train(tag, tds, gnn_cfg, tc)
+    profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in runs["card"].stage_ms])
     return {"launches": launches, "loss_rel": loss_rel, "walls": walls,
             "plan0": plans["card"][0]}
 
@@ -939,11 +1034,24 @@ def phase_coo(plan) -> dict:
     return {"launches": launches}
 
 
-def profile_train(tag: str, tds, gnn_cfg, tc) -> None:
+# kernels of two redesigned wrappers, by name in a profile (the spmm
+# backward's scan kernel comes from scan.cuh), and every torch.sort of a step (CUB's radix sort, or
+# PyTorch's in-place sort of small arrays)
+PROFILE_GROUPS = {
+    "unique_compact": ("uc_count_kernel", "uc_offsets_kernel", "uc_scatter_kernel"),
+    "spmm_backward": ("bwd_count_kernel", "bwd_place_kernel", "bwd_rows_kernel",
+                      "lookback_scan_kernel"),
+    "every torch.sort": ("RadixSort", "SortKVInPlace"),
+}
+
+
+def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     """Device busy and idle share over ``PROFILE_STEPS`` steps (steps 4 and
     5 of a fresh engine and model, through ``train_step``, the step
     ``train_gnn`` runs) under torch.profiler, the kernels that take the
-    device time, and the host time in the LABOR variates."""
+    device time, the device ms per step of ``PROFILE_GROUPS``, beside the
+    card run's plan ms per step (``plan_ms``, its warm steps 1..), and the
+    host time in the LABOR variates."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -972,9 +1080,22 @@ def profile_train(tag: str, tds, gnn_cfg, tc) -> None:
           f"per step in rng.vertex_uniform {rng_ms / PROFILE_STEPS:.3f}")
     for dev_us, count, key in stats[:12]:
         print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
+    groups = []
+    for name, parts in PROFILE_GROUPS.items():
+        hit = [(us, c) for us, c, key in stats if any(p in key for p in parts)]
+        groups.append(f"{name} {sum(us for us, _ in hit) / 1e3 / PROFILE_STEPS:.4f} "
+                      f"({sum(c for _, c in hit) / PROFILE_STEPS:.0f} kernels)")
+    warm = plan_ms[1:] or plan_ms
+    print(f"{tag} profile device ms per step: " + ", ".join(groups)
+          + f"; plan ms per step (card run, warm steps) mean {sum(warm) / len(warm):.3f} "
+          + "[" + ", ".join(f"{v:.3f}" for v in warm) + "]")
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    kernels_only = argv == ["--kernels-only"]
+    if argv and not kernels_only:
+        print(f"usage: {sys.argv[0]} [--kernels-only]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1037,6 +1158,9 @@ def main() -> int:
         for name, rows in phase1_train(engine).items():
             k[name] = k.get(name, []) + rows
         del engine
+        if kernels_only:
+            print("chip_smoke: --kernels-only: phases 0-1 done, no result line")
+            return 0
         gnn_cfg = GNNConfig(model="gcn", num_layers=serve_cfg.num_layers,
                             in_dim=64, hidden_dim=256, num_classes=16)
         trace = poisson_trace(500, 4000.0, ds.user_ids, seed=SEED)
@@ -1054,7 +1178,8 @@ def main() -> int:
         return 1
     kernels = []
     for name, meta in KERNELS.items():
-        r = max(k[name], key=lambda row: row["bytes"])  # the largest shape of its paths
+        on_path = [row for row in k[name] if row["paths"]]
+        r = max(on_path, key=lambda row: row["bytes"])  # its largest shape on a path
         by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
@@ -1062,7 +1187,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
+            "library_ms": r["library_ms"], "shape": r["shape"], "paths": r["paths"],
             "event_ms": r["event_ms"], "plain_event_ms": r["plain_event_ms"],
         })
     print(json.dumps({"kernels": kernels}))
@@ -1074,4 +1199,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -16,17 +16,16 @@ class FeatureStore:
     features: torch.Tensor  # (V, d)
 
     def gather(self, ids: torch.Tensor) -> torch.Tensor:
-        """Masked gather of ``(..., d)`` rows; INVALID (and any id outside
-        ``[0, V)``) comes back as a zero row.  On a CUDA device this is the
-        ``gather`` kernel, on the CPU its plain version.
-
-        This follows the ``paged_gather`` kernel it ports, not the JAX
-        ``FeatureStore.gather``: that one zeros only INVALID and clamps
-        every other id to ``[0, V)`` (``-2`` gives row 0).  The two agree on
-        every id a plan holds (INVALID and ids in ``[0, V)``)."""
+        """Masked gather of ``(..., d)`` rows, as the JAX ``FeatureStore.gather``:
+        INVALID comes back as a zero row and every other id is clamped into
+        ``[0, V)`` (``-2`` gives row 0).  On a CUDA device the rows come from
+        the ``gather`` kernel, on the CPU from its plain version; both zero
+        only INVALID here, since every other id is in range after the clamp."""
         from repro_torch.kernels.gather import gather
 
-        return gather(self.features, ids.to(self.features.device, torch.int32))
+        ids = ids.to(self.features.device, torch.int32)
+        V = self.features.shape[0]
+        return gather(self.features, torch.where(ids == INVALID, ids, ids.clamp(0, V - 1)))
 
     def count_fetched(self, ids) -> int:
         """Rows actually transferred from storage (unique per PE batch)."""

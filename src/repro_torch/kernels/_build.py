@@ -4,8 +4,9 @@ Every ``*.cu`` file under ``src/repro_torch/`` is one kernel library with
 a plain C interface.  At first use all of them are compiled at once, one
 ``nvcc`` process per source started together, for ``sm_90a`` (Hopper),
 into ``build/torch_kernels/`` at the repository root, and loaded with
-``ctypes``.  A library is named by the hash of its source and flags, so
-an edited source rebuilds and an unchanged one is reused.
+``ctypes``.  A library is named by the hash of its source, of every
+shared header (``*.cuh``) under the package and of the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
 
 Nothing here is imported or compiled at module import time, and nothing
 falls back: a failed build or a launch error raises.
@@ -68,6 +69,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(PACKAGE_DIR.rglob("*.cuh")):
+        h.update(header.relative_to(PACKAGE_DIR).as_posix().encode() + header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -115,21 +118,22 @@ def launch(name: str, fn: str, *args, counter: str | None = None) -> None:
     """Call C entry point ``fn`` of kernel library ``name``, check its error
     code, and count the launch under ``counter`` (default ``name``).
 
-    Each argument is a tensor (passed as its device pointer) or a python
-    int (passed as a 64-bit integer); the current CUDA stream is
-    appended.  The C function returns ``cudaGetLastError()`` after its
+    Each argument is a tensor (passed as its device pointer), ``None`` (a
+    null pointer) or a python int (passed as a 64-bit integer); the current
+    CUDA stream is appended.  The C function returns ``cudaGetLastError()`` after its
     launch; a non-zero code raises.
     """
     cfn = _entries.get((name, fn))
     if cfn is None:  # configured once per entry point, at its first call
         cfn = getattr(library(name), fn)
         cfn.argtypes = [
-            ctypes.c_void_p if isinstance(a, torch.Tensor) else ctypes.c_longlong
+            ctypes.c_void_p if a is None or isinstance(a, torch.Tensor) else ctypes.c_longlong
             for a in args
         ] + [ctypes.c_void_p]
         cfn.restype = ctypes.c_int
         _entries[(name, fn)] = cfn
-    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a if a is None else int(a)
+             for a in args]
     err = cfn(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA launch failed with error {err}")

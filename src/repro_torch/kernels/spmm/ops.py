@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.spmm.ref import _degree, backward_order, spmm_backward_ref, spmm_ref
+from repro_torch.kernels.spmm.ref import spmm_backward_ref, spmm_ref
 
 
 def _check(kernel: str, rows: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.Tensor):
@@ -40,24 +40,36 @@ def spmm_cuda(src: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.Tensor,
     return out
 
 
+SCAN_TILE = 2048  # ints per tile of the look-back scan (scan.cuh's kScanTile)
+
+
 def spmm_backward_cuda(grad_out: torch.Tensor, nbr_idx: torch.Tensor,
                        mask: torch.Tensor, num_src: int, mean: bool) -> torch.Tensor:
     """(num_src, d) source gradient from the CUDA backward kernel.
 
-    The slots are put in source-row order by a stable ``torch.sort``
-    (:func:`.ref.backward_order`), as the JAX package leaves sorts to XLA;
-    the kernel then adds each row's run in order, without atomics.
+    The kernel transposes the masked slots by counting (count, scan, place)
+    and adds each source row's gradients in slot order, one warp per row
+    (see ``spmm.cu``): a memset and 4 kernel launches, counted as one.
+    Every output row is written by the kernel, so nothing is zero-filled.
     """
     _check("spmm_backward", grad_out, nbr_idx, mask)
     n, d = grad_out.shape
+    w = nbr_idx.shape[1]
     if nbr_idx.shape[0] != n:
         raise ValueError(f"spmm_backward: {n} gradient rows for {nbr_idx.shape[0]} index rows")
-    grad_src = torch.zeros((num_src, d), dtype=grad_out.dtype, device=grad_out.device)
-    if n * d * nbr_idx.shape[1] and num_src:
-        g = (grad_out / _degree(mask, grad_out.dtype)).contiguous() if mean else grad_out
-        keys, slots = backward_order(nbr_idx, mask, num_src)
-        _build.launch("spmm", "spmm_backward_launch", g, keys, slots, grad_src,
-                      keys.numel(), nbr_idx.shape[1], d, num_src, counter="spmm_backward")
+    if n * w >= 2**31 - 1 or num_src >= 2**31 - 1:
+        raise ValueError(f"spmm_backward: n*w={n * w} slots or {num_src} rows exceed int32")
+    dev = grad_out.device
+    if not (n * d * w and num_src):
+        return torch.zeros((num_src, d), dtype=grad_out.dtype, device=dev)
+    grad_src = torch.empty((num_src, d), dtype=grad_out.dtype, device=dev)
+    # count, the scan's status words, offset (num_src + 1) and deg (n), each
+    # from a 16-byte boundary; list (n*w) and the scan's total
+    tiles = -(-(num_src + 1) // SCAN_TILE)
+    ints = 2 * (num_src + 4) + 2 * tiles + 4 + (n + 3) + n * w + 1
+    scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
+    _build.launch("spmm", "spmm_backward_launch", grad_out, nbr_idx, mask, grad_src, scratch,
+                  n, w, d, num_src, int(mean), counter="spmm_backward")
     return grad_src
 
 

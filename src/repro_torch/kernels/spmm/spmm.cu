@@ -17,20 +17,40 @@
 // so the forward equals it bit for bit.
 //
 // Backward: grad_src[j, c] = sum over the masked slots (r, k) with
-// clamp(nbr_idx[r, k]) == j of g[r, c], with g = grad_out / max(deg_r, 1)
-// in mean mode.  The wrapper sorts the slots by source row with a stable
-// sort (keys: the source row, or S for a masked-out slot), so each source
-// row's slots form one run in slot order.  One thread per (slot, column)
-// whose slot starts a run adds the run's gradients in that order and
-// writes the row once: no atomics, so the result is deterministic and
-// equals the plain version, which adds in the same order, bit for bit.
-// Source rows no slot reads stay as the caller zeroed them.
+// clamp(nbr_idx[r, k]) == j, in slot order r*w + k, of g[r, c], with
+// g = grad_out / max(deg_r, 1) in mean mode (the division first, as the
+// plain version divides first).  Each sum runs in slot order with
+// __fadd_rn, so the result equals the plain version bit for bit and is the
+// same from call to call.
 //
-// Bound on the H100: bytes (indices, mask, the touched source rows and the
-// output); one add per masked slot and column is far below the float32
-// rate.
+// Bound on the H100 (backward): bytes -- the mask, the index of each masked
+// slot, each gradient row with a masked slot, and the (num_src, d) output
+// written once; at the training path's layer 1 the output is 26.8 MB of
+// the 27 MB.  A sort of the slots by source row, a zero fill of the
+// output and a (slot x column) grid where most slots are masked out cost
+// several times that bound in launches and passes, so the backward
+// transposes the masked slots by counting instead, and writes each output
+// row once:
+//   1. count:   one warp per output row r, a lane per slot: each masked
+//               slot adds 1 to count[j] (integer atomics; count and the
+//               scan's status words zeroed by one memset); the row's
+//               degree by ballot;
+//   2. offsets: an exclusive scan of count in one launch (scan.cuh's
+//               decoupled look-back), so source row j's slots own
+//               list[offset[j], offset[j + 1]);
+//   3. place:   each masked slot takes a place in its row's run by an
+//               atomic countdown of count[j] (order inside a run arbitrary);
+//   4. rows:    one warp per source row j puts its run in slot order -- up
+//               to 32 entries by shuffle ranks, longer runs by a bitonic
+//               sort in shared memory (up to kSmemRun entries) or in place
+//               in the run's own slice of `list` -- then its lanes cover the
+//               d columns (float4 where d % 4 == 0), add the runs' gradient
+//               rows in that order and write row j once (zeros for no run).
+// No sort, no float atomics, no fill of the output.
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "../scan.cuh"
 
 namespace {
 
@@ -64,22 +84,155 @@ __global__ void spmm_fwd_kernel(const float* __restrict__ src,
   out[t] = acc;
 }
 
-__global__ void spmm_bwd_kernel(const float* __restrict__ g,
-                                const int32_t* __restrict__ keys,
-                                const int32_t* __restrict__ slots,
-                                float* __restrict__ grad_src, long long total,
-                                long long num_slots, int w, int d,
-                                long long num_src) {
-  long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  long long e = t / d;
-  int c = (int)(t - e * d);
-  int32_t j = __ldg(keys + e);
-  if (j >= num_src || (e > 0 && __ldg(keys + e - 1) == j)) return;
-  float acc = 0.0f;
-  for (long long f = e; f < num_slots && __ldg(keys + f) == j; ++f)
-    acc = __fadd_rn(acc, __ldg(g + (long long)(__ldg(slots + f) / w) * d + c));
-  grad_src[(long long)j * d + c] = acc;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowsThreads = 256;  // 8 warps, one source row each
+constexpr int kSmemRun = 512;      // run entries a warp sorts in shared memory
+
+// 1. count[j] += 1 for every masked slot reading source row j; deg[r] =
+// masked slots of row r.  One warp per row r, lane k0 + lane on slot k.
+__global__ void bwd_count_kernel(const int32_t* __restrict__ nbr_idx,
+                                 const uint8_t* __restrict__ mask, int* __restrict__ count,
+                                 int* __restrict__ deg, long long n, int w,
+                                 long long num_src) {
+  const long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= n) return;  // the whole warp
+  int dg = 0;
+  for (int k0 = 0; k0 < w; k0 += 32) {
+    const int k = k0 + lane;
+    const bool on = k < w && __ldg(mask + r * w + k);
+    if (on) atomicAdd(count + clamp_row(__ldg(nbr_idx + r * w + k), num_src), 1);
+    dg += __popc(__ballot_sync(kFull, on));
+  }
+  if (lane == 0) deg[r] = dg;
+}
+
+// 3. list[offset[j] + c] = flat slot index r*w + k for the masked slots of
+// source row j, c counting count[j] down to 0 (order within a run arbitrary).
+__global__ void bwd_place_kernel(const int32_t* __restrict__ nbr_idx,
+                                 const uint8_t* __restrict__ mask,
+                                 const int* __restrict__ offset, int* __restrict__ count,
+                                 int* __restrict__ list, long long n, int w,
+                                 long long num_src) {
+  const long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= n) return;
+  for (int k0 = 0; k0 < w; k0 += 32) {
+    const int k = k0 + lane;
+    if (k < w && __ldg(mask + r * w + k)) {
+      const long long j = clamp_row(__ldg(nbr_idx + r * w + k), num_src);
+      list[__ldg(offset + j) + atomicSub(count + j, 1) - 1] = (int)(r * w + k);
+    }
+  }
+}
+
+// Sorts a[0, L) ascending (distinct values) by one warp: a bitonic network
+// with every comparator pointing up, positions >= L read as +infinity (so
+// comparators that reach past L are skipped); a in shared or global memory.
+__device__ void warp_sort(int* a, int L) {
+  const int lane = threadIdx.x & 31;
+  int Lp = 32;
+  while (Lp < L) Lp <<= 1;
+  for (int size = 2; size <= Lp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const int flip = stride == (size >> 1) ? size - 1 : stride;
+      for (int base = 0; base < Lp; base += 4 * 32) {
+        int lo[4], hi[4], x[4], y[4];
+        bool on[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {  // loads first: this lane's pairs are disjoint
+          const int i = base + u * 32 + lane;
+          const int p = i ^ flip;
+          lo[u] = i;
+          hi[u] = p;
+          on[u] = i < p && p < L;
+          if (on[u]) {
+            x[u] = a[i];
+            y[u] = a[p];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (on[u] && x[u] > y[u]) {
+            a[lo[u]] = y[u];
+            a[hi[u]] = x[u];
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void add_run(const float* __restrict__ g,
+                                        const int* __restrict__ deg, const int* run, int L,
+                                        float* __restrict__ out, int w, int d, int mean) {
+  const int lane = threadIdx.x & 31;
+  constexpr int kCols = kVec ? 4 : 1;
+  for (int c = lane * kCols; c < d; c += 32 * kCols) {
+    float acc[kCols];
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) acc[q] = 0.0f;
+#pragma unroll 4
+    for (int t = 0; t < L; ++t) {
+      const long long r = run[t] / w;
+      float x[kCols];
+      if constexpr (kVec) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(g + r * d + c));
+        x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+      } else {
+        x[0] = __ldg(g + r * d + c);
+      }
+      if (mean) {
+        const int dg = __ldg(deg + r);
+        const float div = (float)(dg > 1 ? dg : 1);
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) x[q] = __fdiv_rn(x[q], div);
+      }
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) acc[q] = __fadd_rn(acc[q], x[q]);
+    }
+    if constexpr (kVec) {
+      *reinterpret_cast<float4*>(out + c) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      out[c] = acc[0];
+    }
+  }
+}
+
+// 4. One warp per source row j: its run in slot order, then the sums.
+template <bool kVec>
+__global__ void __launch_bounds__(kRowsThreads)
+bwd_rows_kernel(const float* __restrict__ g, const int* __restrict__ offset,
+                int* list, const int* __restrict__ deg, float* __restrict__ grad_src,
+                long long num_src, int w, int d, int mean) {
+  __shared__ int runs[kRowsThreads / 32][kSmemRun];
+  const long long j = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (j >= num_src) return;  // the whole warp
+  int* run = runs[threadIdx.x >> 5];
+  const int beg = __ldg(offset + j);
+  const int L = __ldg(offset + j + 1) - beg;
+  if (L <= 32) {
+    // rank of each lane's entry among the run's (entries are distinct)
+    const int e = lane < L ? list[beg + lane] : 0x7fffffff;
+    int rank = 0;
+    if (L > 1) {
+#pragma unroll
+      for (int t = 0; t < 32; ++t) rank += __shfl_sync(kFull, e, t) < e;
+    }
+    if (lane < L) run[rank] = e;
+    __syncwarp();
+  } else if (L <= kSmemRun) {
+    for (int i = lane; i < L; i += 32) run[i] = list[beg + i];
+    __syncwarp();
+    warp_sort(run, L);
+  } else {
+    run = list + beg;  // sorted in place: this warp owns the slice
+    warp_sort(run, L);
+  }
+  add_run<kVec>(g, deg, run, L, grad_src + j * d, w, d, mean);
 }
 
 unsigned blocks_for(long long total, int threads) {
@@ -100,17 +253,51 @@ extern "C" int spmm_forward_launch(const void* src, const void* nbr_idx,
   return (int)cudaGetLastError();
 }
 
-// keys/slots: the n*w slots sorted stably by source row (keys) with their
-// flat slot index r*w + k (slots); g already divided by the degree in mean
-// mode; grad_src zeroed by the caller.
-extern "C" int spmm_backward_launch(const void* g, const void* keys,
-                                    const void* slots, void* grad_src,
-                                    long long num_slots, long long w, long long d,
-                                    long long num_src, void* stream) {
-  long long total = num_slots * d;
+// g: (n, d) output gradient; grad_src: (num_src, d), every row written;
+// scratch: 2 (num_src + 4) + 2 ceil((num_src + 1) / 2048) + 4 + (n + 3) +
+// n w + 1 int32 -- count (num_src + 1), the scan's zeroed words, offset
+// (num_src + 1) and deg (n), each from a 16-byte boundary, then list (n w)
+// and the scan's total.  Returns the first launch error, checked after the
+// memset and each of the 4 kernel launches.
+extern "C" int spmm_backward_launch(const void* g, const void* nbr_idx, const void* mask,
+                                    void* grad_src, void* scratch, long long n, long long w,
+                                    long long d, long long num_src, long long mean,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  auto up4 = [](long long x) { return (x + 3) & ~3LL; };
+  int* count = (int*)scratch;  // num_src + 1; the last stays 0
+  int* scan_words = count + up4(num_src + 1);
+  const long long zeroed = up4(num_src + 1) + scan::scratch_ints(num_src + 1);
+  int* offset = count + up4(zeroed);
+  int* deg = offset + up4(num_src + 1);
+  int* list = deg + up4(n);
+  int* total = list + n * w;
+  cudaError_t err = cudaMemsetAsync(count, 0, zeroed * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
   const int threads = 256;
-  spmm_bwd_kernel<<<blocks_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const int32_t*)keys, (const int32_t*)slots,
-      (float*)grad_src, total, num_slots, (int)w, (int)d, num_src);
+  const unsigned row_blocks = blocks_for(n * 32, threads);
+  bwd_count_kernel<<<row_blocks, threads, 0, s>>>((const int32_t*)nbr_idx,
+                                                  (const uint8_t*)mask, count, deg, n,
+                                                  (int)w, num_src);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = scan::exclusive_scan(count, offset, num_src + 1, scan_words, total, s);
+  if (err != cudaSuccess) return (int)err;
+  bwd_place_kernel<<<row_blocks, threads, 0, s>>>((const int32_t*)nbr_idx,
+                                                  (const uint8_t*)mask, offset, count, list,
+                                                  n, (int)w, num_src);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned src_blocks = blocks_for(num_src * 32, kRowsThreads);
+  const bool vec = d % 4 == 0 && (uintptr_t)g % 16 == 0 && (uintptr_t)grad_src % 16 == 0;
+  if (vec)
+    bwd_rows_kernel<true><<<src_blocks, kRowsThreads, 0, s>>>(
+        (const float*)g, offset, list, deg, (float*)grad_src, num_src, (int)w, (int)d,
+        (int)mean);
+  else
+    bwd_rows_kernel<false><<<src_blocks, kRowsThreads, 0, s>>>(
+        (const float*)g, offset, list, deg, (float*)grad_src, num_src, (int)w, (int)d,
+        (int)mean);
   return (int)cudaGetLastError();
 }
+

@@ -3,7 +3,8 @@
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor is
 sorted with ``torch.sort`` (the JAX package leaves the sort to XLA too)
 and the hand-written kernel ``unique_compact.cu`` does everything after
-the sort, or the call raises.
+the sort, the inverse's scatter back to input order included, or the
+call raises.
 """
 from __future__ import annotations
 
@@ -13,21 +14,36 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.unique_compact.ref import unique_with_inverse_ref
 
 
+TILE = 8192  # ids per block of unique_compact.cu (its kTile)
+
+
 def unique_compact_cuda(
-    sorted_ids: torch.Tensor, cap: int
+    sorted_ids: torch.Tensor, cap: int, order: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(inv_sorted (m,), uniq (cap,)) of ascending ids, from the CUDA kernel."""
+    """(inv (m,), uniq (cap,)) of ascending ids, from the CUDA kernel.
+
+    ``inv`` is in sorted order, or, given the sort's int64 permutation
+    ``order``, in input order (``inv[order[j]]`` is the rank of
+    ``sorted_ids[j]``).  One to three CUDA launches (see the kernel's note),
+    counted as one; no host synchronisation.
+    """
     _build.require_cuda_int32("unique_compact", sorted_ids=sorted_ids)
-    if cap < 1:
-        raise ValueError(f"unique_compact: cap must be >= 1, got {cap}")
+    if not 1 <= cap < 2**31:
+        raise ValueError(f"unique_compact: cap must be in [1, 2**31), got {cap}")
     (m,) = sorted_ids.shape
     if m >= 2**31:
         raise ValueError(f"unique_compact: m={m} exceeds the int32 index range")
-    inv = torch.empty((m,), dtype=torch.int32, device=sorted_ids.device)
-    uniq = torch.empty((cap,), dtype=torch.int32, device=sorted_ids.device)
-    _build.launch(
-        "unique_compact", "unique_compact_launch", sorted_ids, inv, uniq, m, cap
-    )
+    if order is not None:
+        _build.require_cuda("unique_compact", torch.int64, order=order)
+        if order.shape != sorted_ids.shape:
+            raise ValueError(f"unique_compact: order {tuple(order.shape)} for {m} ids")
+    dev = sorted_ids.device
+    inv = torch.empty((m,), dtype=torch.int32, device=dev)
+    uniq = torch.empty((cap,), dtype=torch.int32, device=dev)
+    tiles = -(-m // TILE)
+    scratch = torch.empty((tiles + 1,), dtype=torch.int32, device=dev) if tiles > 1 else None
+    _build.launch("unique_compact", "unique_compact_launch",
+                  sorted_ids, order, inv, uniq, scratch, m, cap)
     return inv, uniq
 
 
@@ -45,9 +61,7 @@ def unique_with_inverse(
     if flat.device.type != "cuda":
         raise ValueError(f"unique_compact: unsupported device {flat.device}")
     s, order = torch.sort(flat)
-    inv_sorted, uniq = unique_compact_cuda(s.contiguous(), cap)
-    inv = torch.empty_like(inv_sorted)
-    inv[order] = inv_sorted
+    inv, uniq = unique_compact_cuda(s.contiguous(), cap, order)
     return uniq, inv
 
 

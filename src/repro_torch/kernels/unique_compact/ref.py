@@ -17,9 +17,12 @@ _INVALID = 2**31 - 1
 
 
 def unique_compact_sorted_ref(
-    s: torch.Tensor, cap: int
+    s: torch.Tensor, cap: int, order: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(inv_sorted (m,), uniq (cap,)) from ascending ids -- what the kernel computes."""
+    """(inv (m,), uniq (cap,)) from ascending ids -- what the kernel computes.
+
+    ``inv`` is in sorted order, or in input order given the sort's
+    permutation ``order`` (``inv[order[j]]`` is the rank of ``s[j]``)."""
     m = s.shape[0]
     first = torch.ones(m, dtype=torch.bool, device=s.device)
     first[1:] = s[1:] != s[:-1]
@@ -29,17 +32,18 @@ def unique_compact_sorted_ref(
     slot = torch.where(rank < cap, rank, cap).long()
     uniq = torch.full((cap + 1,), _INVALID, dtype=s.dtype, device=s.device)
     uniq[slot] = s
-    inv_sorted = torch.where((rank < cap) & (s != _INVALID), rank, -1)
-    return inv_sorted.to(torch.int32), uniq[:cap]
+    inv_sorted = torch.where((rank < cap) & (s != _INVALID), rank, -1).to(torch.int32)
+    if order is None:
+        return inv_sorted, uniq[:cap]
+    inv = torch.empty_like(inv_sorted)
+    inv[order] = inv_sorted
+    return inv, uniq[:cap]
 
 
 def unique_with_inverse_ref(
     ids: torch.Tensor, cap: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(uniq (cap,), inv (m,)) for a flat int32 id vector."""
-    flat = ids.reshape(-1)
-    s, order = torch.sort(flat, stable=True)
-    inv_sorted, uniq = unique_compact_sorted_ref(s, cap)
-    inv = torch.empty_like(inv_sorted)
-    inv[order] = inv_sorted
+    s, order = torch.sort(ids.reshape(-1), stable=True)
+    inv, uniq = unique_compact_sorted_ref(s, cap, order)
     return uniq, inv

@@ -2,88 +2,183 @@
 //
 // Replaces the TPU kernel repro/kernels/unique_compact/kernel.py
 // (unique_compact_pallas / _unique_kernel).  The TPU version walks its
-// grid in order and carries the running unique count in SMEM from one
-// block to the next, and compacts through a (cap x block_m) equality
-// match.  Hopper blocks run in parallel with nothing carried between
-// them, so this kernel is ONE block of 1024 threads that loops over the
-// sorted array tile by tile: per tile it computes first-occurrence flags,
-// an inclusive block scan of the flags (warp shuffles, then a scan of the
-// 32 warp sums), adds the carry from earlier tiles, and scatters.
+// grid in order, carries the running unique count in SMEM from one block
+// to the next, and compacts through a (cap x block_m) equality match.
 //
-// Input: ids sorted ascending (the sort stays outside, in torch.sort).
+// Input: m ids sorted ascending (the sort stays outside, in torch.sort) and,
+// optionally, the sort's permutation `order` (int64).
 //   inv[j]   = rank of ids[j] among the unique ids; -1 for INVALID ids and
-//              for ranks >= cap (keep-smallest-cap overflow policy);
+//              for ranks >= cap (keep-smallest-cap overflow policy).  With
+//              `order`, it is written at inv[order[j]]: the inverse in the
+//              caller's input order, with no separate scatter.
 //   uniq[r]  = the r-th unique id for r < min(#unique, cap), INVALID after.
 //
-// Bound on the H100: at serving shapes (m <= ~31k ids, 125 KB in, 125 KB
-// out) one block is bound by launch latency and the tile loop's
-// synchronisations, far above the byte bound; a multi-block two-pass scan
-// is the later step if plan building ever runs at large m.
+// Bound on the H100: bytes -- each id read once, its inverse written once,
+// `cap` unique ids written; one compare and one scan add per id are far
+// below any arithmetic rate.  At the training path's deepest dedup (m =
+// 1.29M ids, 5 MB) one block on one of the 132 SMs cannot draw the memory
+// rate, and the TPU's in-order carry has no Hopper counterpart.  So the ids
+// are cut into tiles of 8192 (1024 threads x 8 ids, two 16-byte loads per
+// thread), one block each, scanned in three launches:
+//   A. count:   each tile counts its first-occurrence flags (the tile's
+//               first id compares against the id before the tile);
+//   B. offsets: one block scans the tile counts (scan.cuh) and writes the
+//               number of unique ids to device memory;
+//   C. scatter: each tile recomputes its flags (the ids come from the 50 MB
+//               L2 this time), block-scans them (warp shuffles, then the warp
+//               sums in shared memory), adds its tile's offset and writes inv
+//               and uniq; all blocks fill uniq[total:cap) with INVALID,
+//               reading total from device memory.
+// Ids that fit one tile (every serving shape) take one launch of C alone,
+// which counts its own total.  Nothing synchronises with the host.
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "../scan.cuh"
 
 namespace {
 
 constexpr int32_t kInvalid = 0x7fffffff;
-constexpr int kThreads = 1024;
+constexpr int kThreads = scan::kThreads;
+constexpr int kItems = 8;                  // ids per thread
+constexpr int kTile = kThreads * kItems;   // ids per block
 
-__global__ void __launch_bounds__(kThreads)
-unique_compact_kernel(const int32_t* __restrict__ sorted,
-                      int32_t* __restrict__ inv, int32_t* __restrict__ uniq,
-                      int m, int cap) {
-  __shared__ int warp_sums[kThreads / 32];
-  __shared__ int carry;  // uniques in earlier tiles
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int nwarps = kThreads / 32;
-  if (tid == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < m; base += kThreads) {
-    const int j = base + tid;
-    int32_t v = 0;
-    int first = 0;
-    if (j < m) {
-      v = sorted[j];
-      first = (j == 0) || (sorted[j - 1] != v);
-    }
-    int x = first;  // inclusive scan within the warp
+// Loads this thread's kItems ids from j0 on (two 16-byte loads when they
+// are all in range and `vec`) and flags the first occurrence of each;
+// returns the number of flags.  Every thread of the block calls it.
+__device__ __forceinline__ int load_flags(const int32_t* __restrict__ sorted, long long m,
+                                          long long j0, int vec, int32_t (&v)[kItems],
+                                          int (&first)[kItems]) {
+  if (vec && j0 + kItems <= m) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(sorted + j0));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(sorted + j0) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp sums
-      int w = warp_sums[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_sums[lane] = w;
-    }
-    __syncthreads();
-    const int rank = carry + x + (warp > 0 ? warp_sums[warp - 1] : 0) - 1;
-    if (j < m) {
-      inv[j] = (rank < cap && v != kInvalid) ? rank : -1;
-      if (first && rank < cap) uniq[rank] = v;
-    }
-    __syncthreads();  // every thread has read carry and warp_sums
-    if (tid == 0) carry += warp_sums[nwarps - 1];
-    __syncthreads();
+    for (int i = 0; i < kItems; ++i) v[i] = j0 + i < m ? __ldg(sorted + j0 + i) : 0;
   }
-  for (int c = carry + tid; c < cap; c += kThreads) uniq[c] = kInvalid;
+  // the id before this thread's first: the last id of the lane below, or
+  // read from memory by lane 0
+  int32_t prev = __shfl_up_sync(0xffffffffu, v[kItems - 1], 1);
+  if ((threadIdx.x & 31) == 0 && j0 > 0 && j0 <= m) prev = __ldg(sorted + j0 - 1);
+  int count = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const long long j = j0 + i;
+    const int32_t p = i == 0 ? prev : v[i - 1];
+    first[i] = j < m && (j == 0 || p != v[i]);
+    count += first[i];
+  }
+  return count;
+}
+
+// Pass A: counts[b] = first-occurrence flags in tile b.
+__global__ void __launch_bounds__(kThreads)
+uc_count_kernel(const int32_t* __restrict__ sorted, long long m, int vec,
+                int* __restrict__ counts) {
+  __shared__ int smem[scan::kWarps];
+  const long long j0 = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
+  int32_t v[kItems];
+  int first[kItems];
+  const int c = load_flags(sorted, m, j0, vec, v, first);
+  int total;
+  scan::block_exclusive_scan(c, smem, &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// Pass B: counts -> exclusive tile offsets in place, *total = unique ids.
+__global__ void __launch_bounds__(kThreads)
+uc_offsets_kernel(int* counts, long long tiles, int* total) {
+  __shared__ int smem[scan::kWarps];
+  scan::scan_one_block(counts, counts, tiles, total, smem);
+}
+
+// Pass C: ranks, inv and uniq of tile b from its offset (offsets[b], or 0
+// for a single tile, which then counts the total itself).
+__global__ void __launch_bounds__(kThreads)
+uc_scatter_kernel(const int32_t* __restrict__ sorted, const int64_t* __restrict__ order,
+                  int32_t* __restrict__ inv, int32_t* __restrict__ uniq, long long m,
+                  int cap, int vec, const int* __restrict__ offsets,
+                  const int* __restrict__ num_unique) {
+  __shared__ int smem[scan::kWarps];
+  const long long j0 = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
+  int32_t v[kItems];
+  int first[kItems];
+  const int c = load_flags(sorted, m, j0, vec, v, first);
+  // where each inverse goes, loaded before the scan so its latency overlaps
+  long long dst[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) dst[i] = j0 + i;
+  if (order && vec && j0 + kItems <= m) {
+#pragma unroll
+    for (int i = 0; i < kItems; i += 2) {
+      const longlong2 o = __ldg(reinterpret_cast<const longlong2*>(order + j0 + i));
+      dst[i] = o.x;
+      dst[i + 1] = o.y;
+    }
+  } else if (order) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (j0 + i < m) dst[i] = __ldg(order + j0 + i);
+  }
+  const int offset = offsets ? __ldg(offsets + blockIdx.x) : 0;
+  int tile_total;
+  int rank = offset + scan::block_exclusive_scan(c, smem, &tile_total) - 1;
+  int32_t out[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    rank += first[i];
+    out[i] = (rank < cap && v[i] != kInvalid) ? rank : -1;
+    if (first[i] && rank < cap) uniq[rank] = v[i];
+  }
+  if (order) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (j0 + i < m) inv[dst[i]] = out[i];
+  } else if (vec && j0 + kItems <= m) {
+    reinterpret_cast<int4*>(inv + j0)[0] = make_int4(out[0], out[1], out[2], out[3]);
+    reinterpret_cast<int4*>(inv + j0)[1] = make_int4(out[4], out[5], out[6], out[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (j0 + i < m) inv[j0 + i] = out[i];
+  }
+  const long long total = offsets ? *num_unique : tile_total;
+  for (long long r = total + (long long)blockIdx.x * kThreads + threadIdx.x; r < cap;
+       r += (long long)gridDim.x * kThreads)
+    uniq[r] = kInvalid;
 }
 
 }  // namespace
 
-extern "C" int unique_compact_launch(const void* sorted, void* inv, void* uniq,
-                                     long long m, long long cap,
+// sorted: m int32 ids, ascending; order: null or the sort's int64
+// permutation; inv: m int32; uniq: cap int32; scratch: null when m <= 8192,
+// else ceil(m / 8192) + 1 int32 (tile counts, then the unique total).
+extern "C" int unique_compact_launch(const void* sorted, const void* order, void* inv,
+                                     void* uniq, void* scratch, long long m, long long cap,
                                      void* stream) {
-  unique_compact_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)sorted, (int32_t*)inv, (int32_t*)uniq, (int)m,
-      (int)cap);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* ids = (const int32_t*)sorted;
+  const int vec = (uintptr_t)sorted % 16 == 0 && (uintptr_t)inv % 16 == 0 &&
+                  (uintptr_t)order % 16 == 0;
+  const long long tiles = m > kTile ? (m + kTile - 1) / kTile : 1;
+  if (tiles == 1) {
+    uc_scatter_kernel<<<1, kThreads, 0, s>>>(ids, (const int64_t*)order, (int32_t*)inv,
+                                             (int32_t*)uniq, m, (int)cap, vec, nullptr,
+                                             nullptr);
+    return (int)cudaGetLastError();
+  }
+  int* counts = (int*)scratch;
+  int* total = counts + tiles;
+  uc_count_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(ids, m, vec, counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  uc_offsets_kernel<<<1, kThreads, 0, s>>>(counts, tiles, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  uc_scatter_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(ids, (const int64_t*)order,
+                                                         (int32_t*)inv, (int32_t*)uniq, m,
+                                                         (int)cap, vec, counts, total);
   return (int)cudaGetLastError();
 }

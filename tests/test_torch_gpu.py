@@ -7,8 +7,10 @@ that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Each kernel must equal its plain torch version bit for bit on the card,
-including overflow, all-INVALID and empty inputs (the ``spmm`` backward
-also equals the CPU's plain version), except ``seg_softmax``: its
+including overflow, all-INVALID and empty inputs and, for the multi-block
+``unique_compact`` and the ``spmm`` backward, their tile and run edges
+(the ``spmm`` backward also equals the CPU's plain version and gives the
+same bits from call to call), except ``seg_softmax``: its
 forward is held within ``atol=1e-6`` of the plain version on the card and
 its backward within ``atol=1e-6 * max|g|`` (the kernel calls CUDA's
 ``expf``, the plain version ``torch.exp``), with masked slots and
@@ -42,7 +44,12 @@ from repro_torch.kernels.spmm import (
     spmm_ref,
     spmm_sum,
 )
-from repro_torch.kernels.unique_compact import unique_with_inverse, unique_with_inverse_ref
+from repro_torch.kernels.unique_compact import (
+    unique_compact_cuda,
+    unique_compact_sorted_ref,
+    unique_with_inverse,
+    unique_with_inverse_ref,
+)
 from repro_torch.engine import MinibatchEngine
 from repro_torch.models.gnn import GNNConfig, init_gnn
 from repro_torch.serve import GNNServer, ServeConfig, poisson_trace
@@ -93,6 +100,60 @@ def test_unique_compact_matches_plain(cuda, m, cap, hi):
     all_invalid = torch.full((777,), INVALID, dtype=torch.int32, device=cuda)
     got = unique_with_inverse(all_invalid, cap)
     assert bool((got[0] == INVALID).all()) and bool((got[1] == -1).all())
+    torch.cuda.synchronize()
+
+
+TILE = 8192  # ids per block of unique_compact.cu
+
+
+def _dedup_case(case):
+    """(ids, cap) of one ``unique_compact`` edge case around the kernel's tiles."""
+    rng = np.random.default_rng(len(case))
+    if case == "tile-1":
+        return rng.integers(0, 3000, TILE - 1), 1000
+    if case == "tile":
+        return rng.integers(0, 3000, TILE), 5000
+    if case == "tile+1":
+        return rng.integers(0, 3000, TILE + 1), 2999
+    if case == "run-over-3-tiles":  # one id repeated across three whole tiles
+        return np.concatenate([rng.integers(0, 500, TILE // 2), np.full(3 * TILE, 777),
+                               rng.integers(800, 5000, TILE)]), 4000
+    if case == "cap-mid-tile":
+        return rng.permutation(3 * TILE), TILE + TILE // 2 + 3
+    if case == "invalid-tail":  # INVALID over the last 2.5 tiles
+        ids = rng.integers(0, 10**6, 4 * TILE)
+        ids[np.argsort(ids)[-(5 * TILE // 2):]] = INVALID
+        return ids, 2 * TILE
+    if case == "m=0":
+        return np.zeros(0), 4
+    if case == "m=1":
+        return np.asarray([5]), 1
+    # the training path's deepest dedup: 39,208 seeds x (1 + 32) slots
+    m = 1293864
+    ids = rng.integers(0, 262144, m)
+    ids[rng.random(m) < 0.5] = INVALID
+    return ids, 262144
+
+
+@pytest.mark.parametrize("case", [
+    "tile-1", "tile", "tile+1", "run-over-3-tiles", "cap-mid-tile", "invalid-tail",
+    "m=0", "m=1", "m=1293864",
+])
+def test_unique_compact_tiles_match_plain(cuda, case):
+    ids_np, cap = _dedup_case(case)
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(cuda)
+    s, order = torch.sort(ids)
+    reset_launches()
+    for o in (None, order):
+        got, want = unique_compact_cuda(s, cap, o), unique_compact_sorted_ref(s, cap, o)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), o is None
+    assert LAUNCHES["unique_compact"] == 2
+    if len(s) > 1:  # a view 4 bytes off a 16-byte boundary takes the scalar loads
+        got, want = unique_compact_cuda(s[1:], cap), unique_compact_sorted_ref(s[1:], cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = unique_with_inverse(ids, cap)
+    want = unique_with_inverse_ref(ids.cpu(), cap)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
     torch.cuda.synchronize()
 
 
@@ -179,9 +240,36 @@ def test_spmm_backward_matches_plain(cuda, S, d, n, w):
         if n:
             assert LAUNCHES["spmm"] == 1 and LAUNCHES["spmm_backward"] == 1
         assert torch.equal(got, spmm_backward_ref(g, idx, mask, S, mean=mean)), mean
+        again = spmm_backward_cuda(g, idx, mask, S, mean)
+        assert torch.equal(again, got), mean  # the same bits from call to call
         cpu = src.cpu().requires_grad_()
         (ref,) = torch.autograd.grad(fn(cpu, idx.cpu(), mask.cpu()), cpu, g.cpu())
         assert torch.equal(got.cpu(), ref), mean
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["hub", "hub-in-shared", "all-masked", "S=1"])
+def test_spmm_backward_edge_cases(cuda, case):
+    """Runs longer than a warp (a hub every slot reads: sorted in place in
+    global memory past 512 entries, in shared memory below), no masked slot
+    at all, and a single source row; two calls give the same bits."""
+    rng = np.random.default_rng(len(case))
+    S, d, n, w = {"hub": (300, 64, 1500, 2), "hub-in-shared": (40, 256, 300, 1),
+                  "all-masked": (1000, 256, 64, 32), "S=1": (1, 5, 100, 4)}[case]
+    idx = rng.integers(-1, S + 2, (n, w)).astype(np.int32)
+    mask = rng.random((n, w)) < 0.7
+    if case.startswith("hub"):
+        idx[:], mask[:] = 7, True
+    if case == "all-masked":
+        mask[:] = False
+    idx, mask = torch.from_numpy(idx).to(cuda), torch.from_numpy(mask).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    for mean in (False, True):
+        got = spmm_backward_cuda(g, idx, mask, S, mean)
+        assert torch.equal(got, spmm_backward_cuda(g, idx, mask, S, mean)), mean
+        assert torch.equal(got, spmm_backward_ref(g, idx, mask, S, mean=mean)), mean
+        if case == "all-masked":
+            assert not bool(got.any())
     torch.cuda.synchronize()
 
 

@@ -114,7 +114,9 @@ def test_training_wrappers_take_plain_path_on_cpu(no_launch):
     got = gather(table, ids)
     assert got.shape == (2, 3, 8)
     assert torch.equal(got.reshape(-1, 8), gather_ref(table, ids.reshape(-1)))
-    assert torch.equal(FeatureStore(table).gather(ids), got)
+    # the store clamps ids other than INVALID into [0, V) first, as the JAX store does
+    clamped = torch.where(ids == INVALID, ids, ids.clamp(0, 29))
+    assert torch.equal(FeatureStore(table).gather(ids), gather(table, clamped))
 
     src = torch.from_numpy(rng.standard_normal((30, 8)).astype(np.float32)).requires_grad_()
     idx = torch.from_numpy(rng.integers(-1, 30, (12, 5)).astype(np.int32))
@@ -246,6 +248,34 @@ def test_unported_paths_raise_not_implemented():
     for model in ("sage", "rgcn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GNN(GNNConfig(model=model), device="cpu")
+
+
+def test_build_target_follows_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named by its source, the flags and every shared
+    ``*.cuh`` header under the package: editing, adding or removing a header
+    names a new library, so no stale build is reused (no ``nvcc`` needed)."""
+    pkg = tmp_path / "repro_torch"
+    (pkg / "kernels" / "k").mkdir(parents=True)
+    src = pkg / "kernels" / "k" / "k.cu"
+    src.write_text('#include "../scan.cuh"\n')
+    header = pkg / "kernels" / "scan.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "PACKAGE_DIR", pkg)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.sources() == {"k": src}
+    first = _build._target(src)
+    assert first.parent == tmp_path / "build" and first.name.startswith("k-")
+    assert _build._target(src) == first
+    header.write_text("// v2\n")
+    second = _build._target(src)
+    assert second != first
+    (pkg / "extra.cuh").write_text("// new\n")
+    third = _build._target(src)
+    assert third not in (first, second)
+    (pkg / "extra.cuh").unlink()
+    assert _build._target(src) == second
+    src.write_text('#include "../scan.cuh"\n// edited\n')
+    assert _build._target(src) not in (first, second, third)
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

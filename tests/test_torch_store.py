@@ -126,17 +126,16 @@ def test_tiered_gather_bit_equal_with_accounting(num_pes):
 
 
 def test_feature_store_gather_vs_jax_on_out_of_range_ids():
-    """The port's ``FeatureStore.gather`` follows the ``paged_gather``
-    kernel: every id outside ``[0, V)`` gives a zero row.  The JAX
-    ``FeatureStore.gather`` zeros only INVALID and clamps the rest.  Both
-    agree on valid ids and INVALID, the only ids a plan holds."""
+    """The port's ``FeatureStore.gather`` equals the JAX ``FeatureStore.gather``
+    on INVALID (a zero row), in-range ids, and ids outside ``[0, V)``, which
+    both clamp into range (``-2`` gives row 0, ``V + 7`` row ``V - 1``)."""
     rng = np.random.default_rng(5)
     feats = rng.standard_normal((V, 8)).astype(np.float32)
     inside = np.concatenate([rng.integers(0, V, 32), [0, V - 1, INVALID]]).astype(np.int32)
-    outside = np.asarray([-2, -(2**31), V, V + 7], np.int32)
+    outside = np.asarray([-2, -(2**31), V, V + 7, INVALID - 1], np.int32)
     port, ref = FeatureStore(torch.from_numpy(feats)), JFeatureStore(jnp.asarray(feats))
-    np.testing.assert_array_equal(port.gather(torch.from_numpy(inside)).numpy(),
-                                  np.asarray(ref.gather(jnp.asarray(inside))))
-    np.testing.assert_array_equal(port.gather(torch.from_numpy(outside)).numpy(), 0.0)
-    np.testing.assert_array_equal(np.asarray(ref.gather(jnp.asarray(outside))),
+    for ids in (inside, outside, np.concatenate([outside, inside]).reshape(2, -1)):
+        np.testing.assert_array_equal(port.gather(torch.from_numpy(ids)).numpy(),
+                                      np.asarray(ref.gather(jnp.asarray(ids))))
+    np.testing.assert_array_equal(port.gather(torch.from_numpy(outside)).numpy(),
                                   feats[np.clip(outside, 0, V - 1)])
