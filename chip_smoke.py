@@ -518,23 +518,23 @@ def phase1_train(engine) -> dict:
 
 def dedup_row(ids, cap: int, paths: list, per: str, label: str) -> dict:
     """``unique_compact`` on the sorted ``ids`` against its plain version,
-    equal bit for bit with the inverse in sorted and in input order; timed
-    as the path runs it (with the sort's permutation, the inverse written in
-    input order), and in sorted order as ``extra_ms_sorted_order``.  Bytes:
-    the ids and the permutation read once, the inverse and ``cap`` unique
-    ids written once; per id a compare, a scan add and two tests."""
+    equal bit for bit with the inverse in sorted order (an identity
+    permutation) and in input order (the sort's); timed as the path runs
+    it, with the sort's permutation.  Bytes: the ids and the permutation
+    read once, the inverse and ``cap`` unique ids written once; per id a
+    compare, a scan add and two tests."""
     import torch
     from repro_torch.kernels.unique_compact import unique_compact_cuda, unique_compact_sorted_ref
 
     s, order = torch.sort(ids)
     m = s.shape[0]
     mae = 0
-    for o in (None, order):
+    for o in (torch.arange(m, device=s.device), order):
         inv, uniq = unique_compact_cuda(s, cap, o)
         inv_r, uniq_r = unique_compact_sorted_ref(s, cap, o)
         check(torch.equal(inv, inv_r) and torch.equal(uniq, uniq_r),
-              f"unique_compact m={m} cap={cap} ({label}, order={o is not None}): "
-              "differs from plain")
+              f"unique_compact m={m} cap={cap} ({label}, "
+              f"order={'sort' if o is order else 'identity'}): differs from plain")
         mae = max(mae, max_abs_err(inv, inv_r), max_abs_err(uniq, uniq_r))
     calls = 5 if m > 100_000 else 20
     row = dict(
@@ -544,7 +544,6 @@ def dedup_row(ids, cap: int, paths: list, per: str, label: str) -> dict:
                   lambda: unique_compact_sorted_ref(s, cap, order),
                   lambda: torch.unique(s, sorted=True, return_inverse=True), calls=calls),
     )
-    row["extra_ms_sorted_order"] = graph_ms(lambda: unique_compact_cuda(s, cap), calls)
     row["extra_split"] = kernel_split(lambda: unique_compact_cuda(s, cap, order))
     return row
 
@@ -1035,13 +1034,15 @@ def phase_coo(plan) -> dict:
 
 
 # kernels of two redesigned wrappers, by name in a profile (the spmm
-# backward's scan kernel comes from scan.cuh), and every torch.sort of a step (CUB's radix sort, or
-# PyTorch's in-place sort of small arrays)
+# backward's scan kernel comes from scan.cuh), every torch.sort of a step
+# (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
+# memset (both wrappers zero their scratch with one; so do other ops)
 PROFILE_GROUPS = {
-    "unique_compact": ("uc_count_kernel", "uc_offsets_kernel", "uc_scatter_kernel"),
+    "unique_compact": ("unique_compact_kernel",),
     "spmm_backward": ("bwd_count_kernel", "bwd_place_kernel", "bwd_rows_kernel",
                       "lookback_scan_kernel"),
     "every torch.sort": ("RadixSort", "SortKVInPlace"),
+    "every memset": ("Memset",),
 }
 
 

@@ -140,6 +140,20 @@ def launch(name: str, fn: str, *args, counter: str | None = None) -> None:
     count_launch(counter or name)
 
 
+def call_int(name: str, fn: str, *args: int) -> int:
+    """The value of C function ``fn`` of kernel library ``name``, which takes
+    and returns 64-bit ints -- a kernel's scratch size, worked out beside
+    the layout that uses it.  It launches nothing and counts nothing."""
+    key = (name, fn)
+    cfn = _entries.get(key)
+    if cfn is None:
+        cfn = getattr(library(name), fn)
+        cfn.argtypes = [ctypes.c_longlong] * len(args)
+        cfn.restype = ctypes.c_longlong
+        _entries[key] = cfn
+    return int(cfn(*(int(a) for a in args)))
+
+
 def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
     for key, t in tensors.items():

@@ -5,27 +5,25 @@
 //   shuffles, then a scan of the warp sums in shared memory.
 // * load_ints / store_ints: a thread's N consecutive ints, moved with
 //   16-byte accesses where aligned.
+// * claim_tile / lookback: the decoupled look-back -- each tile adds the
+//   sums its predecessors publish -- with which a kernel scans across its
+//   blocks in the same launch.
 // * exclusive_scan: a device-wide exclusive scan of an int array in one
-//   launch (decoupled look-back: each tile adds the sums its predecessors
-//   publish), its total written to device memory, never read by the host.
-// * scan_one_block: the same by ONE block walking the array tile by tile
-//   with a carry -- for short arrays, such as a grid's per-tile counts.
+//   launch built on them, its total written to device memory, never read
+//   by the host.
 //
-// unique_compact.cu scans its tiles' counts with scan_one_block; spmm.cu
-// scans its per-row counts with exclusive_scan.
+// unique_compact.cu scans its tiles' first-occurrence flags with
+// claim_tile / lookback inside its one kernel; spmm.cu scans its per-row
+// counts with exclusive_scan.
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace scan {
 
-constexpr int kThreads = 1024;      // threads of a block that calls scan_one_block
-constexpr int kWarps = kThreads / 32;
-constexpr int kOneBlockItems = 16;  // ints per thread of scan_one_block
-
 // Exclusive prefix of x over the block's threads (thread order); *total gets
 // the block's sum in every thread.  Every thread of the block calls it;
-// blockDim.x is a multiple of 32, at most 1024.  smem: kWarps ints.  It ends
+// blockDim.x is a multiple of 32, at most 1024.  smem: 32 ints.  It ends
 // in a barrier, so smem may be reused right after.
 __device__ __forceinline__ int block_exclusive_scan(int x, int* smem, int* total) {
   const int lane = threadIdx.x & 31;
@@ -93,35 +91,6 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
 }
 
-// out[i] = in[0] + ... + in[i-1] for i < n (in place allowed), *total = the
-// sum of all n: called by every thread of ONE block of kThreads, each thread
-// taking kOneBlockItems consecutive ints of a tile, the running sum carried
-// from tile to tile.  smem: kWarps ints.
-__device__ __forceinline__ void scan_one_block(const int* in, int* out, long long n,
-                                               int* total, int* smem) {
-  const bool vec = aligned16(in, out);
-  int carry = 0;
-  for (long long base = 0; base < n; base += (long long)kThreads * kOneBlockItems) {
-    const long long j0 = base + (long long)threadIdx.x * kOneBlockItems;
-    int v[kOneBlockItems];
-    load_ints(in, j0, n, vec, v);
-    int sum = 0;
-#pragma unroll
-    for (int i = 0; i < kOneBlockItems; ++i) sum += v[i];
-    int tile_sum;
-    int pre = carry + block_exclusive_scan(sum, smem, &tile_sum);
-#pragma unroll
-    for (int i = 0; i < kOneBlockItems; ++i) {
-      const int x = v[i];
-      v[i] = pre;
-      pre += x;
-    }
-    store_ints(out, j0, n, vec, v);
-    carry += tile_sum;
-  }
-  if (threadIdx.x == 0) *total = carry;
-}
-
 // Decoupled look-back, the single-pass device-wide scan: blocks claim tile
 // ids in launch order, so every earlier tile belongs to a block that has
 // already started, and each tile publishes one 64-bit status word -- its
@@ -141,10 +110,13 @@ __device__ __forceinline__ int claim_tile(unsigned* next_tile, int* slot) {
 // its sum is known: publishes the sum, reads back through the earlier
 // tiles' words 32 at a time (each lane waits on one tile) until one holds
 // an inclusive sum, publishes this tile's inclusive sum and returns the
-// sum of all earlier tiles.  status: one zeroed word per tile.
+// sum of all earlier tiles.  status: one zeroed word per tile.  Fenced on
+// both sides: what the block wrote before a __syncthreads preceding the
+// call is visible to every later tile once that tile's lookback returns.
 __device__ __forceinline__ int lookback(unsigned long long* status, int tile, int tile_sum) {
   const int lane = threadIdx.x & 31;
   int prefix = 0;
+  __threadfence();  // release: the block's writes before its status word
   if (tile > 0) {
     if (lane == 0) atomicExch(status + tile, kAggregate | (unsigned)tile_sum);
     for (int k = tile - 1 - lane;; k -= 32) {
@@ -163,6 +135,7 @@ __device__ __forceinline__ int lookback(unsigned long long* status, int tile, in
       if (done) break;
     }
   }
+  __threadfence();  // acquire: the earlier tiles' writes before the caller's
   if (lane == 0) atomicExch(status + tile, kInclusive | (unsigned)(prefix + tile_sum));
   return prefix;
 }
@@ -174,9 +147,13 @@ constexpr int kScanTile = kScanThreads * kScanItems;  // ints per tile of exclus
 // Tiles of exclusive_scan over n ints.
 inline long long scan_tiles(long long n) { return n > 0 ? (n + kScanTile - 1) / kScanTile : 1; }
 
-// Scratch of exclusive_scan, in ints: a status word per tile and the tile
-// counter, all zeroed by the caller before the launch (8-byte aligned).
-inline long long scratch_ints(long long n) { return 2 * scan_tiles(n) + 1; }
+// Scratch of a look-back over `tiles` tiles, in ints: a 64-bit status word
+// per tile, then the tile counter, all zeroed before the launch (8-byte
+// aligned).
+inline long long lookback_ints(long long tiles) { return 2 * tiles + 1; }
+
+// Scratch of exclusive_scan over n ints.
+inline long long scratch_ints(long long n) { return lookback_ints(scan_tiles(n)); }
 
 namespace {
 

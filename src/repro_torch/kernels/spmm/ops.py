@@ -40,9 +40,6 @@ def spmm_cuda(src: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.Tensor,
     return out
 
 
-SCAN_TILE = 2048  # ints per tile of the look-back scan (scan.cuh's kScanTile)
-
-
 def spmm_backward_cuda(grad_out: torch.Tensor, nbr_idx: torch.Tensor,
                        mask: torch.Tensor, num_src: int, mean: bool) -> torch.Tensor:
     """(num_src, d) source gradient from the CUDA backward kernel.
@@ -63,10 +60,7 @@ def spmm_backward_cuda(grad_out: torch.Tensor, nbr_idx: torch.Tensor,
     if not (n * d * w and num_src):
         return torch.zeros((num_src, d), dtype=grad_out.dtype, device=dev)
     grad_src = torch.empty((num_src, d), dtype=grad_out.dtype, device=dev)
-    # count, the scan's status words, offset (num_src + 1) and deg (n), each
-    # from a 16-byte boundary; list (n*w) and the scan's total
-    tiles = -(-(num_src + 1) // SCAN_TILE)
-    ints = 2 * (num_src + 4) + 2 * tiles + 4 + (n + 3) + n * w + 1
+    ints = _build.call_int("spmm", "spmm_backward_scratch_ints", n, w, num_src)
     scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
     _build.launch("spmm", "spmm_backward_launch", grad_out, nbr_idx, mask, grad_src, scratch,
                   n, w, d, num_src, int(mean), counter="spmm_backward")

@@ -40,12 +40,12 @@
 //               list[offset[j], offset[j + 1]);
 //   3. place:   each masked slot takes a place in its row's run by an
 //               atomic countdown of count[j] (order inside a run arbitrary);
-//   4. rows:    one warp per source row j puts its run in slot order -- up
-//               to 32 entries by shuffle ranks, longer runs by a bitonic
-//               sort in shared memory (up to kSmemRun entries) or in place
-//               in the run's own slice of `list` -- then its lanes cover the
-//               d columns (float4 where d % 4 == 0), add the runs' gradient
-//               rows in that order and write row j once (zeros for no run).
+//   4. rows:    one warp per source row j puts its run in slot order, in
+//               place in the run's own slice of `list` -- up to 32 entries
+//               by shuffle ranks, longer runs (a hub row, up to n w) by a
+//               bitonic sort -- then its lanes cover the d columns (float4
+//               where d % 4 == 0), add the runs' gradient rows in that order
+//               and write row j once (zeros for no run).
 // No sort, no float atomics, no fill of the output.
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -86,7 +86,6 @@ __global__ void spmm_fwd_kernel(const float* __restrict__ src,
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowsThreads = 256;  // 8 warps, one source row each
-constexpr int kSmemRun = 512;      // run entries a warp sorts in shared memory
 
 // 1. count[j] += 1 for every masked slot reading source row j; deg[r] =
 // masked slots of row r.  One warp per row r, lane k0 + lane on slot k.
@@ -128,7 +127,7 @@ __global__ void bwd_place_kernel(const int32_t* __restrict__ nbr_idx,
 
 // Sorts a[0, L) ascending (distinct values) by one warp: a bitonic network
 // with every comparator pointing up, positions >= L read as +infinity (so
-// comparators that reach past L are skipped); a in shared or global memory.
+// comparators that reach past L are skipped).
 __device__ void warp_sort(int* a, int L) {
   const int lane = threadIdx.x & 31;
   int Lp = 32;
@@ -207,29 +206,23 @@ __global__ void __launch_bounds__(kRowsThreads)
 bwd_rows_kernel(const float* __restrict__ g, const int* __restrict__ offset,
                 int* list, const int* __restrict__ deg, float* __restrict__ grad_src,
                 long long num_src, int w, int d, int mean) {
-  __shared__ int runs[kRowsThreads / 32][kSmemRun];
   const long long j = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (j >= num_src) return;  // the whole warp
-  int* run = runs[threadIdx.x >> 5];
   const int beg = __ldg(offset + j);
   const int L = __ldg(offset + j + 1) - beg;
+  int* run = list + beg;  // this warp owns the slice
   if (L <= 32) {
     // rank of each lane's entry among the run's (entries are distinct)
-    const int e = lane < L ? list[beg + lane] : 0x7fffffff;
-    int rank = 0;
+    const int e = lane < L ? run[lane] : 0x7fffffff;
     if (L > 1) {
+      int rank = 0;
 #pragma unroll
       for (int t = 0; t < 32; ++t) rank += __shfl_sync(kFull, e, t) < e;
+      if (lane < L) run[rank] = e;  // every lane has read its entry
+      __syncwarp();
     }
-    if (lane < L) run[rank] = e;
-    __syncwarp();
-  } else if (L <= kSmemRun) {
-    for (int i = lane; i < L; i += 32) run[i] = list[beg + i];
-    __syncwarp();
-    warp_sort(run, L);
   } else {
-    run = list + beg;  // sorted in place: this warp owns the slice
     warp_sort(run, L);
   }
   add_run<kVec>(g, deg, run, L, grad_src + j * d, w, d, mean);
@@ -253,26 +246,52 @@ extern "C" int spmm_forward_launch(const void* src, const void* nbr_idx,
   return (int)cudaGetLastError();
 }
 
+// Scratch of the backward, in int32 offsets: count (num_src + 1), the
+// scan's zeroed words, offset (num_src + 1) and deg (n), each from a
+// 16-byte boundary, then list (n w) and the scan's total.  count and the
+// scan's words, the first `zeroed` ints, are zeroed by one memset.
+namespace {
+
+struct BwdScratch {
+  long long scan_words, zeroed, offset, deg, list, total, ints;
+};
+
+BwdScratch bwd_scratch(long long n, long long w, long long num_src) {
+  auto up4 = [](long long x) { return (x + 3) & ~3LL; };
+  BwdScratch o;
+  o.scan_words = up4(num_src + 1);
+  o.zeroed = o.scan_words + scan::scratch_ints(num_src + 1);
+  o.offset = up4(o.zeroed);
+  o.deg = o.offset + up4(num_src + 1);
+  o.list = o.deg + up4(n);
+  o.total = o.list + n * w;
+  o.ints = o.total + 1;
+  return o;
+}
+
+}  // namespace
+
+extern "C" long long spmm_backward_scratch_ints(long long n, long long w, long long num_src) {
+  return bwd_scratch(n, w, num_src).ints;
+}
+
 // g: (n, d) output gradient; grad_src: (num_src, d), every row written;
-// scratch: 2 (num_src + 4) + 2 ceil((num_src + 1) / 2048) + 4 + (n + 3) +
-// n w + 1 int32 -- count (num_src + 1), the scan's zeroed words, offset
-// (num_src + 1) and deg (n), each from a 16-byte boundary, then list (n w)
-// and the scan's total.  Returns the first launch error, checked after the
-// memset and each of the 4 kernel launches.
+// scratch: spmm_backward_scratch_ints(n, w, num_src) int32.  Returns the
+// first launch error, checked after the memset and each of the 4 kernel
+// launches.
 extern "C" int spmm_backward_launch(const void* g, const void* nbr_idx, const void* mask,
                                     void* grad_src, void* scratch, long long n, long long w,
                                     long long d, long long num_src, long long mean,
                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  auto up4 = [](long long x) { return (x + 3) & ~3LL; };
+  const BwdScratch lay = bwd_scratch(n, w, num_src);
   int* count = (int*)scratch;  // num_src + 1; the last stays 0
-  int* scan_words = count + up4(num_src + 1);
-  const long long zeroed = up4(num_src + 1) + scan::scratch_ints(num_src + 1);
-  int* offset = count + up4(zeroed);
-  int* deg = offset + up4(num_src + 1);
-  int* list = deg + up4(n);
-  int* total = list + n * w;
-  cudaError_t err = cudaMemsetAsync(count, 0, zeroed * sizeof(int), s);
+  int* scan_words = count + lay.scan_words;
+  int* offset = count + lay.offset;
+  int* deg = count + lay.deg;
+  int* list = count + lay.list;
+  int* total = count + lay.total;
+  cudaError_t err = cudaMemsetAsync(count, 0, lay.zeroed * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   const unsigned row_blocks = blocks_for(n * 32, threads);

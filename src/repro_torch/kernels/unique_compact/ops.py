@@ -14,34 +14,31 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.unique_compact.ref import unique_with_inverse_ref
 
 
-TILE = 8192  # ids per block of unique_compact.cu (its kTile)
-
-
 def unique_compact_cuda(
-    sorted_ids: torch.Tensor, cap: int, order: torch.Tensor | None = None
+    sorted_ids: torch.Tensor, cap: int, order: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(inv (m,), uniq (cap,)) of ascending ids, from the CUDA kernel.
 
-    ``inv`` is in sorted order, or, given the sort's int64 permutation
-    ``order``, in input order (``inv[order[j]]`` is the rank of
-    ``sorted_ids[j]``).  One to three CUDA launches (see the kernel's note),
-    counted as one; no host synchronisation.
+    ``order`` is the sort's int64 permutation: ``inv[order[j]]`` is the rank
+    of ``sorted_ids[j]``, so ``inv`` comes out in input order (an identity
+    ``order`` gives it in sorted order).  One kernel launch, after a memset
+    of its scratch past one tile of ids (see the kernel's note), counted as
+    one; no host synchronisation.
     """
     _build.require_cuda_int32("unique_compact", sorted_ids=sorted_ids)
+    _build.require_cuda("unique_compact", torch.int64, order=order)
     if not 1 <= cap < 2**31:
         raise ValueError(f"unique_compact: cap must be in [1, 2**31), got {cap}")
     (m,) = sorted_ids.shape
     if m >= 2**31:
         raise ValueError(f"unique_compact: m={m} exceeds the int32 index range")
-    if order is not None:
-        _build.require_cuda("unique_compact", torch.int64, order=order)
-        if order.shape != sorted_ids.shape:
-            raise ValueError(f"unique_compact: order {tuple(order.shape)} for {m} ids")
+    if order.shape != sorted_ids.shape:
+        raise ValueError(f"unique_compact: order {tuple(order.shape)} for {m} ids")
     dev = sorted_ids.device
     inv = torch.empty((m,), dtype=torch.int32, device=dev)
     uniq = torch.empty((cap,), dtype=torch.int32, device=dev)
-    tiles = -(-m // TILE)
-    scratch = torch.empty((tiles + 1,), dtype=torch.int32, device=dev) if tiles > 1 else None
+    ints = _build.call_int("unique_compact", "unique_compact_scratch_ints", m)
+    scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
     _build.launch("unique_compact", "unique_compact_launch",
                   sorted_ids, order, inv, uniq, scratch, m, cap)
     return inv, uniq

@@ -26,6 +26,7 @@ import torch
 from repro_torch.core import MinibatchLayer, layer_to_coo
 from repro_torch.data import SyntheticGraphDataset, make_recsys, rmat_graph
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels._build import call_int
 from repro_torch.kernels.expand_indptr import expand_indptr, expand_indptr_cuda, expand_indptr_ref
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
 from repro_torch.kernels.gather import gather, gather_cuda, gather_ref
@@ -103,11 +104,14 @@ def test_unique_compact_matches_plain(cuda, m, cap, hi):
     torch.cuda.synchronize()
 
 
-TILE = 8192  # ids per block of unique_compact.cu
+TILE = 2048  # ids per block of unique_compact.cu, checked against it below
 
 
 def _dedup_case(case):
     """(ids, cap) of one ``unique_compact`` edge case around the kernel's tiles."""
+    scratch = [call_int("unique_compact", "unique_compact_scratch_ints", m)
+               for m in (TILE, TILE + 1)]
+    assert scratch[0] == 0 < scratch[1], "TILE is not the kernel's tile"
     rng = np.random.default_rng(len(case))
     if case == "tile-1":
         return rng.integers(0, 3000, TILE - 1), 1000
@@ -124,6 +128,10 @@ def _dedup_case(case):
         ids = rng.integers(0, 10**6, 4 * TILE)
         ids[np.argsort(ids)[-(5 * TILE // 2):]] = INVALID
         return ids, 2 * TILE
+    if case == "cap-past-last-tile":  # INVALID slots of uniq no tile's ranks reach
+        return rng.integers(0, 10**6, 2 * TILE + 5), 4 * TILE
+    if case == "one-tile-wide-cap":
+        return rng.integers(0, 50, 100), 3 * TILE
     if case == "m=0":
         return np.zeros(0), 4
     if case == "m=1":
@@ -137,19 +145,21 @@ def _dedup_case(case):
 
 @pytest.mark.parametrize("case", [
     "tile-1", "tile", "tile+1", "run-over-3-tiles", "cap-mid-tile", "invalid-tail",
-    "m=0", "m=1", "m=1293864",
+    "cap-past-last-tile", "one-tile-wide-cap", "m=0", "m=1", "m=1293864",
 ])
 def test_unique_compact_tiles_match_plain(cuda, case):
     ids_np, cap = _dedup_case(case)
     ids = torch.from_numpy(ids_np.astype(np.int32)).to(cuda)
     s, order = torch.sort(ids)
+    identity = torch.arange(len(s), device=cuda)  # the inverse in sorted order
     reset_launches()
-    for o in (None, order):
+    for o in (identity, order):
         got, want = unique_compact_cuda(s, cap, o), unique_compact_sorted_ref(s, cap, o)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), o is None
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), o is order
     assert LAUNCHES["unique_compact"] == 2
     if len(s) > 1:  # a view 4 bytes off a 16-byte boundary takes the scalar loads
-        got, want = unique_compact_cuda(s[1:], cap), unique_compact_sorted_ref(s[1:], cap)
+        o = identity[: len(s) - 1]
+        got, want = unique_compact_cuda(s[1:], cap, o), unique_compact_sorted_ref(s[1:], cap, o)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     got = unique_with_inverse(ids, cap)
     want = unique_with_inverse_ref(ids.cpu(), cap)
@@ -248,13 +258,13 @@ def test_spmm_backward_matches_plain(cuda, S, d, n, w):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("case", ["hub", "hub-in-shared", "all-masked", "S=1"])
+@pytest.mark.parametrize("case", ["hub", "hub-300", "all-masked", "S=1"])
 def test_spmm_backward_edge_cases(cuda, case):
-    """Runs longer than a warp (a hub every slot reads: sorted in place in
-    global memory past 512 entries, in shared memory below), no masked slot
-    at all, and a single source row; two calls give the same bits."""
+    """Runs longer than a warp (a hub every slot reads: 3000 and 300 entries,
+    sorted in place by one warp), no masked slot at all, and a single source
+    row; two calls give the same bits."""
     rng = np.random.default_rng(len(case))
-    S, d, n, w = {"hub": (300, 64, 1500, 2), "hub-in-shared": (40, 256, 300, 1),
+    S, d, n, w = {"hub": (300, 64, 1500, 2), "hub-300": (40, 256, 300, 1),
                   "all-masked": (1000, 256, 64, 32), "S=1": (1, 5, 100, 4)}[case]
     idx = rng.integers(-1, S + 2, (n, w)).astype(np.int32)
     mask = rng.random((n, w)) < 0.7
