@@ -23,9 +23,12 @@ Phases:
    reads the raw features) and its launches per batch or step.  Each
    kernel's device time (CUDA-graph replay) and event time, its plain
    version's, a library yardstick where one PyTorch call computes the same
-   function, and its bound: the larger of its bytes over the memory rate
-   and its operations over the scalar rate.  The two deepest dedups are
-   also timed whole (sort + kernel) beside ``torch.unique``.
+   function (timed like the kernel, by graph replay, unless the call syncs
+   the device, as ``torch.unique`` does: then by its profiled kernel sum,
+   beside the kernel's own; the method is printed with each time), and
+   its bound: the larger of its bytes over the memory rate and its
+   operations over the scalar rate.  The two deepest dedups are also timed
+   whole (sort + kernel) beside ``torch.unique``.
 2. Serve: a 1.1M-vertex user-item graph (``make_recsys`` with 2**20
    users), the GCN at full width (in 64, hidden 256, 16 classes, two
    layers) with weights from a numpy seed, and a 500-request Poisson
@@ -57,8 +60,8 @@ Phases:
    step: wall ms split into plan, gather, forward+backward and Adam (each
    ended by a sync) and each kernel's launches; then the device idle
    share over two more steps under the profiler, with the device ms per
-   step of the ``unique_compact`` and ``spmm`` backward kernels and of
-   every sort, beside the plan ms per step.
+   step of the ``unique_compact`` kernel, the ``spmm`` forward and
+   backward kernels and every sort, beside the plan ms per step.
 4. Train the GAT: phase 3 again with a 3-layer GAT at the same width and
    4 heads (``GNNConfig(model="gat", num_heads=4)``), same graph, plans
    and checks; its attention softmax runs through ``seg_softmax`` and its
@@ -76,6 +79,7 @@ without the rest of the repository next to this file, it exits 1.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -178,19 +182,30 @@ def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
+@functools.cache
+def capture_stream():
+    """The side stream every CUDA graph is captured on.  A backward
+    yardstick builds its autograd graph on it too: autograd runs each
+    backward op on its forward op's stream, and only this stream is being
+    captured."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     """Device time of one call: ``calls`` calls captured in one CUDA graph,
     replayed ``replays`` times between CUDA events (no host gaps)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = capture_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -257,18 +272,50 @@ def device_ms(fn, iters: int = 20):
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
-def timings(fn, plain, library=None, calls: int = 20, plain_syncs: bool = False) -> dict:
-    """Device time (CUDA graph replay of ``calls`` calls) and per-call event
-    time of the kernel and its plain version; a library yardstick, and a
-    plain version that syncs (``plain_syncs``), get their profiled device
-    time instead of a graph replay."""
+def syncs(fn) -> bool:
+    """Whether one call of ``fn`` waits for the device (PyTorch's sync
+    debug mode warns on every synchronizing CUDA operation)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return any("synchroniz" in str(w.message) for w in caught)
+
+
+GRAPH, PROFILER = "graph replay", "profiler sum (syncs)"
+
+
+def timings(fn, plain, library=None, calls: int = 20, plain_syncs: bool = False,
+            library_syncs: bool = False) -> dict:
+    """Device time of the kernel, its plain version and a library yardstick,
+    each by CUDA graph replay of ``calls`` calls, and each one's per-call
+    event time.  A plain version or library call that syncs (flagged by
+    ``plain_syncs`` / ``library_syncs``, and checked to sync) cannot be
+    captured: it gets its profiled kernel sum instead, and beside a
+    library call that syncs so does the kernel (``kernel_profiler_ms``),
+    for a like-for-like pair.  A call not flagged must capture, or the
+    phase fails."""
     out = {"ms": graph_ms(fn, calls), "event_ms": event_ms(fn),
            "plain_ms": device_ms(plain) if plain_syncs else graph_ms(plain, calls),
-           "plain_event_ms": event_ms(plain),
-           "library_ms": None, "library_event_ms": None}
+           "plain_event_ms": event_ms(plain), "plain_method": PROFILER if plain_syncs else GRAPH,
+           "library_ms": None, "library_event_ms": None, "library_method": None}
+    for name, f, flagged in (("plain", plain, plain_syncs), ("library", library, library_syncs)):
+        if f is not None and flagged:
+            check(syncs(f), f"{name} call flagged as syncing does not sync: graph-time it")
     if library is not None:
-        out["library_ms"] = device_ms(library)
+        out["library_ms"] = device_ms(library) if library_syncs else graph_ms(library, calls)
         out["library_event_ms"] = event_ms(library)
+        out["library_method"] = PROFILER if library_syncs else GRAPH
+    if library_syncs:
+        out["kernel_profiler_ms"] = device_ms(fn)
     return out
 
 
@@ -406,9 +453,12 @@ def report_bounds(out: dict) -> None:
             agree = ("equal bit for bit" if r["max_abs_err"] == 0
                      else f"max abs err {r['max_abs_err']:.3e}")
             where = ", ".join(r["paths"]) + f" ({r['per']})" if r["paths"] else "off the paths"
+            prof = (f" (kernel by profiler sum {r['kernel_profiler_ms']})"
+                    if "kernel_profiler_ms" in r else "")
             print(f"phase1 {name} [{r['shape']}] {where}: {agree}; device ms "
-                  f"kernel {r['ms']:.5f} plain {r['plain_ms']:.5f} library "
-                  f"{r['library_ms']}; event ms kernel {r['event_ms']:.5f} plain "
+                  f"kernel {r['ms']:.5f}{prof} plain {r['plain_ms']:.5f} "
+                  f"({r['plain_method']}) library {r['library_ms']} "
+                  f"({r['library_method']}); event ms kernel {r['event_ms']:.5f} plain "
                   f"{r['plain_event_ms']:.5f} library {r['library_event_ms']}; "
                   f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (bytes "
                   f"{r['bytes']}, ops {r['ops']})"
@@ -482,12 +532,13 @@ def phase1_train(engine) -> dict:
     check(torch.equal(got, want), f"gather n={n}: differs from plain")
     valid = ids[ids != INVALID]
     rows_read = int(torch.unique(valid).numel())
+    clamped = ids.clamp(0, V - 1)
     out["gather"] = [dict(
         shape=f"V={V} d={d} n={n} ({int(valid.numel())} valid)",
         bytes=4 * n + 4 * d * rows_read + 4 * n * d, ops=n, max_abs_err=float_err(got, want),
         paths=train, per="1/step",
         **timings(lambda: gather_cuda(table, ids), lambda: gather_ref(table, ids),
-                  lambda: torch.index_select(table, 0, ids.clamp(0, V - 1)), calls=5),
+                  lambda: torch.index_select(table, 0, clamped), calls=5),
     )]
 
     # spmm at every layer's (S~ rows, owned rows, d_in) for PE 0: the GCN
@@ -542,7 +593,8 @@ def dedup_row(ids, cap: int, paths: list, per: str, label: str) -> dict:
         bytes=4 * m + 8 * m + 4 * m + 4 * cap, ops=4 * m, max_abs_err=mae, paths=paths, per=per,
         **timings(lambda: unique_compact_cuda(s, cap, order),
                   lambda: unique_compact_sorted_ref(s, cap, order),
-                  lambda: torch.unique(s, sorted=True, return_inverse=True), calls=calls),
+                  lambda: torch.unique(s, sorted=True, return_inverse=True), calls=calls,
+                  library_syncs=True),
     )
     row["extra_split"] = kernel_split(lambda: unique_compact_cuda(s, cap, order))
     return row
@@ -567,7 +619,8 @@ def dedup_whole(cases) -> None:
                    lambda: torch.unique(ids, sorted=True, return_inverse=True)}
         parts = "; ".join(f"{k} device {device_ms(f)} event {event_ms(f):.5f}"
                           for k, f in fns.items())
-        print(f"phase1 dedup ({label}: m={ids.numel()} cap={cap}), ms: {parts}")
+        print(f"phase1 dedup ({label}: m={ids.numel()} cap={cap}), ms by profiler sum "
+              f"(torch.unique syncs): {parts}")
 
 
 def seg_softmax_rows(mask, h: int, rng):
@@ -610,8 +663,10 @@ def seg_softmax_rows(mask, h: int, rng):
     atol = SEG_BWD_ATOL * float(g.abs().max())
     check(err <= atol, f"seg_softmax_backward {shape}: max abs err {err} > {atol}")
     check(not bool(got[~valid].any()), f"seg_softmax_backward {shape}: masked slots not 0")
-    leaf = pre.clone().requires_grad_()
-    y = torch.softmax(leaf, dim=1)
+    with torch.cuda.stream(capture_stream()):  # the backward runs where this forward ran
+        leaf = pre.clone().requires_grad_()
+        y = torch.softmax(leaf, dim=1)
+    torch.cuda.current_stream().wait_stream(capture_stream())
     bwd = dict(
         shape=shape, bytes=n * w + 8 * h * nnz + 4 * n * w * h, ops=4 * h * nnz,
         max_abs_err=err,
@@ -687,13 +742,14 @@ def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: b
         got, want = spmm_cuda(src, idx, mask, mean), spmm_ref(src, idx, mask, mean)
         check(torch.equal(got, want), f"spmm {shape} mean={mean}: differs from plain")
         err = max(err, float_err(got, want))
+    bag_idx, bag_w = idx.clamp(0, S - 1), mask.float()  # embedding_bag's inputs
     fwd = dict(
         shape=shape, bytes=n * w + 4 * nnz + 4 * d * touched + 4 * n * d, ops=nnz * d,
-        max_abs_err=err, paths=paths, per=per,
+        max_abs_err=err, paths=paths, per=per, extra_rows_hit=rows_hit,
         **timings(lambda: spmm_cuda(src, idx, mask, False),
                   lambda: spmm_ref(src, idx, mask, False),
-                  lambda: F.embedding_bag(idx.clamp(min=0), src, mode="sum",
-                                          per_sample_weights=mask.float()), calls=5),
+                  lambda: F.embedding_bag(bag_idx, src, mode="sum", per_sample_weights=bag_w),
+                  calls=5),
     )
     if not backward:
         return fwd, None
@@ -705,8 +761,10 @@ def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: b
         check(torch.equal(spmm_backward_cuda(g, idx, mask, S, mean), got),
               f"spmm_backward {shape} mean={mean}: two calls differ")
         err = max(err, float_err(got, want))
-    leaf = src.clone().requires_grad_()
-    bag = F.embedding_bag(idx.clamp(min=0), leaf, mode="sum", per_sample_weights=mask.float())
+    with torch.cuda.stream(capture_stream()):  # the backward runs where this forward ran
+        leaf = src.clone().requires_grad_()
+        bag = F.embedding_bag(bag_idx, leaf, mode="sum", per_sample_weights=bag_w)
+    torch.cuda.current_stream().wait_stream(capture_stream())
     bwd = dict(
         shape=shape, bytes=n * w + 4 * nnz + 4 * d * rows_hit + 4 * S * d, ops=nnz * d,
         max_abs_err=err, paths=paths if backward_on_path else [], per=per,
@@ -1033,12 +1091,13 @@ def phase_coo(plan) -> dict:
     return {"launches": launches}
 
 
-# kernels of two redesigned wrappers, by name in a profile (the spmm
+# kernels of the redesigned wrappers, by name in a profile (the spmm
 # backward's scan kernel comes from scan.cuh), every torch.sort of a step
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
-# memset (both wrappers zero their scratch with one; so do other ops)
+# memset (two wrappers zero their scratch with one; so do other ops)
 PROFILE_GROUPS = {
     "unique_compact": ("unique_compact_kernel",),
+    "spmm_forward": ("spmm_fwd_kernel",),
     "spmm_backward": ("bwd_count_kernel", "bwd_place_kernel", "bwd_rows_kernel",
                       "lookback_scan_kernel"),
     "every torch.sort": ("RadixSort", "SortKVInPlace"),
@@ -1188,7 +1247,8 @@ def main(argv: list) -> int:
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"], "paths": r["paths"],
+            "library_ms": r["library_ms"], "library_method": r["library_method"],
+            "shape": r["shape"], "paths": r["paths"],
             "event_ms": r["event_ms"], "plain_event_ms": r["plain_event_ms"],
         })
     print(json.dumps({"kernels": kernels}))

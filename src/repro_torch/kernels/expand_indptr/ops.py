@@ -2,7 +2,9 @@
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor
 launches the hand-written kernel ``expand_indptr.cu`` or raises.  Any
-``num_edges`` is taken: the kernel has no block-multiple constraint.
+``num_edges`` is taken: the kernel has no block-multiple constraint.  Each
+kernel thread writes 4 slots with one 16-byte store, so the output must
+start on a 16-byte boundary (``torch.empty`` gives one; checked).
 """
 from __future__ import annotations
 
@@ -17,9 +19,11 @@ def expand_indptr_cuda(indptr: torch.Tensor, num_edges: int) -> torch.Tensor:
     _build.require_cuda_int32("expand_indptr", indptr=indptr)
     if indptr.ndim != 1 or indptr.shape[0] < 1:
         raise ValueError(f"expand_indptr: want an (R+1,) indptr, got {tuple(indptr.shape)}")
-    if num_edges < 0:
-        raise ValueError(f"expand_indptr: num_edges={num_edges} < 0")
+    if not 0 <= num_edges < 2**31 - 128:
+        raise ValueError(f"expand_indptr: num_edges={num_edges} outside [0, 2**31 - 128)")
     rows = torch.empty((num_edges,), dtype=torch.int32, device=indptr.device)
+    if rows.data_ptr() % 16:
+        raise ValueError("expand_indptr: the output is not 16-byte aligned")
     if num_edges:
         _build.launch("expand_indptr", "expand_indptr_launch", indptr, rows, num_edges,
                       indptr.shape[0])

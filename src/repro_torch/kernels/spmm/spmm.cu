@@ -5,16 +5,35 @@
 // _spmm_kernel).  The TPU version keeps a whole (S, block_d) slice of the
 // source matrix resident in VMEM so that its row gathers hit VMEM, not
 // HBM.  A Hopper SM has 227 KB of shared memory, far less than one such
-// slice, but it gathers at random from HBM and L2 directly: each thread
-// loads its source element itself.
+// slice, but it gathers at random from HBM and L2 directly.
 //
 // Forward: out[r, c] = sum over k in slot order 0..w-1 of
 //   (mask[r, k] ? src[clamp(nbr_idx[r, k], 0, S-1), c] : 0), in float32,
 //   divided by max(deg_r, 1) in mean mode (deg_r = masked slots of row r).
-// One thread per (row, feature column); the d threads of a row read the
-// same index and mask bytes (L1 broadcast) and adjacent source columns
-// (coalesced).  The plain version in ref.py adds in the same slot order,
-// so the forward equals it bit for bit.
+// Bound on the H100 (forward): bytes -- the mask, the index of each masked
+// slot, each source row a masked slot reads and the (n, d) output written
+// once; at the training path's layer 2 (n = 39,208, w = 32, d = 64) the
+// output is 10 MB of the 12.8 MB, and most rows are padding with no
+// masked slot.  So the forward skips masked-out slots instead of looping
+// over them, and writes the output with 16-byte stores:
+//   - a group of G lanes (8, 16 or 32, as many as d's float4s need, up
+//     to a warp; d = 256 takes two groups a row) takes one row; its lanes
+//     load a window of 64 slots' mask bytes and, for masked slots only,
+//     their indices (into shared memory), G slots a round, all rounds in
+//     flight together;
+//   - __ballot_sync gives the window's masked-slot bits; the group walks
+//     only the set bits, in ascending slot order (__ffsll), reads each
+//     index back from shared memory, loads 4 source vectors ahead and adds
+//     them in slot order with __fadd_rn, each lane on its own float4
+//     column (floats where d % 4 or an address is not 16-byte aligned);
+//     so a row costs a round trip for its mask, one for its indices and
+//     one for each 4 masked slots, whatever w is;
+//   - a row with no masked slot adds nothing and writes its zeros.
+// Skipping a masked-out slot equals the plain version's adding 0.0: the
+// sum starts at +0.0, which round-to-nearest addition never turns into
+// -0.0, and x + 0.0 == x for every other x (inf and NaN included).  The
+// plain version in ref.py adds in the same slot order, so the forward
+// equals it bit for bit.
 //
 // Backward: grad_src[j, c] = sum over the masked slots (r, k) with
 // clamp(nbr_idx[r, k]) == j, in slot order r*w + k, of g[r, c], with
@@ -59,32 +78,92 @@ __device__ __forceinline__ long long clamp_row(int32_t j, long long num_src) {
   return r >= num_src ? num_src - 1 : r;
 }
 
-__global__ void spmm_fwd_kernel(const float* __restrict__ src,
-                                const int32_t* __restrict__ nbr_idx,
-                                const uint8_t* __restrict__ mask,
-                                float* __restrict__ out, long long total, int w,
-                                int d, long long num_src, int mean) {
-  long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  long long r = t / d;
-  int c = (int)(t - r * d);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFwdThreads = 256;
+constexpr int kAhead = 4;  // source loads in flight per lane
+
+__device__ __forceinline__ float4 vload(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ float vload(const float* p) { return __ldg(p); }
+__device__ __forceinline__ void vzero(float4& a) { a = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+__device__ __forceinline__ void vzero(float& a) { a = 0.0f; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+__device__ __forceinline__ float vadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 vdiv(float4 a, float b) {
+  return make_float4(__fdiv_rn(a.x, b), __fdiv_rn(a.y, b), __fdiv_rn(a.z, b), __fdiv_rn(a.w, b));
+}
+__device__ __forceinline__ float vdiv(float a, float b) { return __fdiv_rn(a, b); }
+
+// One group of G lanes (G = 8, 16 or 32) per row r and pass; V is float4
+// or float, dv the row width in V, and pass blockIdx.y covers columns
+// [G * pass, G * (pass + 1)), lane `sub` on column G * pass + sub.  Slots
+// go in windows of 64: the lanes load the window's mask bytes (and each
+// masked slot's index, into the group's shared row) G slots a round, every
+// round's loads in flight together, and ballot them into one 64-bit mask;
+// the walk then takes kAhead masked slots at a time, reads their indices
+// from the shared row, issues their kAhead source loads and adds them in
+// slot order.  The lanes of a group take the same branches (the bits come
+// from ballots), so each warp sync names the group only.
+template <typename V, int G>
+__global__ void __launch_bounds__(kFwdThreads)
+spmm_fwd_kernel(const V* __restrict__ src, const int32_t* __restrict__ nbr_idx,
+                const uint8_t* __restrict__ mask, V* __restrict__ out, long long n, int w,
+                int dv, long long num_src, int mean) {
+  constexpr int kRounds = 64 / G;  // rounds of G slots in a window
+  constexpr unsigned kLow = G == 32 ? kFull : (1u << G) - 1u;
+  __shared__ int s_rows[kFwdThreads / G][64];  // each group's window of source rows
+  const long long r = (blockIdx.x * (long long)kFwdThreads + threadIdx.x) / G;
+  if (r >= n) return;  // the whole group
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const int base = lane - sub;
+  const unsigned group = kLow << base;
+  int* rows = s_rows[threadIdx.x / G];
+  const int c = blockIdx.y * G + sub;  // this lane's column
   const int32_t* idx = nbr_idx + r * w;
   const uint8_t* m = mask + r * w;
-  float acc = 0.0f;
+  V acc;
+  vzero(acc);
   int deg = 0;
-  for (int k = 0; k < w; ++k) {
-    float v = 0.0f;
-    if (__ldg(m + k)) {
-      v = __ldg(src + clamp_row(__ldg(idx + k), num_src) * d + c);
-      ++deg;
+  for (int k0 = 0; k0 < w; k0 += 64) {
+    unsigned long long bits = 0;
+#pragma unroll
+    for (int q = 0; q < kRounds; ++q) {
+      const int k = k0 + q * G + sub;
+      const bool on = k < w && __ldg(m + k);
+      if (on) rows[q * G + sub] = (int)clamp_row(__ldg(idx + k), num_src);
+      bits |= (unsigned long long)((__ballot_sync(group, on) >> base) & kLow) << (q * G);
     }
-    acc = __fadd_rn(acc, v);
+    __syncwarp(group);
+    deg += __popcll(bits);
+    while (bits) {
+      int row[kAhead];
+      int cnt = 0;
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {  // the next kAhead masked slots, in slot order
+        row[u] = bits ? rows[__ffsll((long long)bits) - 1] : 0;
+        if (bits) {
+          bits &= bits - 1;
+          cnt = u + 1;
+        }
+      }
+      V x[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {  // every load before the first add
+        vzero(x[u]);
+        if (u < cnt && c < dv) x[u] = vload(src + (long long)row[u] * dv + c);
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        if (u < cnt) acc = vadd(acc, x[u]);
+    }
+    __syncwarp(group);  // the window's rows are read before the next one's land
   }
-  if (mean) acc = __fdiv_rn(acc, (float)(deg > 1 ? deg : 1));
-  out[t] = acc;
+  if (c < dv) out[r * dv + c] = mean ? vdiv(acc, (float)(deg > 1 ? deg : 1)) : acc;
 }
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowsThreads = 256;  // 8 warps, one source row each
 
 // 1. count[j] += 1 for every masked slot reading source row j; deg[r] =
@@ -232,17 +311,36 @@ unsigned blocks_for(long long total, int threads) {
   return (unsigned)((total + threads - 1) / threads);
 }
 
+template <typename V, int G>
+void fwd_launch(const void* src, const void* nbr_idx, const void* mask, void* out,
+                long long n, long long w, long long dv, long long num_src, long long mean,
+                cudaStream_t s) {
+  const dim3 grid(blocks_for(n * G, kFwdThreads), (unsigned)((dv + G - 1) / G));
+  spmm_fwd_kernel<V, G><<<grid, kFwdThreads, 0, s>>>(
+      (const V*)src, (const int32_t*)nbr_idx, (const uint8_t*)mask, (V*)out, n, (int)w,
+      (int)dv, num_src, (int)mean);
+}
+
+template <typename V>
+void fwd_launch(const void* src, const void* nbr_idx, const void* mask, void* out,
+                long long n, long long w, long long dv, long long num_src, long long mean,
+                cudaStream_t s) {
+  if (dv <= 8) fwd_launch<V, 8>(src, nbr_idx, mask, out, n, w, dv, num_src, mean, s);
+  else if (dv <= 16) fwd_launch<V, 16>(src, nbr_idx, mask, out, n, w, dv, num_src, mean, s);
+  else fwd_launch<V, 32>(src, nbr_idx, mask, out, n, w, dv, num_src, mean, s);
+}
+
 }  // namespace
 
 extern "C" int spmm_forward_launch(const void* src, const void* nbr_idx,
                                    const void* mask, void* out, long long n,
                                    long long w, long long d, long long num_src,
                                    long long mean, void* stream) {
-  long long total = n * d;
-  const int threads = 256;
-  spmm_fwd_kernel<<<blocks_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const float*)src, (const int32_t*)nbr_idx, (const uint8_t*)mask,
-      (float*)out, total, (int)w, (int)d, num_src, (int)mean);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d % 4 == 0 && (uintptr_t)src % 16 == 0 && (uintptr_t)out % 16 == 0)
+    fwd_launch<float4>(src, nbr_idx, mask, out, n, w, d / 4, num_src, mean, s);
+  else
+    fwd_launch<float>(src, nbr_idx, mask, out, n, w, d, num_src, mean, s);
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,11 @@ that has only PyTorch:
 
 Each kernel must equal its plain torch version bit for bit on the card,
 including overflow, all-INVALID and empty inputs and, for the multi-block
-``unique_compact`` and the ``spmm`` backward, their tile and run edges
-(the ``spmm`` backward also equals the CPU's plain version and gives the
-same bits from call to call), except ``seg_softmax``: its
+``unique_compact``, the ``spmm`` forward and backward and
+``expand_indptr``, their tile, row and run edges (the ``spmm`` forward's
+floats also as int32 views, so the sign of a zero counts; the backward
+also equals the CPU's plain version and gives the same bits from call to
+call), except ``seg_softmax``: its
 forward is held within ``atol=1e-6`` of the plain version on the card and
 its backward within ``atol=1e-6 * max|g|`` (the kernel calls CUDA's
 ``expf``, the plain version ``torch.exp``), with masked slots and
@@ -236,6 +238,69 @@ def test_spmm_forward_matches_plain(cuda, S, d, n, w):
     torch.cuda.synchronize()
 
 
+def _same_bits(a, b):
+    """Equal values, and equal int32 views, so the sign of a zero counts."""
+    return torch.equal(a, b) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# (S, d, n, w) of each forward edge case
+SPMM_FWD_CASES = {
+    "padding-90": (262144, 64, 39208, 32),  # layer 2's layout: >= 90% of rows empty
+    "serve-w64": (3600, 64, 480, 64),        # serving's row width: two rounds of 32
+    "d=3": (500, 3, 300, 32),                # scalar columns
+    "d=256": (26136, 256, 1584, 32),         # two float4s per lane
+    "unaligned-src": (700, 64, 200, 32),     # a view 4 bytes off: scalar, two per lane
+    "all-masked-rows": (1056, 256, 64, 32),  # every slot of every 4th row masked
+    "special-values": (2000, 64, 600, 32),   # -0.0, inf, NaN where only masked-out slots point
+}
+
+
+@pytest.mark.parametrize("case", list(SPMM_FWD_CASES))
+def test_spmm_forward_edge_cases(cuda, case):
+    """The forward equals its plain version bit for bit (int32 views too) on
+    the card and on the CPU, in both modes, with one launch a call: rows
+    with no masked slot, every slot masked, w > 32, d = 3 and 256, an
+    unaligned source, and -0.0 / inf / NaN in source rows that only
+    masked-out slots point at (a sum of -0.0 rows is +0.0)."""
+    S, d, n, w = SPMM_FWD_CASES[case]
+    rng = np.random.default_rng(len(case))
+    src = rng.standard_normal((S + 1, d)).astype(np.float32)
+    idx = rng.integers(-1, S, (n, w)).astype(np.int32)
+    mask = (rng.random((n, w)) < 0.4) & (idx >= 0)
+    if case == "padding-90":
+        mask[rng.random(n) < 0.95] = False
+        assert (~mask.any(axis=1)).mean() >= 0.9
+    if case == "all-masked-rows":
+        idx[::4] = rng.integers(0, S, (len(idx[::4]), w))
+        mask[::4] = True
+    if case == "special-values":
+        # masked slots read odd rows, masked-out slots even rows; even rows
+        # hold -0.0, inf, -inf and NaN, and odd rows below 200 hold -0.0
+        idx = np.where(mask, idx | 1, idx & ~1).clip(0, S - 1).astype(np.int32)
+        src[0:S:2] = np.resize(np.array([-0.0, np.inf, -np.inf, np.nan], np.float32),
+                               src[0:S:2].shape)
+        src[1:200:2] = -0.0
+        idx[:50] = np.where(mask[:50], rng.integers(0, 100, (50, w)) | 1, 0)  # -0.0 rows only
+    table = torch.from_numpy(src).to(cuda)
+    if case == "unaligned-src":  # 4 bytes past a 16-byte boundary
+        table = table.reshape(-1)[1 : 1 + S * d].reshape(S, d)
+    else:
+        table = table[:S]
+    assert (table.data_ptr() % 16 != 0) == (case == "unaligned-src")
+    idx_t, mask_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(mask).to(cuda)
+    for mean in (False, True):
+        reset_launches()
+        got = spmm_cuda(table, idx_t, mask_t, mean)
+        assert LAUNCHES["spmm"] == 1
+        want = spmm_ref(table, idx_t, mask_t, mean=mean)
+        assert _same_bits(got, want), mean
+        assert _same_bits(got.cpu(), spmm_ref(table.cpu(), idx_t.cpu(), mask_t.cpu(), mean=mean))
+        if case == "special-values":
+            assert bool(torch.isfinite(got).all())
+            assert not bool(torch.signbit(got[:50]).any())  # +0.0, never -0.0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("S,d,n,w", [
     (262144, 64, 39208, 32), (26136, 256, 1584, 32), (1056, 256, 64, 32), (50, 3, 7, 1),
     (10, 8, 0, 4),
@@ -352,6 +417,46 @@ def test_expand_indptr_matches_plain(cuda, R, num_edges, max_deg):
     assert LAUNCHES.get("expand_indptr", 0) == (1 if num_edges else 0)
     assert torch.equal(got, expand_indptr_ref(iptr, num_edges))
     assert torch.equal(got.cpu(), expand_indptr_ref(iptr.cpu(), num_edges))
+    torch.cuda.synchronize()
+
+
+def _indptr_case(case):
+    """(indptr, num_edges) of one ``expand_indptr`` edge case."""
+    rng = np.random.default_rng(len(case))
+    if case == "empty-runs":  # 40 rows with edges among 50,000
+        deg = np.zeros(50000, np.int64)
+        deg[rng.choice(50000, 40, replace=False)] = rng.integers(1, 20, 40)
+    elif case == "hub-300":  # one row longer than many threads' runs
+        deg = rng.integers(0, 3, 500)
+        deg[250] = 300
+    elif case in ("tail-not-4", "edges-equal-total", "first-above-0"):
+        deg = rng.integers(0, 6, 1001)
+        deg[-1] += (1 - deg.sum()) % 4  # a total one past a multiple of 4
+    else:  # R = 0
+        deg = np.zeros(0, np.int64)
+    iptr = np.concatenate([[0], np.cumsum(deg)])
+    total = int(iptr[-1])
+    if case == "first-above-0":
+        iptr = iptr + 7
+    num_edges = {"edges-equal-total": total, "tail-not-4": 4 * (total // 4) + 4 * 37 + 3,
+                 "R=0": 13, "first-above-0": total + 10}.get(case, total + 1001)
+    if case == "edges-equal-total":
+        assert num_edges % 4 != 0
+    return torch.from_numpy(iptr.astype(np.int32)), num_edges
+
+
+@pytest.mark.parametrize("case", ["empty-runs", "hub-300", "tail-not-4", "edges-equal-total",
+                                  "first-above-0", "R=0"])
+def test_expand_indptr_edge_cases(cuda, case):
+    """Equal to the plain version on the card and the CPU, one launch: long
+    runs of empty rows, a 300-slot hub row, a tail of num_edges % 4 slots,
+    num_edges == indptr[R], an indptr that starts above 0, and R = 0."""
+    iptr, num_edges = _indptr_case(case)
+    reset_launches()
+    got = expand_indptr(iptr.to(cuda), num_edges)
+    assert LAUNCHES["expand_indptr"] == 1
+    assert torch.equal(got, expand_indptr_ref(iptr.to(cuda), num_edges))
+    assert torch.equal(got.cpu(), expand_indptr_ref(iptr, num_edges))
     torch.cuda.synchronize()
 
 
