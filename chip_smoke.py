@@ -27,11 +27,13 @@ Phases:
    the device, as ``torch.unique`` does: then by its profiled kernel sum,
    beside the kernel's own; the method is printed with each time), and
    its bound: the larger of its bytes over the memory rate and its
-   operations over the scalar rate.  The two deepest dedups are also timed
-   whole (sort + kernel) beside ``torch.unique``.
+   operations over the scalar rate; the ``seg_softmax`` rows print the
+   replaced design's time beside the new one ("was").  The two deepest
+   dedups are also timed whole (sort + kernel) beside ``torch.unique``.
 2. Serve: a 1.1M-vertex user-item graph (``make_recsys`` with 2**20
    users), the GCN at full width (in 64, hidden 256, 16 classes, two
-   layers) with weights from a numpy seed, and a 500-request Poisson
+   layers) with ``init_gnn``'s weights for seed 0 (the JAX package's
+   initial weights for that seed), and a 500-request Poisson
    trace at 4000 requests/s through ``repro_torch.serve.GNNServer``
    with ``plan_backend="fused"`` and the device cache on.  The launch
    counters are zeroed right before and read right after; every kernel
@@ -50,7 +52,8 @@ Phases:
    configuration (cooperative, 4 PEs in the stacked ``SimExecutor``
    layout, local batch 64, LABOR-0 fanout 10, smoothed kappa 16, hash
    partition, ``plan_backend="fused"``) and a 3-layer GCN at full width
-   (in 64, hidden 256, 16 classes; weights from a numpy seed) on
+   (in 64, hidden 256, 16 classes; ``train_gnn``'s own weights, those of
+   ``init_gnn`` for seed 0, which are the JAX package's) on
    ``rmat_graph(scale=18, edge_factor=8, max_degree=32)``, 4 steps on
    the card and the same 4 steps on the CPU (the plain path).  The
    counters are zeroed right before the card run; every kernel of the
@@ -60,8 +63,9 @@ Phases:
    step: wall ms split into plan, gather, forward+backward and Adam (each
    ended by a sync) and each kernel's launches; then the device idle
    share over two more steps under the profiler, with the device ms per
-   step of the ``unique_compact`` kernel, the ``spmm`` forward and
-   backward kernels and every sort, beside the plan ms per step.
+   step of the ``unique_compact`` kernel, the ``spmm`` and ``seg_softmax``
+   forward and backward kernels, every sort and every memset, beside the
+   plan ms per step.
 4. Train the GAT: phase 3 again with a 3-layer GAT at the same width and
    4 heads (``GNNConfig(model="gat", num_heads=4)``), same graph, plans
    and checks; its attention softmax runs through ``seg_softmax`` and its
@@ -150,6 +154,11 @@ PATH_KERNELS = {
 # expf where the plain version calls torch.exp; the backward's bound scales
 # with the largest output gradient
 SEG_ATOL, SEG_BWD_ATOL = 1e-6, 1e-6
+# the one-warp-per-(row, head) seg_softmax kernels that the row-per-warp
+# design replaced: device ms by graph replay at plan layers 0, 1, 2, as
+# this script measured them on an H100 80GB HBM3 at 700 W (PERF.md)
+SEG_WAS_MS = {"seg_softmax": (0.00330, 0.00407, 0.04430),
+              "seg_softmax_backward": (0.00257, 0.00364, 0.03469)}
 
 
 class PhaseError(RuntimeError):
@@ -557,10 +566,13 @@ def phase1_train(engine) -> dict:
     # seg_softmax (GAT, 4 heads) and expand_indptr (layer_to_coo) on every
     # layer's mask of PE 0
     fwd, bwd, coo = [], [], []
-    for layer in plan.layers:
+    for l, layer in enumerate(plan.layers):
         f, b = seg_softmax_rows(layer.mask[0].contiguous(), 4, rng)
-        fwd.append(dict(f, paths=["train_gat"], per=per_pe))
-        bwd.append(dict(b, paths=["train_gat"], per=per_pe))
+        fwd.append(dict(f, paths=["train_gat"], per=per_pe,
+                        extra_was=f"{SEG_WAS_MS['seg_softmax'][l]} ms (warp per head)"))
+        bwd.append(dict(b, paths=["train_gat"], per=per_pe,
+                        extra_was=f"{SEG_WAS_MS['seg_softmax_backward'][l]} ms "
+                                  "(warp per head)"))
         coo.append(dict(expand_indptr_row(layer.mask[0]), paths=["coo"], per="1/coo layer"))
     out["seg_softmax"], out["seg_softmax_backward"], out["expand_indptr"] = fwd, bwd, coo
     report_bounds(out)
@@ -781,32 +793,15 @@ def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: b
 # --------------------------------------------------------------------------
 # phase 2
 # --------------------------------------------------------------------------
-def make_model(gnn_cfg, device):
-    """The model with the JAX package's glorot-uniform limits and shapes,
-    weights drawn from a numpy seed in parameter order, zero biases."""
-    import numpy as np
-    from repro_torch.models.gnn import GNN, glorot_limit, params_from_jax
-
-    rng = np.random.default_rng(SEED)
-    layers = []
-    for layer in GNN(gnn_cfg, device="cpu").layers:
-        p = {}
-        for name, t in layer.named_parameters():
-            lim = glorot_limit(name, tuple(t.shape))
-            p[name] = rng.uniform(-lim, lim, tuple(t.shape)).astype(np.float32) if lim else (
-                np.zeros(tuple(t.shape), np.float32))
-        layers.append(p)
-    return params_from_jax({"layers": layers}, gnn_cfg, device=device)
-
-
 def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.gnn import init_gnn
     from repro_torch.serve import GNNServer, poisson_trace
 
-    server = GNNServer(ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cuda"),
-                       serve_cfg, device="cuda")
+    server = GNNServer(ds.graph, ds.features, gnn_cfg,
+                       init_gnn(gnn_cfg, seed=SEED, device="cuda"), serve_cfg, device="cuda")
     reset_launches()
     t0 = time.perf_counter()
     rep = server.serve_trace(trace)
@@ -817,7 +812,7 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     for k in PATH_KERNELS["serve"]:
         check(launches[k] > 0, f"kernel {k} was not launched on the serving path")
 
-    cpu = GNNServer(ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cpu"),
+    cpu = GNNServer(ds.graph, ds.features, gnn_cfg, init_gnn(gnn_cfg, seed=SEED, device="cpu"),
                     serve_cfg, device="cpu")
     t0 = time.perf_counter()
     ref = cpu.serve_trace(trace)
@@ -851,7 +846,7 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     check(err1 <= ATOL, f"per-request logits differ from coalesced by {err1}")
 
     measured = GNNServer(
-        ds.graph, ds.features, gnn_cfg, make_model(gnn_cfg, "cuda"),
+        ds.graph, ds.features, gnn_cfg, init_gnn(gnn_cfg, seed=SEED, device="cuda"),
         dataclasses.replace(serve_cfg, service_model="measured"), device="cuda",
     )
     measured.serve_trace(trace[:64])  # warm-up: allocator, cuBLAS handles
@@ -978,9 +973,10 @@ def int_leaves(plan) -> dict:
 
 
 def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False) -> dict:
-    """Cooperative training of ``gnn_cfg`` on the card and on the CPU from
-    one init; ``path`` names the kernels it must launch.  Returns the
-    launches, the loss gap, the walls and the card's step-0 plan."""
+    """Cooperative training of ``gnn_cfg`` on the card and on the CPU, each
+    from ``train_gnn``'s own weights for ``tc.seed`` (the JAX package's);
+    ``path`` names the kernels it must launch.  Returns the launches, the
+    loss gap, the walls and the card's step-0 plan."""
     import numpy as np
     import torch
     from repro_torch.engine import MinibatchEngine
@@ -1006,8 +1002,8 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    runs["card"] = train_gnn(tds, gnn_cfg, tc, model=make_model(gnn_cfg, "cuda"),
-                             device="cuda", stage_times=True, on_step=on_card_step)
+    runs["card"] = train_gnn(tds, gnn_cfg, tc, device="cuda", stage_times=True,
+                             on_step=on_card_step)
     card_s = time.perf_counter() - t0
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
     print(f"{tag} card train ({gnn_cfg.model}): {tc.num_steps} steps in {card_s:.2f} s "
@@ -1024,8 +1020,7 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
     print(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     t0 = time.perf_counter()
-    runs["cpu"] = train_gnn(tds, gnn_cfg, tc, model=make_model(gnn_cfg, "cpu"),
-                            device="cpu", stage_times=True,
+    runs["cpu"] = train_gnn(tds, gnn_cfg, tc, device="cpu", stage_times=True,
                             on_step=lambda step, plan: plans["cpu"].append(plan))
     print(f"{tag} cpu train (plain path): {time.perf_counter() - t0:.2f} s; per step "
           + "; ".join(f"{sum(st.values()):.1f} ms" for st in runs["cpu"].stage_ms))
@@ -1100,6 +1095,8 @@ PROFILE_GROUPS = {
     "spmm_forward": ("spmm_fwd_kernel",),
     "spmm_backward": ("bwd_count_kernel", "bwd_place_kernel", "bwd_rows_kernel",
                       "lookback_scan_kernel"),
+    "seg_softmax_forward": ("seg_softmax_fwd_kernel",),
+    "seg_softmax_backward": ("seg_softmax_bwd_kernel",),
     "every torch.sort": ("RadixSort", "SortKVInPlace"),
     "every memset": ("Memset",),
 }
@@ -1116,11 +1113,12 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import MinibatchEngine
+    from repro_torch.models.gnn import init_gnn
     from repro_torch.train import adam_init, train_step
 
     engine = MinibatchEngine.from_config(tds.graph, tc.engine_config(gnn_cfg.num_layers),
                                          dataset=tds, device="cuda")
-    model = make_model(gnn_cfg, "cuda")
+    model = init_gnn(gnn_cfg, seed=tc.seed, device="cuda")
     labels = torch.as_tensor(tds.labels).cuda()
     opt = adam_init(list(model.parameters()))
     torch.cuda.synchronize()
@@ -1205,7 +1203,7 @@ def main(argv: list) -> int:
         tc = TrainConfig(mode="cooperative", num_pes=4, local_batch=64, fanout=10,
                          sampler="labor0", schedule="smoothed", kappa=16,
                          partition="hash", executor="sim", plan_backend="fused",
-                         eval_every=0, num_steps=TRAIN_STEPS)
+                         eval_every=0, num_steps=TRAIN_STEPS, seed=SEED)
         engine = MinibatchEngine.from_config(tg, tc.engine_config(3), dataset=tds,
                                              device="cuda")
         print(f"rmat graph: V={tg.num_vertices} E={tg.num_edges} max_degree="

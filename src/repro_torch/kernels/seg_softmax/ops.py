@@ -3,7 +3,9 @@
 ``seg_softmax`` is differentiable in the logits.  A CPU tensor takes the
 plain versions (:mod:`.ref`); a CUDA tensor launches the hand-written
 kernels of ``seg_softmax.cu`` -- the forward counted as ``seg_softmax``,
-the backward as ``seg_softmax_backward`` -- or the call raises.
+the backward as ``seg_softmax_backward`` -- or the call raises.  The
+kernels take contiguous, 16-byte-aligned floats; the autograd op copies
+an input that is not aligned.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.seg_softmax.ref import seg_softmax_backward_ref, seg_softmax_ref
+
+ALIGN = 16
 
 
 def _check(kernel: str, mask: torch.Tensor, **floats: torch.Tensor):
@@ -22,6 +26,14 @@ def _check(kernel: str, mask: torch.Tensor, **floats: torch.Tensor):
                 f"{kernel}: want (n, w) or (n, w, h) {key} over an (n, w) mask, got "
                 f"{tuple(t.shape)} and {tuple(mask.shape)}"
             )
+        if t.data_ptr() % ALIGN:  # the kernels load and store 16 bytes at a time
+            raise ValueError(f"{kernel}: {key} is not {ALIGN}-byte aligned")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and :data:`ALIGN`-byte aligned (a copy if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % ALIGN == 0 else t.clone()
 
 
 def _dims(t: torch.Tensor) -> tuple[int, int, int]:
@@ -65,7 +77,7 @@ class _SegSoftmax(torch.autograd.Function):
         if _on_cpu(e, "seg_softmax"):
             alpha = seg_softmax_ref(e, mask)
         else:
-            alpha = seg_softmax_cuda(e.contiguous(), mask.contiguous())
+            alpha = seg_softmax_cuda(_aligned(e), mask.contiguous())
         ctx.save_for_backward(alpha, mask)
         return alpha
 
@@ -76,7 +88,7 @@ class _SegSoftmax(torch.autograd.Function):
             return None, None
         if _on_cpu(grad, "seg_softmax_backward"):
             return seg_softmax_backward_ref(alpha, grad, mask), None
-        return seg_softmax_backward_cuda(alpha, grad.contiguous(), mask.contiguous()), None
+        return seg_softmax_backward_cuda(alpha, _aligned(grad), mask.contiguous()), None
 
 
 def seg_softmax(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,6 @@ from repro_torch.models.gnn.layers import (
     GATLayer,
     GCNLayer,
     GNNConfig,
-    glorot_limit,
     gnn_apply,
     gnn_apply_cooperative,
     gnn_apply_stacked,
@@ -12,6 +11,6 @@ from repro_torch.models.gnn.layers import (
 )
 
 __all__ = [
-    "GATLayer", "GCNLayer", "GNN", "GNNConfig", "glorot_limit", "gnn_apply",
+    "GATLayer", "GCNLayer", "GNN", "GNNConfig", "gnn_apply",
     "gnn_apply_cooperative", "gnn_apply_stacked", "init_gnn", "params_from_jax",
 ]

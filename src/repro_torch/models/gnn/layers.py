@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import threefry
 from repro_torch.core.frontier import take_rows
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.seg_softmax import seg_softmax
@@ -144,28 +145,33 @@ class GNN(nn.Module):
         return H
 
 
-def glorot_limit(name: str, shape) -> float:
-    """The JAX package's Glorot-uniform limit for parameter ``name``; 0 for
-    a bias.  ``a_src``/``a_dst`` (h, dh) are drawn there with shape
-    (h, dh, 1), so their fans are dh and 1."""
-    if name == "b":
-        return 0.0
-    fan_in, fan_out = (shape[-1], 1) if name.startswith("a_") else shape
-    return float(np.sqrt(6.0 / (fan_in + fan_out)))
-
-
-def init_gnn(cfg: GNNConfig, generator: torch.Generator,
-             device: DeviceLike = None) -> GNN:
-    """Glorot-uniform weights and zero biases, drawn from ``generator``."""
-    model = GNN(cfg, device=device)
-    with torch.no_grad():
-        for layer in model.layers:
-            for name, p in layer.named_parameters():
-                lim = glorot_limit(name, p.shape)
-                if lim:
-                    u = torch.rand(p.shape, generator=generator, dtype=cfg.dtype)
-                    p.copy_(u * (2 * lim) - lim)
-    return model
+def init_gnn(cfg: GNNConfig, seed: int = 0, device: DeviceLike = None) -> GNN:
+    """``repro.models.gnn.init_gnn(jax.random.PRNGKey(seed), cfg)``'s weights,
+    bit for bit: Glorot-uniform weights and zero biases, drawn on the CPU
+    with the port of ``jax.random`` (:mod:`repro_torch.core.threefry`) in
+    the JAX package's order, then moved to ``device``."""
+    _check_model(cfg)
+    key = threefry.prng_key(seed)
+    layers = []
+    for l in range(cfg.num_layers):
+        keys = threefry.split(key, 6)
+        key, ks = keys[0], keys[1:]
+        d_in, d_out = cfg.dims(l)
+        if cfg.model == "gcn":
+            shapes = {"w": (d_in, d_out)}
+        else:
+            h = cfg.num_heads
+            dh = max(1, d_out // h)
+            # a_src / a_dst are drawn as (h, dh, 1), then squeezed
+            shapes = {"w": (d_in, h * dh), "a_src": (h, dh, 1), "a_dst": (h, dh, 1),
+                      "w_out": (h * dh, d_out)}
+        p = {}
+        for k, (name, shape) in zip(ks, shapes.items()):
+            lim = float(np.sqrt(6.0 / (shape[-2] + shape[-1])))
+            p[name] = threefry.uniform(k, shape, -lim, lim).reshape(shape[:2]).numpy()
+        p["b"] = np.zeros((d_out,), np.float32)
+        layers.append(p)
+    return params_from_jax({"layers": layers}, cfg, device=device)
 
 
 def params_from_jax(params_np: dict, cfg: GNNConfig, device: DeviceLike = None) -> GNN:

@@ -6,7 +6,7 @@
 
     ds = make_recsys()
     gnn_cfg = GNNConfig(num_layers=2)
-    model = init_gnn(gnn_cfg, torch.Generator().manual_seed(0))
+    model = init_gnn(gnn_cfg, seed=0)
     server = GNNServer(ds.graph, ds.features, gnn_cfg, model,
                        ServeConfig(plan_backend="fused"))
     report = server.serve_trace(

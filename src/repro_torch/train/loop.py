@@ -148,7 +148,7 @@ def train_gnn(
         device=dev,
     )
     if model is None:
-        model = init_gnn(gnn_cfg, torch.Generator().manual_seed(tc.seed), device=dev)
+        model = init_gnn(gnn_cfg, tc.seed, device=dev)
     model = model.to(dev)
     opt = adam_init(list(model.parameters()))
     labels = torch.as_tensor(np.asarray(dataset.labels)).to(dev)

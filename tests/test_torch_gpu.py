@@ -17,7 +17,8 @@ forward is held within ``atol=1e-6`` of the plain version on the card and
 its backward within ``atol=1e-6 * max|g|`` (the kernel calls CUDA's
 ``expf``, the plain version ``torch.exp``), with masked slots and
 all-masked rows exactly 0.  Each kernel rejects a wrongly typed or
-non-contiguous input by raising.  A served trace must give the same
+non-contiguous input by raising (``seg_softmax`` also floats that are not
+16-byte aligned).  A served trace must give the same
 integer accounting and plan entries as on the CPU, and a few
 cooperative training steps (GCN and GAT) the same plans and losses.
 """
@@ -183,14 +184,14 @@ def test_served_trace_matches_cpu(cuda):
     ds = make_recsys(num_users=4096, num_items=512, edges_per_user=8,
                      feature_dim=16, max_degree=64, seed=0, device="cpu")
     cfg = GNNConfig(num_layers=2, in_dim=16, hidden_dim=32, num_classes=8)
-    model = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    model = init_gnn(cfg, seed=0, device="cpu")
     trace = poisson_trace(200, 2000.0, ds.user_ids, seed=3)
     serve_cfg = ServeConfig(plan_backend="fused")
     reset_launches()
     card = GNNServer(ds.graph, ds.features, cfg, model, serve_cfg, device=cuda)
     got = card.serve_trace(trace)
     assert all(LAUNCHES.get(k, 0) > 0 for k in ("frontier_gather", "unique_compact", "tag_probe"))
-    cpu_model = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu_model = init_gnn(cfg, seed=0, device="cpu")
     want = GNNServer(ds.graph, ds.features, cfg, cpu_model, serve_cfg,
                      device="cpu").serve_trace(trace)
     assert (got.fetched_rows, got.requested_rows, got.cache_hits) == (
@@ -377,12 +378,21 @@ def test_kernels_reject_bad_inputs(cuda):
     (39208, 32, 4, 0.01),   # the GAT training path's layer 2 (mostly padding)
     (1584, 32, 4, 0.6), (64, 32, 4, 0.9), (480, 64, 4, 0.5), (300, 70, 1, 0.5),
     (100, 5, 0, 0.5), (0, 32, 4, 0.5),
+    (39208, 32, 4, 0.0),    # a layer that is all padding
+    (1584, 32, 8, 0.6),     # 8 heads: two 16-byte accesses a slot
+    (480, 16, 4, 0.5),      # half a warp's lanes past w
+    (200, 32, 4, "last"),   # rows whose one valid slot is the last lane's
+    (300, 70, 2, 0.5), (96, 33, 3, "last"),
 ])
 def test_seg_softmax_matches_plain(cuda, n, w, h, frac):
     rng = np.random.default_rng(n + w)
     shape = (n, w, h) if h else (n, w)
     e = torch.from_numpy((3 * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
-    mask_np = rng.random((n, w)) < frac
+    if frac == "last":
+        mask_np = np.zeros((n, w), bool)
+        mask_np[:, w - 1] = True
+    else:
+        mask_np = rng.random((n, w)) < frac
     mask_np[: n // 8] = False  # all-masked rows
     mask = torch.from_numpy(mask_np).to(cuda)
     g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
@@ -473,6 +483,16 @@ def test_gat_and_coo_kernels_reject_bad_inputs(cuda):
         seg_softmax_cuda(e[:, :2].contiguous(), mask)
     with pytest.raises(ValueError, match="alpha"):
         seg_softmax_backward_cuda(e, e[..., :1].contiguous(), mask)
+    # a contiguous view 4 bytes past a 16-byte boundary: the kernels take
+    # 16-byte-aligned floats only, and the autograd op copies such a view
+    shifted = torch.randn(6 * 3 * 2 + 1, device=cuda)[1:].view(6, 3, 2)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        seg_softmax_cuda(shifted, mask)
+    with pytest.raises(ValueError, match="aligned"):
+        seg_softmax_backward_cuda(e, shifted, mask)
+    torch.testing.assert_close(seg_softmax(shifted, mask), seg_softmax_ref(shifted, mask),
+                               rtol=0, atol=1e-6)
     iptr = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         expand_indptr_cuda(iptr.long(), 8)
@@ -491,7 +511,7 @@ def test_cooperative_training_matches_cpu(cuda, model):
     plans = {}
     runs = {}
     for dev in (cuda, "cpu"):
-        net = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+        net = init_gnn(cfg, seed=0, device="cpu")
         reset_launches()
         runs[str(dev)] = train_gnn(
             ds, cfg, tc, model=net, device=dev,

@@ -203,7 +203,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     ds = make_recsys(num_users=64, num_items=32, edges_per_user=3,
                      feature_dim=8, max_degree=16, seed=0, device="cpu")
     cfg = GNNConfig(num_layers=2, in_dim=8, hidden_dim=8, num_classes=4)
-    model = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    model = init_gnn(cfg, seed=0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):

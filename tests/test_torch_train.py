@@ -16,7 +16,9 @@ GAT cases carry a ``gat-`` id prefix).
   modes.
 * ``train_gnn``: losses over 4 steps within ``rtol=1e-5`` of
   ``repro.train.loop.train_gnn`` in both modes, and the final weights
-  within ``atol=1e-5``.  ``evaluate`` gives the same micro-F1.
+  within ``atol=1e-5``; with no ``model`` given, ``train_gnn`` starts from
+  ``init_gnn(cfg, tc.seed)``, the JAX package's weights, so its losses
+  are the JAX run's too.  ``evaluate`` gives the same micro-F1.
 
 Small size: ``rmat_graph(scale=10, edge_factor=8, max_degree=16)``,
 16 features, 4 classes, a 2-layer GCN with hidden 32 (and a 2-layer
@@ -228,6 +230,16 @@ def test_train_gnn_matches_jax(datasets, jax_runs, model, mode):
             _close(layer[name], jl[name], rtol=0, atol=1e-5, msg=name)
     assert [set(s) for s in got.stage_ms] == [
         {"plan", "gather", "forward_backward", "adam"}] * STEPS
+
+
+@pytest.mark.parametrize("model", by_model())
+def test_train_gnn_default_weights_are_jax_s(datasets, jax_runs, model):
+    """With no ``model``, ``train_gnn`` draws ``init_gnn(cfg, tc.seed)``: the
+    JAX package's weights for that seed, so its losses are the JAX run's."""
+    _, tds = datasets
+    got = train_gnn(tds, GNNConfig(**GNNS[model]), TrainConfig(mode="cooperative", **TC),
+                    device="cpu")
+    _close(got.losses, jax_runs(model, "cooperative").losses, rtol=1e-5)
 
 
 @pytest.mark.parametrize("model", by_model())
