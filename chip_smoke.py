@@ -11,11 +11,14 @@ Phases:
    (``nvcc`` for ``sm_90a``, one process per source, in parallel).
 1. Kernels against their plain torch versions, on the card, on inputs
    from a numpy seed: the serving kernels at the serving path's shapes,
-   ``unique_compact`` at all 7 dedups of a training step, ``gather``,
+   ``frontier_gather`` at PE 0's frontier of every layer of a training
+   step, ``unique_compact`` at all 7 dedups of a training step, ``gather``,
    ``spmm`` (forward and backward, every layer), ``seg_softmax`` (forward
    and backward, 4 heads) and ``expand_indptr`` at the training path's
    shapes, with the index tables and masks of a real training plan.  Every
-   kernel must be equal bit for bit to its plain version (the ``spmm``
+   kernel must be equal bit for bit to its plain version (``frontier_gather``
+   in both its outputs, the table and the mask, from one CUDA kernel a
+   call; ``tag_probe`` from one; the ``spmm``
    backward also to itself over two calls), except ``seg_softmax``:
    forward within ``atol=1e-6``, backward within ``atol=1e-6 * max|g|``,
    masked slots exactly 0.  Each row names the paths that run its shape
@@ -28,7 +31,9 @@ Phases:
    beside the kernel's own; the method is printed with each time), and
    its bound: the larger of its bytes over the memory rate and its
    operations over the scalar rate; the ``seg_softmax`` rows print the
-   replaced design's time beside the new one ("was").  The two deepest
+   replaced design's time beside the new one ("was"), the
+   ``frontier_gather`` rows the replaced design's separate mask op
+   (``nbr != INVALID``) by graph replay at the same shape.  The two deepest
    dedups are also timed whole (sort + kernel) beside ``torch.unique``.
 2. Serve: a 1.1M-vertex user-item graph (``make_recsys`` with 2**20
    users), the GCN at full width (in 64, hidden 256, 16 classes, two
@@ -47,7 +52,8 @@ Phases:
    same trace (which overloads the server) and a 4000-request trace at
    1000 requests/s (which it keeps up with): latencies, wall ms per batch
    and the server's split of it into plan build, feature gather and
-   forward; last, a profile of one served trace.
+   forward; last, a profile of one served trace, with the device ms per
+   batch of ``frontier_gather`` and ``tag_probe``.
 3. Train: ``repro_torch.train.train_gnn`` with the training example's
    configuration (cooperative, 4 PEs in the stacked ``SimExecutor``
    layout, local batch 64, LABOR-0 fanout 10, smoothed kappa 16, hash
@@ -63,9 +69,11 @@ Phases:
    step: wall ms split into plan, gather, forward+backward and Adam (each
    ended by a sync) and each kernel's launches; then the device idle
    share over two more steps under the profiler, with the device ms per
-   step of the ``unique_compact`` kernel, the ``spmm`` and ``seg_softmax``
-   forward and backward kernels, every sort and every memset, beside the
-   plan ms per step.
+   step of the ``frontier_gather`` and ``unique_compact`` kernels, the
+   ``spmm`` and ``seg_softmax`` forward and backward kernels, every sort
+   and every memset, beside the plan ms per step; each
+   ``Graph.neighbor_table`` call there must make one ``frontier_gather``
+   launch and one CUDA kernel.
 4. Train the GAT: phase 3 again with a 3-layer GAT at the same width and
    4 heads (``GNNConfig(model="gat", num_heads=4)``), same graph, plans
    and checks; its attention softmax runs through ``seg_softmax`` and its
@@ -243,9 +251,9 @@ def cuda_kernel_us(prof) -> list:
     return sorted(rows, reverse=True)
 
 
-def kernel_split(fn, iters: int = 20) -> str:
-    """Device us per call of each kernel (and memset) that ``fn`` launches,
-    and how many of each per call, from a torch.profiler trace."""
+def profiled_kernels(fn, iters: int = 20) -> list:
+    """(device us, launches, name) per call of each kernel (and memset) that
+    ``fn`` launches, from a torch.profiler trace."""
     import re
 
     import torch
@@ -257,12 +265,16 @@ def kernel_split(fn, iters: int = 20) -> str:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    parts = []
+    out = []
     for us, count, key in cuda_kernel_us(prof):
         name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
-        parts.append(f"{name.group(1) if name else key[:24]} {us / iters:.2f} us "
-                     f"x{count / iters:g}")
-    return ", ".join(parts)
+        out.append((us / iters, count / iters, name.group(1) if name else key[:24]))
+    return out
+
+
+def kernel_split(split: list) -> str:
+    """``profiled_kernels``' list as text: device us and launches per call."""
+    return ", ".join(f"{name} {us:.2f} us x{count:g}" for us, count, name in split)
 
 
 def device_ms(fn, iters: int = 20):
@@ -374,7 +386,6 @@ def phase1(ds, caps, cache_rows: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.graph import INVALID
-    from repro_torch.kernels.frontier_gather import frontier_gather_cuda, frontier_gather_ref
     from repro_torch.store import hash_set, probe_ref, tag_probe_cuda
 
     dev = torch.device("cuda")
@@ -389,23 +400,7 @@ def phase1(ds, caps, cache_rows: int) -> dict:
         seeds = rng.choice(V, size=n, replace=False).astype(np.int32)
         seeds[rng.random(n) < 0.1] = INVALID
         s = torch.from_numpy(np.sort(seeds)).to(dev)
-        got = frontier_gather_cuda(g.indptr, g.indices, s, D)
-        want, _ = frontier_gather_ref(g.indptr, g.indices, s, D)
-        err = int((got != want).sum())
-        check(err == 0, f"frontier_gather n={n}: {err} entries differ from plain")
-        mae = max_abs_err(got, want)
-        valid = s != INVALID
-        sv = s[valid].long()
-        deg = (g.indptr[sv + 1] - g.indptr[sv]).clamp(max=D)
-        nbytes = 4 * n + 8 * int(valid.sum()) + 4 * int(deg.sum()) + 4 * n * D
-        # per seed: the INVALID test and the degree; per slot: k < deg and off + k
-        ops = 2 * n + 2 * n * D
-        rows.append(dict(
-            shape=f"n={n} D={D}", bytes=nbytes, ops=ops, max_abs_err=mae,
-            paths=["serve"], per="1/batch",
-            **timings(lambda: frontier_gather_cuda(g.indptr, g.indices, s, D),
-                      lambda: frontier_gather_ref(g.indptr, g.indices, s, D)),
-        ))
+        rows.append(frontier_row(g, s, ["serve"], "1/batch", "serve"))
     out["frontier_gather"] = rows
 
     # unique_compact at m = cap_l * (1 + max_degree) ids, cap = cap_{l+1}
@@ -422,27 +417,29 @@ def phase1(ds, caps, cache_rows: int) -> dict:
     # tag_probe at n = the unique ids of one batch, S = capacity / 8, W = 8
     W = 8
     S = cache_rows // W
-    n = caps[-1]
     tags = rng.integers(0, V, size=(S, W)).astype(np.int32)
     tags[rng.random((S, W)) < 0.3] = INVALID
-    ids = np.unique(rng.integers(0, V, size=n).astype(np.int32))
+    ids = np.unique(rng.integers(0, V, size=caps[-1]).astype(np.int32))
     ids_t = torch.from_numpy(ids).to(dev)
     sets = hash_set(ids_t, S)
-    tags_np = tags.copy()
-    sets_np = sets.cpu().numpy()
     hit = rng.random(len(ids)) < 0.5
-    tags_np[sets_np[hit], rng.integers(0, W, hit.sum())] = ids[hit]
-    tags_t = torch.from_numpy(tags_np).to(dev)
+    tags[sets.cpu().numpy()[hit], rng.integers(0, W, hit.sum())] = ids[hit]
+    tags_t = torch.from_numpy(tags).to(dev)
+    n = len(ids)
     got = tag_probe_cuda(tags_t, sets, ids_t)
     want = probe_ref(tags_t, sets, ids_t)
     err = int((got != want).sum())
-    check(err == 0, f"tag_probe n={len(ids)}: {err} entries differ from plain")
-    nbytes = 4 * len(ids) * 3 + 4 * W * int(torch.unique(sets).numel())
+    check(err == 0, f"tag_probe n={n}: {err} entries differ from plain")
+    split = profiled_kernels(lambda: tag_probe_cuda(tags_t, sets, ids_t))
+    check(len(split) == 1 and split[0][1] == 1 and "tag_probe" in split[0][2],
+          f"tag_probe: not one kernel a call: {split}")
+    nbytes = 4 * n * 3 + 4 * W * int(torch.unique(sets).numel())
     # per id: the row address, then one compare per way up to the first match
-    ops = len(ids) + int(torch.where(want >= 0, want + 1, W).sum())
+    ops = n + int(torch.where(want >= 0, want + 1, W).sum())
     out["tag_probe"] = [dict(
-        shape=f"n={len(ids)} S={S} W={W}", bytes=nbytes, ops=ops,
+        shape=f"n={n} S={S} W={W}", bytes=nbytes, ops=ops,
         max_abs_err=max_abs_err(got, want), paths=["serve"], per="1/batch",
+        extra_split=kernel_split(split),
         **timings(lambda: tag_probe_cuda(tags_t, sets, ids_t),
                   lambda: probe_ref(tags_t, sets, ids_t)),
     )]
@@ -474,6 +471,49 @@ def report_bounds(out: dict) -> None:
                   + "".join(f"; {k} {r[k]}" for k in r if k.startswith("extra_")))
 
 
+def frontier_row(g, seeds, paths: list, per: str, label: str) -> dict:
+    """``frontier_gather`` on ``seeds`` of graph ``g`` against its plain
+    version: the table and the mask equal bit for bit, from one CUDA kernel
+    a call (profiled through the public wrapper, the path's entry point).
+    Bytes: the seeds, two indptr words per valid seed and the valid rows'
+    capped neighbor ids read once, the table and the mask written once;
+    operations: per seed the INVALID test and the degree, per slot
+    ``k < deg`` and ``off + k``.  Beside the kernel, the parent design's
+    separate mask op (``nbr != INVALID``) at the same shape, by graph
+    replay (``extra_mask_op_ms``)."""
+    import torch
+    from repro_torch.core.graph import INVALID
+    from repro_torch.kernels.frontier_gather import (
+        frontier_gather,
+        frontier_gather_cuda,
+        frontier_gather_ref,
+    )
+
+    D = g.max_degree
+    n = seeds.shape[0]
+    nbr, mask = frontier_gather_cuda(g.indptr, g.indices, seeds, D)
+    want = frontier_gather_ref(g.indptr, g.indices, seeds, D)
+    for name, a, b in (("table", nbr, want[0]), ("mask", mask, want[1])):
+        err = int((a != b).sum())
+        check(err == 0, f"frontier_gather {label} n={n}: {err} {name} entries differ from plain")
+    split = profiled_kernels(lambda: frontier_gather(g.indptr, g.indices, seeds, D))
+    check(len(split) == 1 and split[0][1] == 1 and "frontier_gather" in split[0][2],
+          f"frontier_gather {label} n={n}: not one kernel a call: {split}")
+    valid = seeds != INVALID
+    sv = seeds[valid].long()
+    deg = (g.indptr[sv + 1] - g.indptr[sv]).clamp(max=D)
+    return dict(
+        shape=f"{label}: n={n} D={D} valid seeds={int(valid.sum())} slots={int(deg.sum())}",
+        bytes=4 * n + 8 * int(valid.sum()) + 4 * int(deg.sum()) + 4 * n * D + n * D,
+        ops=2 * n + 2 * n * D, max_abs_err=max(max_abs_err(nbr, want[0]),
+                                               max_abs_err(mask, want[1])),
+        paths=paths, per=per, extra_split=kernel_split(split),
+        extra_mask_op_ms=graph_ms(lambda: nbr != INVALID),
+        **timings(lambda: frontier_gather_cuda(g.indptr, g.indices, seeds, D),
+                  lambda: frontier_gather_ref(g.indptr, g.indices, seeds, D)),
+    )
+
+
 def phase1_train(engine) -> dict:
     """Every kernel of the training path against its plain version at the
     path's shapes: the inputs come from step 0's plan of ``engine`` (PE
@@ -482,7 +522,6 @@ def phase1_train(engine) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.graph import INVALID
-    from repro_torch.kernels.frontier_gather import frontier_gather_cuda, frontier_gather_ref
     from repro_torch.kernels.gather import gather_cuda, gather_ref
 
     rng = np.random.default_rng(SEED + 2)
@@ -493,29 +532,17 @@ def phase1_train(engine) -> dict:
     train = ["train", "train_gat"]
     out = {}
 
-    # the neighbor expansion of PE 0's deepest owned frontier
-    deep = plan.layers[-1]
-    seeds = deep.seeds[0].contiguous()
-    D = g.max_degree
-    got = frontier_gather_cuda(g.indptr, g.indices, seeds, D)
-    want, _ = frontier_gather_ref(g.indptr, g.indices, seeds, D)
-    check(torch.equal(got, want), "frontier_gather (training shape): differs from plain")
-    mae = max_abs_err(got, want)
-    n = seeds.shape[0]
-    valid = seeds != INVALID
-    sv = seeds[valid].long()
-    deg = (g.indptr[sv + 1] - g.indptr[sv]).clamp(max=D)
-    out["frontier_gather"] = [dict(
-        shape=f"n={n} D={D}", bytes=4 * n + 8 * int(valid.sum()) + 4 * int(deg.sum()) + 4 * n * D,
-        ops=2 * n + 2 * n * D, max_abs_err=mae, paths=train, per=per_pe,
-        **timings(lambda: frontier_gather_cuda(g.indptr, g.indices, seeds, D),
-                  lambda: frontier_gather_ref(g.indptr, g.indices, seeds, D)),
-    )]
+    # the neighbor expansion of PE 0's owned frontier at every hop (one
+    # neighbor_table call per hop per PE: 4 * L launches a step)
+    out["frontier_gather"] = [
+        frontier_row(g, layer.seeds[0].contiguous(), train, per_pe, f"layer {l}")
+        for l, layer in enumerate(plan.layers)
+    ]
 
     # the 7 dedups of a step on PE 0 (build_cooperative_minibatch), ids
     # rebuilt from the plan: the local seeds; per hop, the frontier with its
     # sampled neighbors, and the ids peers request here
-    dev = seeds.device
+    dev = plan.layers[0].seeds.device
     caps = engine.caps
     dedups = [(torch.from_numpy(engine.seed_batch(0)[0]).to(dev), caps.caps[0], "seeds")]
     L = len(plan.layers)
@@ -608,7 +635,8 @@ def dedup_row(ids, cap: int, paths: list, per: str, label: str) -> dict:
                   lambda: torch.unique(s, sorted=True, return_inverse=True), calls=calls,
                   library_syncs=True),
     )
-    row["extra_split"] = kernel_split(lambda: unique_compact_cuda(s, cap, order))
+    row["extra_split"] = kernel_split(
+        profiled_kernels(lambda: unique_compact_cuda(s, cap, order)))
     return row
 
 
@@ -781,7 +809,8 @@ def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: b
         shape=shape, bytes=n * w + 4 * nnz + 4 * d * rows_hit + 4 * S * d, ops=nnz * d,
         max_abs_err=err, paths=paths if backward_on_path else [], per=per,
         extra_longest_run=longest,
-        extra_split=kernel_split(lambda: spmm_backward_cuda(g, idx, mask, S, False)),
+        extra_split=kernel_split(profiled_kernels(
+            lambda: spmm_backward_cuda(g, idx, mask, S, False))),
         **timings(lambda: spmm_backward_cuda(g, idx, mask, S, False),
                   lambda: spmm_backward_ref(g, idx, mask, S, False),
                   lambda: torch.autograd.grad(bag, leaf, g, retain_graph=True),
@@ -956,6 +985,12 @@ def profile_serve(server, trace) -> None:
           f"store.clock_access {spans.get(SPANS[1], 0.0):.3f}")
     for dev_us, count, key in stats[:12]:
         print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
+    groups = []
+    for name, parts in SERVE_PROFILE_GROUPS.items():
+        hit = [(us, c) for us, c, key in stats if any(p in key for p in parts)]
+        groups.append(f"{name} {sum(us for us, _ in hit) / 1e3 / nb:.5f} "
+                      f"({sum(c for _, c in hit) / nb:g} kernels)")
+    print(f"phase2 profile device ms per batch over {nb} batches: " + ", ".join(groups))
 
 
 # --------------------------------------------------------------------------
@@ -1091,6 +1126,7 @@ def phase_coo(plan) -> dict:
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
 # memset (two wrappers zero their scratch with one; so do other ops)
 PROFILE_GROUPS = {
+    "frontier_gather": ("frontier_gather_vec_kernel", "frontier_gather_any_kernel"),
     "unique_compact": ("unique_compact_kernel",),
     "spmm_forward": ("spmm_fwd_kernel",),
     "spmm_backward": ("bwd_count_kernel", "bwd_place_kernel", "bwd_rows_kernel",
@@ -1100,6 +1136,11 @@ PROFILE_GROUPS = {
     "every torch.sort": ("RadixSort", "SortKVInPlace"),
     "every memset": ("Memset",),
 }
+# the serving path's plan and cache kernels, by name in a profile
+SERVE_PROFILE_GROUPS = {
+    "frontier_gather": PROFILE_GROUPS["frontier_gather"],
+    "tag_probe": ("tag_probe_kernel", "tag_probe_any_kernel"),
+}
 
 
 def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
@@ -1108,11 +1149,14 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     ``train_gnn`` runs) under torch.profiler, the kernels that take the
     device time, the device ms per step of ``PROFILE_GROUPS``, beside the
     card run's plan ms per step (``plan_ms``, its warm steps 1..), and the
-    host time in the LABOR variates."""
+    host time in the LABOR variates.  A step calls ``Graph.neighbor_table``
+    once per hop per PE; each call must make one ``frontier_gather``
+    launch (the wrapper's counter) and one CUDA kernel (the profile)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import MinibatchEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.gnn import init_gnn
     from repro_torch.train import adam_init, train_step
 
@@ -1122,6 +1166,7 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     labels = torch.as_tensor(tds.labels).cuda()
     opt = adam_init(list(model.parameters()))
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for step in range(tc.num_steps, tc.num_steps + PROFILE_STEPS):
@@ -1130,6 +1175,15 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     stats = cuda_kernel_us(prof)
+    fg_kernels = sum(c for _, c, key in stats
+                     if any(p in key for p in PROFILE_GROUPS["frontier_gather"]))
+    calls = tc.num_pes * gnn_cfg.num_layers * PROFILE_STEPS
+    fg_launches = LAUNCHES.get("frontier_gather", 0)
+    print(f"{tag} profile: {fg_launches} frontier_gather launches (counter) and {fg_kernels} "
+          f"CUDA kernels (profile) for {calls} neighbor_table calls ({tc.num_pes} PEs x "
+          f"{gnn_cfg.num_layers} hops x {PROFILE_STEPS} steps)")
+    check(calls == fg_launches == fg_kernels,
+          "frontier_gather: not one launch and one CUDA kernel per neighbor_table call")
     busy_ms = sum(d for d, _, _ in stats) / 1e3
     rng_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
                  if ev.key == SPANS[0] and ev.device_type == DeviceType.CPU) / 1e3

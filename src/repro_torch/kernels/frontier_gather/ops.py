@@ -1,7 +1,8 @@
 """Public wrapper for the masked CSR frontier gather.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor
-launches the hand-written kernel ``frontier_gather.cu`` or raises.
+launches the hand-written kernel ``frontier_gather.cu`` or raises.  The
+kernel writes the neighbor table and its mask in one launch.
 """
 from __future__ import annotations
 
@@ -10,25 +11,25 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.frontier_gather.ref import frontier_gather_ref
 
-_INVALID = 2**31 - 1
-
 
 def frontier_gather_cuda(
     indptr: torch.Tensor, indices: torch.Tensor, seeds: torch.Tensor,
     max_degree: int,
-) -> torch.Tensor:
-    """(n, max_degree) int32 neighbor table from the CUDA kernel."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nbr (n, max_degree) int32, mask (n, max_degree) bool) from one
+    launch of the CUDA kernel."""
     _build.require_cuda_int32(
         "frontier_gather", indptr=indptr, indices=indices, seeds=seeds
     )
     (n,) = seeds.shape
-    out = torch.empty((n, max_degree), dtype=torch.int32, device=seeds.device)
+    nbr = torch.empty((n, max_degree), dtype=torch.int32, device=seeds.device)
+    mask = torch.empty((n, max_degree), dtype=torch.bool, device=seeds.device)
     if n * max_degree:
         _build.launch(
             "frontier_gather", "frontier_gather_launch",
-            indptr, indices, seeds, out, n, max_degree,
+            indptr, indices, seeds, nbr, mask, n, max_degree,
         )
-    return out
+    return nbr, mask
 
 
 def frontier_gather(
@@ -42,5 +43,4 @@ def frontier_gather(
         return frontier_gather_ref(indptr, indices, seeds, max_degree)
     if seeds.device.type != "cuda":
         raise ValueError(f"frontier_gather: unsupported device {seeds.device}")
-    nbr = frontier_gather_cuda(indptr, indices, seeds.contiguous(), max_degree)
-    return nbr, nbr != _INVALID
+    return frontier_gather_cuda(indptr, indices, seeds.contiguous(), max_degree)

@@ -7,8 +7,11 @@ that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Each kernel must equal its plain torch version bit for bit on the card,
-including overflow, all-INVALID and empty inputs and, for the multi-block
-``unique_compact``, the ``spmm`` forward and backward and
+including overflow, all-INVALID and empty inputs (``frontier_gather`` in
+both its outputs from one launch, at widths that are not multiples of 4
+and rows over the cap; ``tag_probe`` from one launch, also on a tag view
+that is not 16-byte aligned and on sets that hold an id twice) and, for
+the multi-block ``unique_compact``, the ``spmm`` forward and backward and
 ``expand_indptr``, their tile, row and run edges (the ``spmm`` forward's
 floats also as int32 views, so the sign of a zero counts; the backward
 also equals the CPU's plain version and gives the same bits from call to
@@ -78,15 +81,54 @@ def _ids(n, hi, invalid_frac, seed):
     return torch.from_numpy(ids)
 
 
-def test_frontier_gather_matches_plain(cuda):
-    ds = make_recsys(num_users=2048, num_items=512, edges_per_user=6,
-                     feature_dim=8, max_degree=32, seed=1, device=cuda)
-    g = ds.graph
-    for n, frac in [(300, 0.1), (64, 1.0), (0, 0.0), (5000, 0.0)]:
-        seeds = _ids(n, g.num_vertices, frac, n).to(cuda)
-        got = frontier_gather(g.indptr, g.indices, seeds, g.max_degree)
-        want = frontier_gather_ref(g.indptr, g.indices, seeds, g.max_degree)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), n
+def _frontier_case(case, dev):
+    """(indptr, indices, seeds, D) of one ``frontier_gather`` case on ``dev``."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith("recsys"):  # n and INVALID share on a user-item graph
+        _, n, frac = case.split("-")
+        g = make_recsys(num_users=2048, num_items=512, edges_per_user=6,
+                        feature_dim=8, max_degree=32, seed=1, device=dev).graph
+        return g.indptr, g.indices, _ids(int(n), g.num_vertices, float(frac), int(n)).to(dev), \
+            g.max_degree
+    if case.startswith("D="):  # a graph built with that max_degree
+        D = int(case[2:])
+        g = rmat_graph(scale=10, edge_factor=8, max_degree=D, seed=D, device=dev)
+        assert g.max_degree == D
+        return g.indptr, g.indices, _ids(1000, g.num_vertices, 0.1, D).to(dev), D
+    V, D = 500, 32
+    counts = rng.integers(0, 100 if case == "over-cap" else 40, V)
+    if case == "no-edges":
+        counts[:] = 0
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    indices = rng.integers(0, V, int(indptr[-1])).astype(np.int32)
+    n = {"all-invalid": 777, "n=0": 0}.get(case, 600)
+    seeds = _ids(n, V, 1.0 if case == "all-invalid" else 0.1, n).to(dev)
+    if case == "odd-offset-view":  # seeds 4 bytes past an allocation's start
+        buf = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        buf[1:] = seeds
+        seeds = buf[1:]
+        assert seeds.data_ptr() % 8 == 4
+    if case == "over-cap":
+        assert counts.max() > D
+    return torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev), seeds, D
+
+
+@pytest.mark.parametrize("case", [
+    "recsys-300-0.1", "recsys-64-1.0", "recsys-0-0.0", "recsys-5000-0.0",
+    "D=3", "D=7", "D=32", "D=64", "all-invalid", "n=0", "over-cap", "no-edges",
+    "odd-offset-view",
+])
+def test_frontier_gather_matches_plain(cuda, case):
+    """Both outputs (the table and its mask) from one launch, equal to the
+    plain version on the card and on the CPU."""
+    indptr, indices, seeds, D = _frontier_case(case, cuda)
+    reset_launches()
+    got = frontier_gather(indptr, indices, seeds, D)
+    assert LAUNCHES.get("frontier_gather", 0) == (1 if seeds.numel() else 0)
+    want = frontier_gather_ref(indptr, indices, seeds, D)
+    assert got[1].dtype == torch.bool and all(torch.equal(a, b) for a, b in zip(got, want))
+    cpu = frontier_gather_ref(indptr.cpu(), indices.cpu(), seeds.cpu(), D)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
     torch.cuda.synchronize()
 
 
@@ -170,13 +212,66 @@ def test_unique_compact_tiles_match_plain(cuda, case):
     torch.cuda.synchronize()
 
 
-def test_tag_probe_matches_plain(cuda):
-    rng = np.random.default_rng(1)
-    for S, W, n in [(256, 8, 4000), (64, 1, 100), (16, 4, 0)]:
-        tags = torch.from_numpy(rng.integers(0, 99, (S, W)).astype(np.int32)).to(cuda)
-        sets = torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(cuda)
-        ids = torch.from_numpy(rng.integers(-1, 99, n).astype(np.int32)).to(cuda)
-        assert torch.equal(tag_probe(tags, sets, ids), probe_ref(tags, sets, ids))
+def _probe_case(case):
+    """(tags, sets, ids) numpy arrays of one ``tag_probe`` case.  The three
+    ``S=..-W=..-n=..`` cases draw, in turn from one generator, dense ids in
+    0..98 (sets often hold an id twice); the others plant 50% hits among
+    sparse ids, and a ``duplicates`` case copies each set's first W // 2
+    tags into its last W // 2 ways."""
+    dense = [(256, 8, 4000), (64, 1, 100), (16, 4, 0)]
+    if case in [f"S={S}-W={W}-n={n}" for S, W, n in dense]:
+        rng = np.random.default_rng(1)
+        for S, W, n in dense:
+            tags = rng.integers(0, 99, (S, W)).astype(np.int32)
+            sets = rng.integers(0, S, n).astype(np.int32)
+            ids = rng.integers(-1, 99, n).astype(np.int32)
+            if case == f"S={S}-W={W}-n={n}":
+                return tags, sets, ids
+    rng = np.random.default_rng(len(case))
+    S, n = 512, 0 if case == "n=0" else 3000
+    W = int(case.split("=")[-1]) if "W=" in case else 8
+    tags = rng.integers(0, 5000, (S, W)).astype(np.int32)
+    tags[rng.random((S, W)) < 0.3] = INVALID
+    if case.startswith("duplicates"):
+        tags[:, W - W // 2:] = tags[:, :W // 2]
+    sets = rng.integers(0, S, n).astype(np.int32)
+    ids = rng.integers(0, 5000, n).astype(np.int32)
+    hit = rng.random(n) < 0.5
+    ids[hit] = tags[sets[hit], rng.integers(0, W, int(hit.sum()))]
+    ids[rng.random(n) < 0.2] = -1
+    if case == "minus-one-ids":
+        ids[:] = -1
+    return tags, sets, ids
+
+
+@pytest.mark.parametrize("case", [
+    "S=256-W=8-n=4000", "S=64-W=1-n=100", "S=16-W=4-n=0",
+    "W=1", "W=3", "W=4", "W=8", "W=16", "duplicates", "duplicates-W=3",
+    "duplicates-W=16", "duplicates-offset-view-W=8", "minus-one-ids",
+    "offset-view-W=8", "offset-view-W=4", "offset-view-W=3", "n=0",
+])
+def test_tag_probe_matches_plain(cuda, case):
+    """The first matching way, from one launch, equal to the plain version
+    on the card and on the CPU; a tag view that is not 16-byte aligned
+    takes the generic kernel, and a set holding an id twice gives the
+    first way."""
+    tags_np, sets_np, ids_np = _probe_case(case)
+    tags = torch.from_numpy(tags_np).to(cuda)
+    if "offset-view" in case:  # tag rows 4 bytes past a 16-byte boundary
+        buf = torch.zeros(tags.numel() + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = tags.reshape(-1)
+        tags = buf[1:].view(tags.shape)
+        assert tags.data_ptr() % 16 == 4
+    sets, ids = torch.from_numpy(sets_np).to(cuda), torch.from_numpy(ids_np).to(cuda)
+    reset_launches()
+    got = tag_probe(tags, sets, ids)
+    assert LAUNCHES.get("tag_probe", 0) == (1 if len(ids_np) else 0)
+    assert torch.equal(got, probe_ref(tags, sets, ids))
+    assert torch.equal(got.cpu(), probe_ref(*(torch.from_numpy(a) for a in
+                                              (tags_np, sets_np, ids_np))))
+    if case.startswith("duplicates"):  # hits on a copied tag, never its second way
+        h = tags_np.shape[1] // 2
+        assert bool(((got >= 0) & (got < h)).any()) and bool((got < tags_np.shape[1] - h).all())
     torch.cuda.synchronize()
 
 

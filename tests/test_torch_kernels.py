@@ -24,6 +24,7 @@ import torch
 import jax
 
 from repro.core import frontier as jfrontier
+from repro.data.synthetic import rmat_graph
 from repro.kernels.expand_indptr.kernel import expand_indptr_pallas
 from repro.kernels.expand_indptr.ref import expand_indptr_ref as j_expand_ref
 from repro.kernels.gather.kernel import paged_gather_pallas
@@ -78,11 +79,26 @@ def _seeds(n, V, invalid_frac, seed):
     return s
 
 
-@pytest.mark.parametrize("n,invalid_frac,seed", [
-    (192, 0.15, 3), (64, 0.0, 4), (256, 1.0, 5), (0, 0.0, 6),
-])
-def test_frontier_gather_matches_jax_ref_and_pallas(small_graph, n, invalid_frac, seed):
-    g = small_graph
+@pytest.fixture(scope="module")
+def degree7_graph():
+    """A small graph capped at 7 slots a row: a width that is not a
+    multiple of 4, which the CUDA kernel serves with its generic layout."""
+    return rmat_graph(scale=8, edge_factor=8, max_degree=7, seed=1)
+
+
+_FRONTIER_CASES = [  # (graph fixture, n, invalid_frac, seed)
+    ("small", 192, 0.15, 3), ("small", 64, 0.0, 4), ("small", 256, 1.0, 5), ("small", 0, 0.0, 6),
+    ("degree7", 192, 0.15, 7), ("degree7", 64, 0.0, 8), ("degree7", 100, 1.0, 9),
+]
+
+
+@pytest.mark.parametrize(
+    "graph,n,invalid_frac,seed", _FRONTIER_CASES,
+    ids=[("" if g == "small" else f"{g}-") + f"{n}-{f}-{s}" for g, n, f, s in _FRONTIER_CASES],
+)
+def test_frontier_gather_matches_jax_ref_and_pallas(request, graph, n, invalid_frac, seed):
+    g = request.getfixturevalue(f"{graph}_graph")
+    assert graph != "degree7" or g.max_degree == 7
     seeds = _seeds(n, g.num_vertices, invalid_frac, seed)
     indptr, indices = np.asarray(g.indptr), np.asarray(g.indices)
     nbr, mask = frontier_gather_ref(_t(indptr), _t(indices), _t(seeds), g.max_degree)
@@ -171,6 +187,8 @@ def test_unique_compact_empty():
     (64, 4, 512, 32, 256, 31),
     (128, 8, 1024, 64, 512, 32),
     (32, 1, 256, 32, 256, 33),
+    (64, 3, 512, 32, 256, 34),
+    (32, 16, 512, 32, 256, 35),
 ])
 def test_tag_probe_matches_jax_ref_and_pallas(S, W, n, page, block_n, seed):
     rng = np.random.default_rng(seed)
