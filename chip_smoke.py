@@ -30,7 +30,16 @@ Phases:
    the device, as ``torch.unique`` does: then by its profiled kernel sum,
    beside the kernel's own; the method is printed with each time), and
    its bound: the larger of its bytes over the memory rate and its
-   operations over the scalar rate; the ``seg_softmax`` rows print the
+   operations over the scalar rate.  ``spmm``'s mean mode (forward and
+   backward) gets rows of its own at the R-GCN path's shapes (phase 6's
+   step-0 plan, PE 0, relation 0's slots, d = 1,024, 1,024, 768; the
+   backward at plan layers 0 and 1) and at GraphSAGE's plan layer 2 (phase
+   7, d = 64).  ``frontier_gather``, ``unique_compact`` and ``gather`` get
+   rows at the shapes of phases 6 and 7 as at the GCN's: step 0's plan of
+   the R-GCN (its ``gather`` at d = 768) and of GraphSAGE with NS, one
+   ``plan_at(0)`` each with ``rw`` and ``full``, and the work curves' NS
+   plan at batch 1,024 (a row on the same inputs as an earlier row names
+   the new path there).  The ``seg_softmax`` rows print the
    replaced design's time beside the new one ("was"), the
    ``frontier_gather`` rows the replaced design's separate mask op
    (``nbr != INVALID``) by graph replay at the same shape.  The two deepest
@@ -82,6 +91,26 @@ Phases:
    block of every layer of phase 4's step-0 card plan, counters zeroed
    right before; ``expand_indptr`` must have launched and every output
    must equal the CPU's ``layer_to_coo`` on the same plan.
+6. Train the R-GCN at the JAX package's mag240M widths
+   (``src/repro/launch/gnn_dryrun.py``'s ``SCALE_MAG``: 768 input
+   features, hidden 1,024, 153 classes, 3 layers, 4 relations) with phase
+   3's ``TrainConfig`` on phase 3's graph with 4 uniform relation ids
+   (``rmat_graph(..., num_edge_types=4)``), float32, TF32 off: its 4
+   relation means a layer go through ``spmm``'s mean mode, forward and
+   backward (checked: 48 forward and 32 backward launches a step).  4
+   steps on the card, timed and profiled as in phase 3; the CPU runs the
+   first 2 (its R-GCN step takes tens of seconds), whose plans (with their
+   relation ids), ``plan_stats`` and losses must agree with the card's.
+   In every training phase the initial weights must be equal on both
+   devices and each parameter's step-0 gradient agree within ``1e-5`` of
+   its largest entry (``check_gradients``); the R-GCN's final weights are
+   not compared (the CPU stops at step 2).
+7. Phase 3's graph again: GraphSAGE (phase 3's widths) sampled by NS,
+   trained and checked as in phase 3; one cooperative ``plan_at(0)`` each
+   with the ``rw`` and ``full`` samplers, every integer leaf equal to the
+   CPU's; and the work curves of Thm 3.1/3.2 (``measure_work_curve``, 3
+   layers, 2 trials at batch sizes 64, 256 and 1,024) for ``ns``,
+   ``labor0``, ``labor*`` and ``rw``, counts equal to the CPU's.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, at its largest shape on a path; the last line is ``{"ok": true,
@@ -110,8 +139,9 @@ SCALAR_OPS_PER_S = 67e12
 ATOL = 1e-4
 STEADY_REQUESTS, STEADY_RPS = 4000, 1000.0
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-4  # losses; final weights
+GRAD_RTOL = 1e-5  # step-0 gradients, of each parameter's largest |g|
 TRAIN_STEPS, PROFILE_STEPS = 4, 2
-SPANS = ("rng.vertex_uniform", "store.clock_access")
+SPANS = ("rng.vertex_uniform", "store.clock_access", "rng.edge_uniform")
 KERNELS = {
     "frontier_gather": {
         "source": "src/repro_torch/kernels/frontier_gather/frontier_gather.cu",
@@ -150,14 +180,26 @@ KERNELS = {
         "replaces": "src/repro/kernels/expand_indptr/kernel.py:33",
     },
 }
-# the kernels each path must launch
+# the kernels each path must launch (R-GCN and GraphSAGE launch spmm in
+# its mean mode only)
 PATH_KERNELS = {
     "serve": ("frontier_gather", "unique_compact", "tag_probe", "spmm"),
     "train": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
     "train_gat": ("frontier_gather", "unique_compact", "gather", "seg_softmax",
                   "seg_softmax_backward"),
     "coo": ("expand_indptr",),
+    "train_rgcn": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "train_sage": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "plan_rw": ("unique_compact",),
+    "plan_full": ("frontier_gather", "unique_compact"),
+    "curves": ("frontier_gather",),
 }
+# the R-GCN of phase 6: the JAX package's mag240M widths
+# (src/repro/launch/gnn_dryrun.py, SCALE_MAG)
+RGCN_CFG = dict(model="rgcn", num_layers=3, in_dim=768, hidden_dim=1024, num_classes=153,
+                num_relations=4)
+RGCN_CPU_STEPS = 2  # the CPU reference's steps for the R-GCN (phase 6)
+CURVE_BATCHES = [64, 256, 1024]
 # seg_softmax against its plain version on the card: the kernel calls CUDA's
 # expf where the plain version calls torch.exp; the backward's bound scales
 # with the largest output gradient
@@ -270,6 +312,20 @@ def profiled_kernels(fn, iters: int = 20) -> list:
         name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
         out.append((us / iters, count / iters, name.group(1) if name else key[:24]))
     return out
+
+
+def launches_per_call(name: str, fn, calls: int = 20) -> float:
+    """Launches of kernel ``name`` per call of ``fn``, by its wrapper's
+    counter.  Beside a profile, which names every kernel a call makes:
+    the card machine's tracer drops some of a run's kernel records (up to
+    6 of 20 calls of one ``frontier_gather``), so its counts are a
+    floor."""
+    from repro_torch.kernels import LAUNCHES
+
+    before = LAUNCHES.get(name, 0)
+    for _ in range(calls):
+        fn()
+    return (LAUNCHES.get(name, 0) - before) / calls
 
 
 def kernel_split(split: list) -> str:
@@ -430,8 +486,10 @@ def phase1(ds, caps, cache_rows: int) -> dict:
     want = probe_ref(tags_t, sets, ids_t)
     err = int((got != want).sum())
     check(err == 0, f"tag_probe n={n}: {err} entries differ from plain")
-    split = profiled_kernels(lambda: tag_probe_cuda(tags_t, sets, ids_t))
-    check(len(split) == 1 and split[0][1] == 1 and "tag_probe" in split[0][2],
+    call = lambda: tag_probe_cuda(tags_t, sets, ids_t)
+    split = profiled_kernels(call)
+    check(len(split) == 1 and split[0][1] <= 1 and "tag_probe" in split[0][2]
+          and launches_per_call("tag_probe", call) == 1,
           f"tag_probe: not one kernel a call: {split}")
     nbytes = 4 * n * 3 + 4 * W * int(torch.unique(sets).numel())
     # per id: the row address, then one compare per way up to the first match
@@ -496,8 +554,10 @@ def frontier_row(g, seeds, paths: list, per: str, label: str) -> dict:
     for name, a, b in (("table", nbr, want[0]), ("mask", mask, want[1])):
         err = int((a != b).sum())
         check(err == 0, f"frontier_gather {label} n={n}: {err} {name} entries differ from plain")
-    split = profiled_kernels(lambda: frontier_gather(g.indptr, g.indices, seeds, D))
-    check(len(split) == 1 and split[0][1] == 1 and "frontier_gather" in split[0][2],
+    call = lambda: frontier_gather(g.indptr, g.indices, seeds, D)
+    split = profiled_kernels(call)
+    check(len(split) == 1 and split[0][1] <= 1 and "frontier_gather" in split[0][2]
+          and launches_per_call("frontier_gather", call) == 1,
           f"frontier_gather {label} n={n}: not one kernel a call: {split}")
     valid = seeds != INVALID
     sv = seeds[valid].long()
@@ -520,62 +580,18 @@ def phase1_train(engine) -> dict:
     0's frontiers and index tables) and features from a numpy seed.  Each
     row names the paths that run its shape and its launches per step."""
     import numpy as np
-    import torch
-    from repro_torch.core.graph import INVALID
-    from repro_torch.kernels.gather import gather_cuda, gather_ref
 
     rng = np.random.default_rng(SEED + 2)
     plan = engine.plan_at(0)
-    g = engine.graph
     P = plan.seed_ids.shape[0]
     per_pe = f"{P}/step"  # one launch per PE
     train = ["train", "train_gat"]
-    out = {}
-
-    # the neighbor expansion of PE 0's owned frontier at every hop (one
-    # neighbor_table call per hop per PE: 4 * L launches a step)
-    out["frontier_gather"] = [
-        frontier_row(g, layer.seeds[0].contiguous(), train, per_pe, f"layer {l}")
-        for l, layer in enumerate(plan.layers)
-    ]
-
-    # the 7 dedups of a step on PE 0 (build_cooperative_minibatch), ids
-    # rebuilt from the plan: the local seeds; per hop, the frontier with its
-    # sampled neighbors, and the ids peers request here
-    dev = plan.layers[0].seeds.device
-    caps = engine.caps
-    dedups = [(torch.from_numpy(engine.seed_batch(0)[0]).to(dev), caps.caps[0], "seeds")]
-    L = len(plan.layers)
-    for l, layer in enumerate(plan.layers):
-        S_l, tilde = layer.seeds[0], layer.tilde_ids[0]
-        nbr = torch.where(layer.mask[0], tilde[layer.nbr_idx[0].clamp(min=0).long()], INVALID)
-        dedups.append((torch.cat([S_l, nbr.reshape(-1)]), caps.tilde_caps[l], f"hop {l}"))
-        nxt = plan.layers[l + 1].seeds[0] if l + 1 < L else plan.input_ids[0]
-        req_idx = layer.req_idx[0]
-        req = torch.where(req_idx >= 0, nxt[req_idx.clamp(min=0).long()], INVALID)
-        dedups.append((req.reshape(-1), caps.caps[l + 1], f"requests {l}"))
-    out["unique_compact"] = [dedup_row(ids.contiguous(), cap, train, per_pe, label)
-                             for ids, cap, label in dedups]
+    out = {"frontier_gather": [], "unique_compact": [], "gather": []}
+    dedups = plan_rows(out, engine, plan, train, per_pe)
     deepest = sorted(dedups, key=lambda t: -t[0].numel())[:2]
     dedup_whole(deepest)
-
-    # gather: the feature table and all PEs' owned input ids of one step
-    table = engine.store.features
-    ids = plan.input_ids.reshape(-1).contiguous()
-    V, d = table.shape
-    n = ids.shape[0]
-    got, want = gather_cuda(table, ids), gather_ref(table, ids)
-    check(torch.equal(got, want), f"gather n={n}: differs from plain")
-    valid = ids[ids != INVALID]
-    rows_read = int(torch.unique(valid).numel())
-    clamped = ids.clamp(0, V - 1)
-    out["gather"] = [dict(
-        shape=f"V={V} d={d} n={n} ({int(valid.numel())} valid)",
-        bytes=4 * n + 4 * d * rows_read + 4 * n * d, ops=n, max_abs_err=float_err(got, want),
-        paths=train, per="1/step",
-        **timings(lambda: gather_cuda(table, ids), lambda: gather_ref(table, ids),
-                  lambda: torch.index_select(table, 0, clamped), calls=5),
-    )]
+    add_row(out, "gather", gather_row(engine, plan, train, "1/step"))
+    caps, L = engine.caps, len(plan.layers)
 
     # spmm at every layer's (S~ rows, owned rows, d_in) for PE 0: the GCN
     # runs the forward at every layer, the backward where its input needs a
@@ -602,6 +618,201 @@ def phase1_train(engine) -> dict:
                                   "(warp per head)"))
         coo.append(dict(expand_indptr_row(layer.mask[0]), paths=["coo"], per="1/coo layer"))
     out["seg_softmax"], out["seg_softmax_backward"], out["expand_indptr"] = fwd, bwd, coo
+    report_bounds(out)
+    return out
+
+
+# every phase-1 row by kernel and inputs (shared_row)
+ROWS_BY_INPUT: list = []
+
+
+def same_inputs(a: tuple, b: tuple) -> bool:
+    import torch
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            return False
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return False
+        elif (x.shape != y.shape or x.dtype != y.dtype or x.device != y.device
+              or not torch.equal(x, y)):
+            return False
+    return True
+
+
+def shared_row(name: str, inputs: tuple, paths: list, per: str, make):
+    """The row of kernel ``name`` on ``inputs`` (tensors and ints), made by
+    ``make()`` -- unless a row was made on equal inputs before: that row
+    then also names ``paths`` (and their launches ``per``), and this
+    returns None."""
+    for n, ins, row in ROWS_BY_INPUT:
+        if n == name and same_inputs(ins, inputs):
+            row["paths"] = row["paths"] + [p for p in paths if p not in row["paths"]]
+            if per != row["per"]:
+                row["per"] += f"; {per} on {', '.join(paths)}"
+            print(f"phase1 {name} [{row['shape']}]: same inputs on {', '.join(paths)}")
+            return None
+    row = make()
+    ROWS_BY_INPUT.append((name, inputs, row))
+    return row
+
+
+def add_row(out: dict, name: str, row) -> None:
+    if row is not None:
+        out.setdefault(name, []).append(row)
+
+
+def plan_dedups(engine, plan) -> list:
+    """PE 0's 7 dedups of a cooperative plan (build_cooperative_minibatch),
+    ``(ids, cap, label)`` each, the ids rebuilt from the plan: the local
+    seeds; per hop, the frontier with its sampled neighbors, and the ids
+    peers request here."""
+    import torch
+    from repro_torch.core.graph import INVALID
+
+    dev = plan.layers[0].seeds.device
+    caps = engine.caps
+    dedups = [(torch.from_numpy(engine.seed_batch(0)[0]).to(dev), caps.caps[0], "seeds")]
+    L = len(plan.layers)
+    for l, layer in enumerate(plan.layers):
+        S_l, tilde = layer.seeds[0], layer.tilde_ids[0]
+        nbr = torch.where(layer.mask[0], tilde[layer.nbr_idx[0].clamp(min=0).long()], INVALID)
+        dedups.append((torch.cat([S_l, nbr.reshape(-1)]), caps.tilde_caps[l], f"hop {l}"))
+        nxt = plan.layers[l + 1].seeds[0] if l + 1 < L else plan.input_ids[0]
+        req_idx = layer.req_idx[0]
+        req = torch.where(req_idx >= 0, nxt[req_idx.clamp(min=0).long()], INVALID)
+        dedups.append((req.reshape(-1), caps.caps[l + 1], f"requests {l}"))
+    return [(ids.contiguous(), cap, label) for ids, cap, label in dedups]
+
+
+def plan_rows(out: dict, engine, plan, paths: list, per: str, tag: str = "",
+              frontiers: bool = True) -> list:
+    """Rows of ``frontier_gather`` at PE 0's frontier of every layer of the
+    cooperative ``plan`` (if ``frontiers``) and of ``unique_compact`` at
+    PE 0's 7 dedups, added to ``out`` (through :func:`shared_row`);
+    returns the dedups."""
+    g = engine.graph
+    if frontiers:
+        for l, layer in enumerate(plan.layers):
+            seeds = layer.seeds[0].contiguous()
+            add_row(out, "frontier_gather", shared_row(
+                "frontier_gather", (g.indptr, g.indices, seeds), paths, per,
+                lambda: frontier_row(g, seeds, paths, per, f"{tag}layer {l}")))
+    dedups = plan_dedups(engine, plan)
+    for ids, cap, label in dedups:
+        add_row(out, "unique_compact", shared_row(
+            "unique_compact", (ids, cap), paths, per,
+            lambda: dedup_row(ids, cap, paths, per, f"{tag}{label}")))
+    return dedups
+
+
+def gather_row(engine, plan, paths: list, per: str):
+    """``gather`` of all PEs' owned input ids of ``plan`` from ``engine``'s
+    feature table against its plain version, equal bit for bit (through
+    :func:`shared_row`).  Bytes: the ids, each distinct valid row read
+    once, the output written once."""
+    import torch
+    from repro_torch.core.graph import INVALID
+    from repro_torch.kernels.gather import gather_cuda, gather_ref
+
+    table = engine.store.features
+    ids = plan.input_ids.reshape(-1).contiguous()
+
+    def make():
+        V, d = table.shape
+        n = ids.shape[0]
+        got, want = gather_cuda(table, ids), gather_ref(table, ids)
+        check(torch.equal(got, want), f"gather V={V} d={d} n={n}: differs from plain")
+        valid = ids[ids != INVALID]
+        rows_read = int(torch.unique(valid).numel())
+        clamped = ids.clamp(0, V - 1)
+        err = float_err(got, want)
+        del got, want
+        # 5 calls a graph at d = 64; fewer for a wider table (3.2 GB an output at d = 768)
+        calls = max(1, 5 * 64 // d)
+        return dict(
+            shape=f"V={V} d={d} n={n} ({int(valid.numel())} valid)",
+            bytes=4 * n + 4 * d * rows_read + 4 * n * d, ops=n, max_abs_err=err,
+            paths=paths, per=per,
+            **timings(lambda: gather_cuda(table, ids), lambda: gather_ref(table, ids),
+                      lambda: torch.index_select(table, 0, clamped), calls=calls),
+        )
+
+    return shared_row("gather", (table, ids), paths, per, make)
+
+
+def phase1_paths(engine, rgcn_engine, sage_engine, tds, tc) -> dict:
+    """``frontier_gather``, ``unique_compact`` and ``gather`` at the shapes
+    of phases 6 and 7, as phase 1 holds the GCN's: step 0's plan of the
+    R-GCN (its gather at d = 768) and of GraphSAGE with NS, one
+    cooperative ``plan_at(0)`` with ``rw`` (no neighbor table) and with
+    ``full``, and the work curves' NS plan at the largest batch (first
+    trial).  A row on the same inputs as an earlier row names the new path
+    there instead."""
+    from repro_torch.core.samplers import make_sampler
+    from repro_torch.core.theory import sample_work_curve
+    from repro_torch.engine import MinibatchEngine
+
+    out = {"frontier_gather": [], "unique_compact": [], "gather": []}
+    P = tc.num_pes
+    for path, eng, tag in (("train_rgcn", rgcn_engine, "rgcn "), ("train_sage", sage_engine, "ns ")):
+        plan = eng.plan_at(0)
+        plan_rows(out, eng, plan, [path], f"{P}/step", tag)
+        add_row(out, "gather", gather_row(eng, plan, [path], "1/step"))
+    for sampler in ("rw", "full"):
+        eng = MinibatchEngine.from_config(
+            tds.graph, dataclasses.replace(tc, sampler=sampler).engine_config(3), dataset=tds,
+            device="cuda")
+        plan_rows(out, eng, eng.plan_at(0), [f"plan_{sampler}"], f"{P}/plan", f"{sampler} ",
+                  frontiers=sampler != "rw")
+    g = engine.graph
+    curve = sample_work_curve(g, make_sampler("ns", fanout=10, backend="fused"), CURVE_BATCHES,
+                              num_layers=3, trials=2)
+    mb = next(mb for bs, _, mb in curve if bs == CURVE_BATCHES[-1])
+    for l, layer in enumerate(mb.layers):
+        seeds = layer.seeds.contiguous()
+        add_row(out, "frontier_gather", shared_row(
+            "frontier_gather", (g.indptr, g.indices, seeds), ["curves"], "1/plan layer",
+            lambda: frontier_row(g, seeds, ["curves"], "1/plan layer",
+                                 f"ns curve batch {CURVE_BATCHES[-1]} layer {l}")))
+    report_bounds(out)
+    return out
+
+
+def phase1_mean(rgcn_engine, sage_engine) -> dict:
+    """``spmm``'s mean mode, forward and backward, against its plain
+    versions at the shapes of the R-GCN and GraphSAGE paths: PE 0's index
+    table of every layer of step 0's plan of each engine.  R-GCN: relation
+    0's slots (``mask & (etypes == 0)``, one of its 4 calls a layer) at d =
+    1,024, 1,024 and 768 (plan layers 0, 1, 2), the backward on the path at
+    layers 0 and 1; GraphSAGE: plan layer 2 (d = 64), its backward off the
+    path, as the GCN's."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    out = {"spmm": [], "spmm_backward": []}
+    plan, caps, cfg = rgcn_engine.plan_at(0), rgcn_engine.caps, RGCN_CFG
+    P, L = plan.seed_ids.shape[0], len(plan.layers)
+    per = f"{P * cfg['num_relations']}/step"  # one call a relation per PE
+    for l, layer in enumerate(plan.layers):
+        d = cfg["in_dim"] if l == L - 1 else cfg["hidden_dim"]
+        mask = layer.mask[0] & (layer.etypes[0] == 0)
+        f, b = spmm_rows(layer.nbr_idx[0], mask, caps.tilde_caps[l], d, rng,
+                         paths=["train_rgcn"], per=per, backward=l < L - 1,
+                         label=f"rgcn layer {l} relation 0", mean=True)
+        out["spmm"].append(f)
+        if b is not None:
+            out["spmm_backward"].append(b)
+    plan, caps = sage_engine.plan_at(0), sage_engine.caps
+    l = len(plan.layers) - 1
+    f, b = spmm_rows(plan.layers[l].nbr_idx[0], plan.layers[l].mask[0], caps.tilde_caps[l],
+                     64, rng, paths=["train_sage"], per=f"{P}/step",
+                     backward_on_path=False, label=f"sage layer {l}", mean=True)
+    out["spmm"].append(f)
+    out["spmm_backward"].append(b)
     report_bounds(out)
     return out
 
@@ -748,15 +959,18 @@ def float_err(got, want) -> float:
 
 
 def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: bool = True,
-              backward_on_path: bool = True, label: str = ""):
+              backward_on_path: bool = True, label: str = "", mean: bool = False):
     """``spmm`` (and its backward) against the plain versions on one
     layer's index tables ``(n, w)`` over ``S`` source rows of width ``d``
     (values from ``rng``), equal bit for bit in both modes, and the backward
-    equal to itself over two calls; rows with timings and bounds.  Bytes
-    count what the function needs: the mask, the index of each masked slot,
-    each source row a masked slot reads (forward) or each gradient row that
-    has a masked slot (backward), and the output written once.  ``paths``
-    run the forward at this shape; the backward too if ``backward_on_path``."""
+    equal to itself over two calls; rows with timings and bounds of the sum
+    mode, or of the mean mode if ``mean`` (then the library yardstick's
+    per-slot weights are ``1 / max(deg, 1)``).  Bytes count what the
+    function needs, in either mode: the mask, the index of each masked
+    slot, each source row a masked slot reads (forward) or each gradient
+    row that has a masked slot (backward), and the output written once.
+    ``paths`` run the forward at this shape; the backward too if
+    ``backward_on_path``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -776,30 +990,33 @@ def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: b
     touched = int(torch.unique(keys).numel())
     longest = int(torch.bincount(keys).max()) if nnz else 0
     rows_hit = int(mask.any(dim=1).sum())
-    shape = f"{label + ': ' if label else ''}S={S} n={n} w={w} d={d} nnz={nnz}"
+    shape = (f"{label + ': ' if label else ''}S={S} n={n} w={w} d={d} nnz={nnz}"
+             + (" mean" if mean else ""))
     err = 0.0
-    for mean in (False, True):
-        got, want = spmm_cuda(src, idx, mask, mean), spmm_ref(src, idx, mask, mean)
-        check(torch.equal(got, want), f"spmm {shape} mean={mean}: differs from plain")
+    for mode in (False, True):  # both modes checked, ``mean``'s timed
+        got, want = spmm_cuda(src, idx, mask, mode), spmm_ref(src, idx, mask, mode)
+        check(torch.equal(got, want), f"spmm {shape} mean={mode}: differs from plain")
         err = max(err, float_err(got, want))
     bag_idx, bag_w = idx.clamp(0, S - 1), mask.float()  # embedding_bag's inputs
+    if mean:
+        bag_w = bag_w / bag_w.sum(dim=1, keepdim=True).clamp(min=1)
     fwd = dict(
         shape=shape, bytes=n * w + 4 * nnz + 4 * d * touched + 4 * n * d, ops=nnz * d,
         max_abs_err=err, paths=paths, per=per, extra_rows_hit=rows_hit,
-        **timings(lambda: spmm_cuda(src, idx, mask, False),
-                  lambda: spmm_ref(src, idx, mask, False),
+        **timings(lambda: spmm_cuda(src, idx, mask, mean),
+                  lambda: spmm_ref(src, idx, mask, mean),
                   lambda: F.embedding_bag(bag_idx, src, mode="sum", per_sample_weights=bag_w),
                   calls=5),
     )
     if not backward:
         return fwd, None
     err = 0.0
-    for mean in (False, True):
-        got = spmm_backward_cuda(g, idx, mask, S, mean)
-        want = spmm_backward_ref(g, idx, mask, S, mean)
-        check(torch.equal(got, want), f"spmm_backward {shape} mean={mean}: differs from plain")
-        check(torch.equal(spmm_backward_cuda(g, idx, mask, S, mean), got),
-              f"spmm_backward {shape} mean={mean}: two calls differ")
+    for mode in (False, True):
+        got = spmm_backward_cuda(g, idx, mask, S, mode)
+        want = spmm_backward_ref(g, idx, mask, S, mode)
+        check(torch.equal(got, want), f"spmm_backward {shape} mean={mode}: differs from plain")
+        check(torch.equal(spmm_backward_cuda(g, idx, mask, S, mode), got),
+              f"spmm_backward {shape} mean={mode}: two calls differ")
         err = max(err, float_err(got, want))
     with torch.cuda.stream(capture_stream()):  # the backward runs where this forward ran
         leaf = src.clone().requires_grad_()
@@ -810,9 +1027,9 @@ def spmm_rows(idx, mask, S: int, d: int, rng, paths: list, per: str, backward: b
         max_abs_err=err, paths=paths if backward_on_path else [], per=per,
         extra_longest_run=longest,
         extra_split=kernel_split(profiled_kernels(
-            lambda: spmm_backward_cuda(g, idx, mask, S, False))),
-        **timings(lambda: spmm_backward_cuda(g, idx, mask, S, False),
-                  lambda: spmm_backward_ref(g, idx, mask, S, False),
+            lambda: spmm_backward_cuda(g, idx, mask, S, mean))),
+        **timings(lambda: spmm_backward_cuda(g, idx, mask, S, mean),
+                  lambda: spmm_backward_ref(g, idx, mask, S, mean),
                   lambda: torch.autograd.grad(bag, leaf, g, retain_graph=True),
                   calls=5, plain_syncs=True),
     )
@@ -1007,18 +1224,27 @@ def int_leaves(plan) -> dict:
     return out
 
 
-def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False) -> dict:
+def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False,
+                cpu_steps: int | None = None) -> dict:
     """Cooperative training of ``gnn_cfg`` on the card and on the CPU, each
     from ``train_gnn``'s own weights for ``tc.seed`` (the JAX package's);
-    ``path`` names the kernels it must launch.  Returns the launches, the
-    loss gap, the walls and the card's step-0 plan."""
+    ``path`` names the kernels it must launch.  The GCN, GraphSAGE and
+    R-GCN must launch the ``spmm`` forward once a layer per PE and relation
+    each step, the backward once a layer but the last.  The CPU runs the
+    card's first ``cpu_steps`` steps (all by default): their plans and
+    losses must agree, the initial weights be equal and the step-0
+    gradients agree (:func:`check_gradients`); where the CPU ran every
+    step, the final weights within ``TRAIN_ATOL`` too.  Returns the
+    launches, the loss gap, the walls and the card's step-0 plan."""
     import numpy as np
     import torch
     from repro_torch.engine import MinibatchEngine
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.gnn import init_gnn
     from repro_torch.train import train_gnn
 
     L = gnn_cfg.num_layers
+    cpu_steps = cpu_steps or tc.num_steps
     if check_seeds:
         for step in range(tc.num_steps):
             a, b = (MinibatchEngine.from_config(tds.graph, tc.engine_config(L), dataset=tds,
@@ -1028,68 +1254,125 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
         print(f"{tag} seed_batch card vs cpu: equal at steps 0..{tc.num_steps - 1}, "
               f"shape {a.shape}")
 
-    runs, plans, per_step = {}, {"card": [], "cpu": []}, []
+    plans, first, per_step = {"cuda": [], "cpu": []}, {}, []
 
-    def on_card_step(step, plan):
-        plans["card"].append(plan)
-        per_step.append({k: LAUNCHES.get(k, 0) for k in KERNELS})
+    def run(dev: str, steps: int):
+        """``steps`` steps on ``dev`` from ``init_gnn(cfg, tc.seed)`` (the
+        weights ``train_gnn`` draws by default); keeps each step's plan, the
+        initial weights and the step-0 gradient of every parameter (a hook
+        on each, removed after step 0)."""
+        model = init_gnn(gnn_cfg, seed=tc.seed, device=dev)
+        named = list(model.named_parameters())
+        grads = {}
+
+        def keep(i, g):
+            if i not in grads:
+                grads[i] = g.detach().clone()
+
+        hooks = [p.register_hook(functools.partial(keep, i)) for i, (_, p) in enumerate(named)]
+        first[dev] = {"names": [n for n, _ in named],
+                      "init": [p.detach().cpu().numpy().copy() for _, p in named]}
+
+        def on_step(step, plan):
+            plans[dev].append(plan)
+            if dev == "cuda":
+                per_step.append({k: LAUNCHES.get(k, 0) for k in KERNELS})
+            if step == 0:
+                for h in hooks:
+                    h.remove()
+                first[dev]["grad"] = [grads[i].cpu().numpy() for i in range(len(named))]
+
+        return train_gnn(tds, gnn_cfg, dataclasses.replace(tc, num_steps=steps), model=model,
+                         device=dev, stage_times=True, on_step=on_step)
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    runs["card"] = train_gnn(tds, gnn_cfg, tc, device="cuda", stage_times=True,
-                             on_step=on_card_step)
+    card = run("cuda", tc.num_steps)
     card_s = time.perf_counter() - t0
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
     print(f"{tag} card train ({gnn_cfg.model}): {tc.num_steps} steps in {card_s:.2f} s "
           f"(engine set-up included); launches {launches}")
     for k in PATH_KERNELS[path]:
         check(launches[k] > 0, f"kernel {k} was not launched on the {path} path")
+    calls = {"gcn": 1, "sage": 1, "rgcn": gnn_cfg.num_relations}.get(gnn_cfg.model, 0)
+    want = {"spmm": tc.num_pes * L * calls, "spmm_backward": tc.num_pes * (L - 1) * calls}
     prev = {k: 0 for k in KERNELS}
-    for step, (st, cum) in enumerate(zip(runs["card"].stage_ms, per_step)):
+    for step, (st, cum) in enumerate(zip(card.stage_ms, per_step)):
         per = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
         prev = cum
         print(f"{tag} card step {step}: wall {sum(st.values()):.3f} ms = "
               + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
-              + f"; loss {runs['card'].losses[step]:.6f}; launches {per}")
+              + f"; loss {card.losses[step]:.6f}; launches {per}")
+        if calls:
+            got = {k: per.get(k, 0) for k in want}
+            check(got == want, f"step {step}: spmm launches {got}, want {want}")
     print(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     t0 = time.perf_counter()
-    runs["cpu"] = train_gnn(tds, gnn_cfg, tc, device="cpu", stage_times=True,
-                            on_step=lambda step, plan: plans["cpu"].append(plan))
-    print(f"{tag} cpu train (plain path): {time.perf_counter() - t0:.2f} s; per step "
-          + "; ".join(f"{sum(st.values()):.1f} ms" for st in runs["cpu"].stage_ms))
+    cpu = run("cpu", cpu_steps)
+    print(f"{tag} cpu train (plain path, {cpu_steps} steps): {time.perf_counter() - t0:.2f} s; "
+          "per step " + "; ".join(f"{sum(st.values()):.1f} ms" for st in cpu.stage_ms))
 
     entries = differ = 0
-    for step, (a, b) in enumerate(zip(plans["card"], plans["cpu"])):
+    for step, (a, b) in enumerate(zip(plans["cuda"], plans["cpu"])):
         la, lb = int_leaves(a), int_leaves(b)
         check(set(la) == set(lb), f"step {step}: plan leaves {sorted(la)} vs {sorted(lb)}")
         for name in la:
-            check(la[name].dtype == lb[name].dtype, f"step {step} {name}: dtype differs")
+            check(la[name].dtype == lb[name].dtype, f"step {step}: {name}: dtype differs")
             entries += la[name].numel()
             differ += int((la[name].cpu() != lb[name]).sum())
         sa, sb = a.stats(), b.stats()
         check(sa == sb, f"step {step}: plan_stats card {sa} != cpu {sb}")
         print(f"{tag} step {step} plan_stats (equal on card and cpu): {sa}")
-    print(f"{tag} plan leaves card vs cpu: {entries} entries over {tc.num_steps} "
-          f"steps, {differ} differ")
+    print(f"{tag} plan leaves card vs cpu: {entries} entries over {cpu_steps} steps, "
+          f"{differ} differ")
     check(differ == 0, f"{differ} plan entries differ from the CPU build")
 
-    lc, lp = np.asarray(runs["card"].losses), np.asarray(runs["cpu"].losses)
-    check(bool(np.isfinite(lc).all()), f"non-finite losses {lc}")
+    check(bool(np.isfinite(card.losses).all()), f"non-finite losses {card.losses}")
+    lc, lp = np.asarray(card.losses[:cpu_steps]), np.asarray(cpu.losses)
     loss_rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
-    print(f"{tag} losses card {lc.tolist()} cpu {lp.tolist()}: max rel diff "
-          f"{loss_rel:.3e} (rtol {TRAIN_RTOL})")
+    print(f"{tag} losses card {card.losses} cpu {lp.tolist()}: max rel diff "
+          f"{loss_rel:.3e} over the first {cpu_steps} (rtol {TRAIN_RTOL})")
     check(loss_rel <= TRAIN_RTOL, f"losses differ from the CPU run by {loss_rel}")
-    w_err = max(float(np.abs(a[k] - b[k]).max())
-                for a, b in zip(runs["card"].params["layers"], runs["cpu"].params["layers"])
-                for k in a)
-    print(f"{tag} final weights card vs cpu: max abs diff {w_err:.3e} (atol {TRAIN_ATOL})")
-    check(w_err <= TRAIN_ATOL, f"final weights differ from the CPU run by {w_err}")
-    walls = [sum(st.values()) for st in runs["card"].stage_ms]
-    profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in runs["card"].stage_ms])
+    check_gradients(tag, first["cuda"], first["cpu"])
+    if cpu_steps == tc.num_steps:
+        w_err = max(float(np.abs(a[k] - b[k]).max())
+                    for a, b in zip(card.params["layers"], cpu.params["layers"]) for k in a)
+        print(f"{tag} final weights card vs cpu: max abs diff {w_err:.3e} (atol {TRAIN_ATOL})")
+        check(w_err <= TRAIN_ATOL, f"final weights differ from the CPU run by {w_err}")
+    else:
+        print(f"{tag} final weights card vs cpu: not compared (the CPU ran {cpu_steps} of "
+              f"{tc.num_steps} steps)")
+    walls = [sum(st.values()) for st in card.stage_ms]
+    profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in card.stage_ms])
     return {"launches": launches, "loss_rel": loss_rel, "walls": walls,
-            "plan0": plans["card"][0]}
+            "plan0": plans["cuda"][0]}
+
+
+def check_gradients(tag: str, card: dict, cpu: dict) -> None:
+    """The initial weights equal, card against CPU, and each parameter's
+    step-0 gradient within ``GRAD_RTOL`` of that parameter's largest
+    ``|g|`` on the CPU.  (Adam's first step, ``lr * g / (|g| + eps)``,
+    keeps only the gradient's sign where ``|g|`` is well above ``eps``, and
+    turns float32 reorderings of gradients near ``eps`` into weight gaps of
+    up to ``lr``; so the gradients are held, not the weights after it.)"""
+    import numpy as np
+
+    worst, where = 0.0, ""
+    for name, c0, p0, cg, pg in zip(cpu["names"], card["init"], cpu["init"], card["grad"],
+                                    cpu["grad"]):
+        check(np.array_equal(c0, p0), f"initial weights {name} differ between card and CPU")
+        scale = float(np.abs(pg).max())
+        gap = float(np.abs(cg - pg).max())
+        check(gap <= GRAD_RTOL * scale, f"step-0 gradient {name}: max abs diff {gap:.3e} > "
+              f"{GRAD_RTOL} x its largest |g| {scale:.3e}")
+        rel = gap / scale if scale else 0.0
+        if rel >= worst:
+            worst, where = rel, name
+    print(f"{tag} step 0 card vs cpu: initial weights equal; gradients within {worst:.3e} of "
+          f"each parameter's largest |g| (worst {where}; bound {GRAD_RTOL}), over "
+          f"{len(cpu['names'])} parameters")
 
 
 def phase_coo(plan) -> dict:
@@ -1121,6 +1404,76 @@ def phase_coo(plan) -> dict:
     return {"launches": launches}
 
 
+def phase_plans(tds, tc) -> dict:
+    """One cooperative ``plan_at(0)`` with each of the ``rw`` and ``full``
+    samplers on the card and on the CPU, counters zeroed right before the
+    card's: every integer leaf and ``plan_stats`` equal, the path's kernels
+    launched.  Returns the launches by path."""
+    import torch
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    for sampler in ("rw", "full"):
+        cfg = dataclasses.replace(tc, sampler=sampler).engine_config(3)
+        plans, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            engine = MinibatchEngine.from_config(tds.graph, cfg, dataset=tds, device=dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            plans[dev] = engine.plan_at(0)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                out[f"plan_{sampler}"] = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+            secs[dev] = time.perf_counter() - t0
+        for k in PATH_KERNELS[f"plan_{sampler}"]:
+            check(out[f"plan_{sampler}"][k] > 0, f"{sampler} plan: kernel {k} not launched")
+        la, lb = int_leaves(plans["cuda"]), int_leaves(plans["cpu"])
+        check(set(la) == set(lb), f"{sampler} plan leaves {sorted(la)} vs {sorted(lb)}")
+        entries = sum(t.numel() for t in lb.values())
+        differ = sum(int((la[n].cpu() != lb[n]).sum()) for n in la)
+        check(differ == 0, f"{sampler} plan: {differ} entries differ from the CPU build")
+        stats = plans["cuda"].stats()
+        check(stats == plans["cpu"].stats(), f"{sampler} plan_stats differ from the CPU's")
+        print(f"phase7 {sampler} plan_at(0): {entries} entries equal to the CPU's; card "
+              f"{secs['cuda']:.2f} s cpu {secs['cpu']:.2f} s; plan_stats {stats}; launches "
+              f"{ {k: v for k, v in out[f'plan_{sampler}'].items() if v} }")
+    return out
+
+
+def phase_curves(graph) -> dict:
+    """The work curves of Thm 3.1/3.2 (``measure_work_curve``, 3 layers,
+    fanout 10) for ``ns``, ``labor0``, ``labor*`` and ``rw`` at batch sizes
+    64, 256 and 1,024, 2 trials each, on the card (``backend="fused"``
+    samplers) and on the CPU: the counts must be equal.  Returns the
+    card's launches."""
+    from repro_torch.core.samplers import make_sampler
+    from repro_torch.core.theory import is_concave, is_monotone_nonincreasing, measure_work_curve
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    gpu = graph.to("cuda")
+    reset_launches()
+    for name in ("ns", "labor0", "labor*", "rw"):
+        curves, secs = {}, {}
+        for dev, g in (("cuda", gpu), ("cpu", graph)):
+            t0 = time.perf_counter()
+            curves[dev] = measure_work_curve(g, make_sampler(name, fanout=10, backend="fused"),
+                                             CURVE_BATCHES, num_layers=3, trials=2)
+            secs[dev] = time.perf_counter() - t0
+        a, b = curves["cuda"], curves["cpu"]
+        check(a.expected_sl == b.expected_sl, f"{name} work curve: card {a.expected_sl} "
+              f"!= cpu {b.expected_sl}")
+        print(f"phase7 work curve {name} (equal on card and cpu): batch {a.batch_sizes} "
+              f"E|S^3| {a.expected_sl} per seed {[round(x, 3) for x in a.work_per_seed]}; "
+              f"nonincreasing {is_monotone_nonincreasing(a.work_per_seed)}, concave "
+              f"{is_concave(a.batch_sizes, a.expected_sl)}; card {secs['cuda']:.2f} s "
+              f"cpu {secs['cpu']:.2f} s")
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    for k in PATH_KERNELS["curves"]:
+        check(launches[k] > 0, f"work curves: kernel {k} not launched")
+    return launches
+
+
 # kernels of the redesigned wrappers, by name in a profile (the spmm
 # backward's scan kernel comes from scan.cuh), every torch.sort of a step
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
@@ -1149,7 +1502,7 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     ``train_gnn`` runs) under torch.profiler, the kernels that take the
     device time, the device ms per step of ``PROFILE_GROUPS``, beside the
     card run's plan ms per step (``plan_ms``, its warm steps 1..), and the
-    host time in the LABOR variates.  A step calls ``Graph.neighbor_table``
+    host time in the sampler's variates.  A step calls ``Graph.neighbor_table``
     once per hop per PE; each call must make one ``frontier_gather``
     launch (the wrapper's counter) and one CUDA kernel (the profile)."""
     import torch
@@ -1186,10 +1539,11 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
           "frontier_gather: not one launch and one CUDA kernel per neighbor_table call")
     busy_ms = sum(d for d, _, _ in stats) / 1e3
     rng_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
-                 if ev.key == SPANS[0] and ev.device_type == DeviceType.CPU) / 1e3
+                 if ev.key.startswith("rng.") and ev.device_type == DeviceType.CPU) / 1e3
     print(f"{tag} profile (profiler on), {PROFILE_STEPS} steps: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; host ms "
-          f"per step in rng.vertex_uniform {rng_ms / PROFILE_STEPS:.3f}")
+          f"per step in the sampler's variates (rng.vertex_uniform or rng.edge_uniform) "
+          f"{rng_ms / PROFILE_STEPS:.3f}")
     for dev_us, count, key in stats[:12]:
         print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
     groups = []
@@ -1266,10 +1620,32 @@ def main(argv: list) -> int:
               f"capacities per PE: caps {engine.caps.caps} tilde_caps "
               f"{engine.caps.tilde_caps} bucket_caps {engine.caps.bucket_caps}; row width "
               f"w={engine.sampler.row_width(engine.graph)}")
+        t0 = time.perf_counter()
+        rds = SyntheticGraphDataset(
+            rmat_graph(scale=18, edge_factor=8, max_degree=32, num_edge_types=4, seed=SEED,
+                       device="cpu"),
+            feature_dim=RGCN_CFG["in_dim"], num_classes=RGCN_CFG["num_classes"], seed=SEED,
+        )
+        rgcn_cfg = GNNConfig(**RGCN_CFG)
+        sage_cfg = dataclasses.replace(train_cfg, model="sage")
+        ns_tc = dataclasses.replace(tc, sampler="ns")
+        rgcn_engine = MinibatchEngine.from_config(rds.graph, tc.engine_config(3), dataset=rds,
+                                                  device="cuda")
+        sage_engine = MinibatchEngine.from_config(tg, ns_tc.engine_config(3), dataset=tds,
+                                                  device="cuda")
+        print(f"rmat graph with {rds.graph.num_edge_types} relations: E={rds.graph.num_edges}, "
+              f"relation counts {rds.graph.edge_types.bincount().tolist()}, features "
+              f"{rds.features.shape}, in {time.perf_counter() - t0:.1f} s; NS row width "
+              f"w={sage_engine.sampler.row_width(sage_engine.graph)}")
+        t0 = time.perf_counter()
         k = phase1(ds, caps, cache_rows)
-        for name, rows in phase1_train(engine).items():
-            k[name] = k.get(name, []) + rows
-        del engine
+        for rows in (phase1_train(engine), phase1_mean(rgcn_engine, sage_engine),
+                     phase1_paths(engine, rgcn_engine, sage_engine, tds, tc)):
+            for name, r in rows.items():
+                k[name] = k.get(name, []) + r
+        print(f"phase1: {sum(map(len, k.values()))} rows in {time.perf_counter() - t0:.1f} s")
+        del engine, rgcn_engine, sage_engine
+        ROWS_BY_INPUT.clear()  # the rows' inputs (a 0.8 GB feature table among them)
         if kernels_only:
             print("chip_smoke: --kernels-only: phases 0-1 done, no result line")
             return 0
@@ -1284,6 +1660,14 @@ def main(argv: list) -> int:
         gat = phase_train("phase4", "train_gat", tds, gat_cfg, tc)
         launches["train_gat"] = gat["launches"]
         launches["coo"] = phase_coo(gat["plan0"])["launches"]
+        del gat
+        launches["train_rgcn"] = phase_train("phase6", "train_rgcn", rds, rgcn_cfg, tc,
+                                             cpu_steps=RGCN_CPU_STEPS)["launches"]
+        del rds
+        launches["train_sage"] = phase_train("phase7", "train_sage", tds, sage_cfg,
+                                             ns_tc)["launches"]
+        launches.update(phase_plans(tds, tc))
+        launches["curves"] = phase_curves(tg)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -18,6 +18,7 @@ from repro_torch.core.minibatch import (
     Minibatch,
     MinibatchLayer,
     build_minibatch,
+    epoch_stats,
     layer_to_coo,
 )
 from repro_torch.core.partition import (
@@ -27,14 +28,21 @@ from repro_torch.core.partition import (
     ownership_balance,
 )
 from repro_torch.core.rng import DependentRNG, RNGState
-from repro_torch.core.samplers import LaborSampler, LayerSample, make_sampler
+from repro_torch.core.samplers import (
+    FullSampler,
+    LaborSampler,
+    LayerSample,
+    NeighborSampler,
+    RandomWalkSampler,
+    make_sampler,
+)
 
 __all__ = [
     "CapacityPlan", "CoopCapacityPlan", "CoopLayer", "CoopMinibatch",
-    "DependentRNG", "DependentSchedule", "Executor", "FeatureStore", "Graph",
-    "GraphValidationError", "INVALID", "LaborSampler", "LayerSample",
-    "Minibatch", "MinibatchLayer", "NestedSchedule", "Partition", "RNGState",
-    "SimExecutor", "build_cooperative_minibatch", "build_minibatch",
-    "cross_edge_ratio", "layer_to_coo", "make_partition", "make_sampler",
-    "ownership_balance", "plan_stats", "redistribute",
+    "DependentRNG", "DependentSchedule", "Executor", "FeatureStore", "FullSampler",
+    "Graph", "GraphValidationError", "INVALID", "LaborSampler", "LayerSample",
+    "Minibatch", "MinibatchLayer", "NeighborSampler", "NestedSchedule", "Partition",
+    "RNGState", "RandomWalkSampler", "SimExecutor", "build_cooperative_minibatch",
+    "build_minibatch", "cross_edge_ratio", "epoch_stats", "layer_to_coo",
+    "make_partition", "make_sampler", "ownership_balance", "plan_stats", "redistribute",
 ]

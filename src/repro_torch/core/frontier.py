@@ -40,6 +40,10 @@ def unique_padded(ids: torch.Tensor, cap: int) -> torch.Tensor:
     return pad_to(torch.unique(ids.reshape(-1), sorted=True), cap)
 
 
+def union_padded(a: torch.Tensor, b: torch.Tensor, cap: int) -> torch.Tensor:
+    return unique_padded(torch.cat([a.reshape(-1), b.reshape(-1)]), cap)
+
+
 def lookup(sorted_ids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Index of each query in a sorted padded id vector; -1 if absent.
 
@@ -51,8 +55,33 @@ def lookup(sorted_ids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, pos, -1).to(torch.int32)
 
 
+def contains(sorted_ids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    return lookup(sorted_ids, queries) >= 0
+
+
 def count_valid(ids: torch.Tensor) -> torch.Tensor:
     return (ids != INVALID).sum()
+
+
+def multiplicity(sorted_ids: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(counts (cap,) int32, starts)``: the occurrence count of each run of
+    equal *valid* ids of a sorted padded vector, by run, and where each run
+    starts.  The JAX package's scatter-add wraps a negative run index and
+    drops one past ``cap``; so does this.
+
+    Used by the theory harness to measure |T^l| (eq. 5): vertices reached
+    from exactly one seed.
+    """
+    ids = sorted_ids
+    left = torch.cat([torch.full((1,), -1, dtype=ids.dtype, device=ids.device), ids[:-1]])
+    starts = (ids != left) & (ids != INVALID)
+    seg = torch.cumsum(starts, 0) - 1  # run index per element
+    seg = torch.where(ids == INVALID, cap - 1, seg)
+    seg = torch.where(seg < 0, seg + cap, seg)
+    keep = (seg >= 0) & (seg < cap) & (ids != INVALID)
+    counts = torch.zeros((cap,), dtype=torch.int32, device=ids.device)
+    counts.index_add_(0, seg[keep], torch.ones_like(seg[keep], dtype=torch.int32))
+    return counts, starts
 
 
 def compact(ids: torch.Tensor, keep: torch.Tensor, cap: int) -> torch.Tensor:

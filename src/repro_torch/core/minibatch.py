@@ -30,6 +30,14 @@ class MinibatchLayer:
     mask: torch.Tensor           # (cap_l, w)
     etypes: Optional[torch.Tensor]  # (cap_l, w) relation ids or None
 
+    @property
+    def num_dst(self) -> torch.Tensor:
+        return frontier.count_valid(self.seeds)
+
+    @property
+    def num_edges(self) -> torch.Tensor:
+        return self.mask.sum()
+
 
 @dataclass(frozen=True)
 class Minibatch:
@@ -38,6 +46,10 @@ class Minibatch:
     layers: tuple[MinibatchLayer, ...]
     input_ids: torch.Tensor  # (cap_L,)
     seed_ids: torch.Tensor   # (cap_0,) = layers[0].seeds
+
+    @property
+    def num_inputs(self) -> torch.Tensor:
+        return frontier.count_valid(self.input_ids)
 
     def gather_inputs(self, store) -> torch.Tensor:
         """Input-layer embeddings from a :class:`FeatureStore`-like object."""
@@ -171,3 +183,14 @@ def layer_to_coo(
     cols = cols[:cap_edges]
     rows = torch.where(cols >= 0, rows, -1)
     return rows, cols, indptr
+
+
+def epoch_stats(mb: Minibatch) -> dict:
+    """Vertex/edge counts per layer -- the quantities in Fig 3 / Table 7.
+    Totals over the PE axis for a stacked plan."""
+    out = {}
+    for l, layer in enumerate(mb.layers):
+        out[f"S{l}"] = int(layer.num_dst)
+        out[f"E{l}"] = int(layer.num_edges)
+    out[f"S{len(mb.layers)}"] = int(mb.num_inputs)
+    return out

@@ -8,9 +8,10 @@ for bit.  Two things make that hard, and this module handles both:
   and before each shift.  Multiplies are split into 16-bit halves so no
   intermediate leaves the int64 range on either device.
 * ``norm.cdf(norm.ppf(u))``.  The LABOR variate is compared with
-  thresholds like ``k / d``, so a last-bit difference in the variate can
-  flip an accept decision.  ``torch.special.ndtr``/``ndtri`` differ from
-  what XLA computes on the CPU.  This module therefore evaluates the
+  thresholds like ``k / d``, and NS ranks a row's edge variates, so a
+  last-bit difference in a variate can flip an accept decision or a
+  pick.  ``torch.special.ndtr``/``ndtri`` differ from what XLA computes
+  on the CPU.  This module therefore evaluates the
   same float32 algorithms that XLA's CPU backend emits for the JAX
   reference: ``jax.scipy.special.ndtri`` after XLA's algebraic
   simplification, the CHLO expansion of ``erfc``, XLA's rational
@@ -74,6 +75,12 @@ def hash_u32(ids, seed, salt=0) -> torch.Tensor:
     salt = _u32(torch.as_tensor(salt, device=ids.device))
     h = _mix(ids ^ _mul32(seed, 0x9E3779B9))
     return _mix(h ^ _mul32(salt, 0x85EBCA6B))
+
+
+def hash_pair_u32(a, b, seed, salt=0) -> torch.Tensor:
+    """Hash of an id pair (edge ``(t, s)``); order-sensitive."""
+    ha = hash_u32(a, seed, salt)
+    return _mix(ha ^ _mix(_u32(b) ^ 0xDEADBEEF))
 
 
 def uniform_from_u32(h: torch.Tensor) -> torch.Tensor:
@@ -279,6 +286,22 @@ def normal_from_ids(ids, seed, salt: int = 0) -> torch.Tensor:
     return ndtri(uniform_from_ids(ids, seed, salt))
 
 
+def normal_from_pairs(a, b, seed, salt: int = 0) -> torch.Tensor:
+    return ndtri(uniform_from_u32(hash_pair_u32(a, b, seed, salt)))
+
+
+def _smoothed(c: float, n1: torch.Tensor, u2) -> torch.Tensor:
+    """``ndtr(fma(cos(c pi/2), n1, sin(c pi/2) * ndtri(u2())))`` in float32, as
+    XLA compiles it for a traced ``c``; ``u2()`` gives the second seed's
+    uniforms.  At ``c == 0`` that is ``n1 + 0 * n2``: ``n1`` itself, except
+    NaN where ``n2`` is infinite (a hash at or above ``2**32 - 128`` rounds to
+    the uniform 1.0), so there only the uniform is computed, not ``ndtri``."""
+    if c == 0.0:
+        return ndtr(torch.where(u2() >= 1.0, math.nan, n1))
+    cos, sin = _cos_sin_half_pi(c)
+    return ndtr(_fma(n1, cos, ndtri(u2()) * sin))
+
+
 @dataclass(frozen=True)
 class RNGState:
     """Two seeds + interpolation coefficient (python scalars).
@@ -291,20 +314,24 @@ class RNGState:
     c: float  # float32 value in [0, 1)
 
     def vertex_uniform(self, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
-        """r_t ~ U(0,1), smoothly drifting with step (LABOR variates).
-
-        ``n = fma(cos(c pi/2), n1, sin(c pi/2) * n2)`` in float32, as XLA
-        compiles it for a traced ``c``.  At ``c == 0`` that is exactly
-        ``n1`` (``n2`` is finite), so ``n2`` is not computed.  Profiler
-        span: ``rng.vertex_uniform``.
-        """
+        """r_t ~ U(0,1), smoothly drifting with step (LABOR variates); see
+        :func:`_smoothed`.  Profiler span: ``rng.vertex_uniform``."""
         with record_function("rng.vertex_uniform"):
-            n1 = normal_from_ids(ids, self.z1, salt)
-            if self.c == 0.0:
-                return ndtr(n1)
-            n2 = normal_from_ids(ids, self.z2, salt)
-            cos, sin = _cos_sin_half_pi(self.c)
-            return ndtr(_fma(n1, cos, n2 * sin))
+            return _smoothed(self.c, normal_from_ids(ids, self.z1, salt),
+                             lambda: uniform_from_ids(ids, self.z2, salt))
+
+    def edge_uniform(self, t: torch.Tensor, s: torch.Tensor, salt: int = 0) -> torch.Tensor:
+        """r_ts ~ U(0,1) per edge ``(t, s)`` (NS variates), smoothly drifting;
+        the same float32 operations as :meth:`vertex_uniform`.  Profiler
+        span: ``rng.edge_uniform``."""
+        with record_function("rng.edge_uniform"):
+            return _smoothed(self.c, normal_from_pairs(t, s, self.z1, salt),
+                             lambda: uniform_from_u32(hash_pair_u32(t, s, self.z2, salt)))
+
+    def fold(self, salt: int) -> int:
+        """A uint32 sub-seed (random-walk streams): ``z1 * 0x9E3779B9 +
+        salt * 0x85EBCA6B``, wrapping."""
+        return (self.z1 * 0x9E3779B9 + (salt & _MASK32) * 0x85EBCA6B) & _MASK32
 
 
 @dataclass(frozen=True)
@@ -319,6 +346,9 @@ class DependentRNG:
     base_seed: int
     kappa: int | None = 1
     step: int = 0
+
+    def at_step(self, step: int) -> "DependentRNG":
+        return DependentRNG(self.base_seed, self.kappa, step)
 
     def state_at(self, step: int) -> RNGState:
         base = self.base_seed & _MASK32
@@ -336,3 +366,9 @@ class DependentRNG:
 
     def vertex_uniform(self, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
         return self.state.vertex_uniform(ids, salt)
+
+    def edge_uniform(self, t: torch.Tensor, s: torch.Tensor, salt: int = 0) -> torch.Tensor:
+        return self.state.edge_uniform(t, s, salt)
+
+    def fold(self, salt: int) -> int:
+        return self.state.fold(salt)

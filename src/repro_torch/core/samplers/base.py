@@ -40,17 +40,21 @@ class Sampler(Protocol):
 
 
 def make_sampler(name: str, fanout: int = 10, **kw) -> "Sampler":
-    """Factory: 'labor0' | 'labor*' (ported); 'ns' | 'rw' | 'full' not yet."""
+    """Factory: 'ns' | 'labor0' | 'labor*' | 'rw' | 'full' (and aliases)."""
+    from repro_torch.core.samplers.full import FullSampler
     from repro_torch.core.samplers.labor import LaborSampler
+    from repro_torch.core.samplers.neighbor import NeighborSampler
+    from repro_torch.core.samplers.random_walk import RandomWalkSampler
 
     name = name.lower()
+    if name in ("ns", "neighbor"):
+        return NeighborSampler(fanout=fanout, **kw)
     if name in ("labor0", "labor-0"):
         return LaborSampler(fanout=fanout, importance=False, **kw)
     if name in ("labor*", "labor-*", "labor_star"):
         return LaborSampler(fanout=fanout, importance=True, **kw)
-    if name in ("ns", "neighbor", "rw", "randomwalk", "random_walk", "full"):
-        raise NotImplementedError(
-            f"sampler {name!r} is not ported to repro_torch yet "
-            "(ROADMAP.md queue A, item A9)"
-        )
+    if name in ("rw", "randomwalk", "random_walk"):
+        return RandomWalkSampler(fanout=fanout, **kw)
+    if name == "full":
+        return FullSampler(**kw)
     raise ValueError(f"unknown sampler {name!r}")

@@ -65,6 +65,22 @@ def rmat_graph(
     )
 
 
+def neighbor_sum(feats: np.ndarray, indptr: np.ndarray, indices: np.ndarray,
+                 counts: np.ndarray) -> np.ndarray:
+    """Each vertex's in-neighbor feature sum, added in edge order from zero.
+
+    The same float32 adds, in the same order, as the JAX package's
+    ``np.add.at(agg, dst, feats[indices])``, one slot position at a time:
+    memory stays at one ``(V, d)`` gather where ``np.add.at`` holds all
+    ``E`` gathered rows and adds them one element at a time.
+    """
+    agg = np.zeros_like(feats)
+    for k in range(int(counts.max(initial=0))):
+        rows = np.nonzero(counts > k)[0]
+        agg[rows] += feats[indices[indptr[rows] + k]]
+    return agg
+
+
 @dataclass
 class SyntheticGraphDataset:
     """Graph + node features + labels + train/val/test split.
@@ -93,9 +109,9 @@ class SyntheticGraphDataset:
         )
         indptr = self.graph.indptr.cpu().numpy()
         indices = self.graph.indices.cpu().numpy()
-        deg = np.maximum(np.diff(indptr), 1)
-        agg = np.zeros_like(feats)
-        np.add.at(agg, np.repeat(np.arange(V), np.diff(indptr)), feats[indices])
+        counts = np.diff(indptr)
+        deg = np.maximum(counts, 1)
+        agg = neighbor_sum(feats, indptr, indices, counts)
         agg /= deg[:, None]
         logits = (feats + agg) @ W
         self.labels = np.argmax(logits, axis=1).astype(np.int32)

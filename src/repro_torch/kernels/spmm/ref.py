@@ -22,13 +22,25 @@ def spmm_ref(
     mean: bool = True,
 ) -> torch.Tensor:
     """out[r] = sum_k mask[r, k] * src[nbr_idx[r, k]] (slot order), divided by
-    max(deg, 1) in mean mode; indices are clamped into [0, S)."""
+    max(deg, 1) in mean mode; indices are clamped into [0, S).
+
+    On the CPU only the rows with a masked slot are computed, the others
+    stay +0.0, as the sum of ``w`` zeros gives (an accumulator that starts
+    at +0.0 never becomes -0.0): the same bits, without gathering every
+    padding row ``w`` times.  On a card every row is (no host sync, so the
+    call can be captured in a CUDA graph).
+    """
     n, w = nbr_idx.shape
     idx = nbr_idx.clamp(0, max(src.shape[0] - 1, 0)).long()
-    acc = src.new_zeros((n, src.shape[1]))
+    rows = mask.any(dim=1).nonzero().squeeze(1) if src.device.type == "cpu" else None
+    if rows is not None:
+        idx, mask = idx[rows], mask[rows]
+    acc = src.new_zeros((idx.shape[0], src.shape[1]))
     for k in range(w):
         acc = acc + torch.where(mask[:, k, None], src[idx[:, k]], 0.0)
-    return acc / _degree(mask, acc.dtype) if mean else acc
+    if mean:
+        acc = acc / _degree(mask, acc.dtype)
+    return acc if rows is None else src.new_zeros((n, src.shape[1])).index_copy_(0, rows, acc)
 
 
 def backward_order(nbr_idx: torch.Tensor, mask: torch.Tensor,

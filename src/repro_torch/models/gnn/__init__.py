@@ -3,6 +3,8 @@ from repro_torch.models.gnn.layers import (
     GATLayer,
     GCNLayer,
     GNNConfig,
+    RGCNLayer,
+    SAGELayer,
     gnn_apply,
     gnn_apply_cooperative,
     gnn_apply_stacked,
@@ -11,6 +13,6 @@ from repro_torch.models.gnn.layers import (
 )
 
 __all__ = [
-    "GATLayer", "GCNLayer", "GNN", "GNNConfig", "gnn_apply",
+    "GATLayer", "GCNLayer", "GNN", "GNNConfig", "RGCNLayer", "SAGELayer", "gnn_apply",
     "gnn_apply_cooperative", "gnn_apply_stacked", "init_gnn", "params_from_jax",
 ]

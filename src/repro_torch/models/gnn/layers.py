@@ -6,12 +6,14 @@ Every layer consumes ``H~`` -- embeddings indexed by the next frontier
 ``S^l``.  Plan layer ``L-1`` consumes raw features, layer 0 emits class
 logits.
 
-Ported: the GCN and the GAT.  Parameters keep the JAX package's names
-and layouts (``(d_in, d_out)`` weights) so :func:`params_from_jax`
-copies them over unchanged.  On a CUDA device the GCN's neighbor sum
-goes through the ``spmm`` kernel and the GAT's attention softmax through
-the ``seg_softmax`` kernel (each with its backward kernel); the JAX
-layers compute the same functions in plain jnp.
+Models: gcn | sage | gat | rgcn, as in the JAX package (the paper
+evaluates GCN, R-GCN and GAT, §4.3).  Parameters keep the JAX package's
+names and layouts (``(d_in, d_out)`` weights, R-GCN's ``(R, d_in, d_out)``
+relation weights) so :func:`params_from_jax` copies them over unchanged.
+On a CUDA device the GCN's neighbor sum goes through the ``spmm`` kernel,
+the GraphSAGE and R-GCN neighbor means through its mean mode, and the
+GAT's attention softmax through the ``seg_softmax`` kernel (each with its
+backward kernel); the JAX layers compute the same functions in plain jnp.
 
 Three applies, as in the JAX package: :func:`gnn_apply` (one plan),
 :func:`gnn_apply_stacked` (``P`` stacked independent plans, one apply per
@@ -32,22 +34,19 @@ from repro_torch.core import threefry
 from repro_torch.core.frontier import take_rows
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.seg_softmax import seg_softmax
-from repro_torch.kernels.spmm import spmm_sum
+from repro_torch.kernels.spmm import spmm_mean, spmm_sum
 
-MODELS = ("gcn", "gat")
+MODELS = ("gcn", "sage", "gat", "rgcn")
 
 
 def _check_model(cfg) -> None:
     if cfg.model not in MODELS:
-        raise NotImplementedError(
-            f"GNN model {cfg.model!r} is not ported to repro_torch yet; ported: "
-            f"{MODELS} (ROADMAP.md queue A, item A9)"
-        )
+        raise ValueError(f"unknown gnn model {cfg.model!r}; expected one of {MODELS}")
 
 
 @dataclass(frozen=True)
 class GNNConfig:
-    model: str = "gcn"           # gcn | gat (sage | rgcn not ported yet)
+    model: str = "gcn"           # gcn | sage | gat | rgcn
     num_layers: int = 3
     in_dim: int = 64
     hidden_dim: int = 256
@@ -63,21 +62,72 @@ class GNNConfig:
         return d_in, d_out
 
 
+def _params(dtype, device):
+    return lambda *shape: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
+
+
 class GCNLayer(nn.Module):
-    """Mean over {self} ∪ N(s), then ``x @ w + b`` (ReLU except on layer 0)."""
+    """Mean over {self} ∪ N(s), then ``x @ w + b`` (ReLU except on layer 0).
+
+    Every layer takes ``(Ht, self_idx, nbr_idx, mask, etypes)``; only the
+    R-GCN reads ``etypes``."""
 
     def __init__(self, d_in: int, d_out: int, relu: bool,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.w = nn.Parameter(torch.zeros((d_in, d_out), dtype=dtype, device=device))
-        self.b = nn.Parameter(torch.zeros((d_out,), dtype=dtype, device=device))
+        zeros = _params(dtype, device)
+        self.w, self.b = zeros(d_in, d_out), zeros(d_out)
         self.relu = relu
 
-    def forward(self, Ht, self_idx, nbr_idx, mask):
+    def forward(self, Ht, self_idx, nbr_idx, mask, etypes=None):
         h_self = take_rows(Ht, self_idx)            # (n, d_in)
         deg = mask.sum(dim=-1, keepdim=True) + 1
         agg = (spmm_sum(Ht, nbr_idx, mask) + h_self) / deg
         out = agg @ self.w + self.b
+        return torch.relu(out) if self.relu else out
+
+
+class SAGELayer(nn.Module):
+    """GraphSAGE: ``h_self @ w_self + mean_nbr @ w_nbr + b`` (ReLU except on
+    layer 0), the neighbor mean over the masked slots, divided by
+    ``max(deg, 1)``."""
+
+    def __init__(self, d_in: int, d_out: int, relu: bool,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        zeros = _params(dtype, device)
+        self.w_self, self.w_nbr, self.b = zeros(d_in, d_out), zeros(d_in, d_out), zeros(d_out)
+        self.relu = relu
+
+    def forward(self, Ht, self_idx, nbr_idx, mask, etypes=None):
+        out = take_rows(Ht, self_idx) @ self.w_self + spmm_mean(Ht, nbr_idx, mask) @ self.w_nbr
+        out = out + self.b
+        return torch.relu(out) if self.relu else out
+
+
+class RGCNLayer(nn.Module):
+    """R-GCN: ``h_self @ w_self``, then ``+ mean_r @ w_rel[r]`` for every
+    relation ``r`` in order, then ``+ b`` (ReLU except on layer 0), as
+    ``layer_apply``'s ``rgcn`` branch adds them.  ``mean_r`` is the
+    neighbor mean over the slots of relation ``r`` (all slots are relation 0
+    when the plan carries no ``etypes``): one ``spmm`` mean a relation."""
+
+    def __init__(self, d_in: int, d_out: int, num_relations: int, relu: bool,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        zeros = _params(dtype, device)
+        self.w_self = zeros(d_in, d_out)
+        self.w_rel = zeros(num_relations, d_in, d_out)
+        self.b = zeros(d_out)
+        self.relu = relu
+
+    def forward(self, Ht, self_idx, nbr_idx, mask, etypes=None):
+        out = take_rows(Ht, self_idx) @ self.w_self
+        if etypes is None:
+            etypes = torch.zeros_like(nbr_idx)
+        for r in range(self.w_rel.shape[0]):
+            out = out + spmm_mean(Ht, nbr_idx, mask & (etypes == r)) @ self.w_rel[r]
+        out = out + self.b
         return torch.relu(out) if self.relu else out
 
 
@@ -97,7 +147,7 @@ class GATLayer(nn.Module):
                  dtype=torch.float32, device=None):
         super().__init__()
         dh = max(1, d_out // heads)
-        zeros = lambda *shape: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
+        zeros = _params(dtype, device)
         self.w = zeros(d_in, heads * dh)
         self.a_src = zeros(heads, dh)
         self.a_dst = zeros(heads, dh)
@@ -105,7 +155,7 @@ class GATLayer(nn.Module):
         self.b = zeros(d_out)
         self.heads, self.relu = heads, relu
 
-    def forward(self, Ht, self_idx, nbr_idx, mask):
+    def forward(self, Ht, self_idx, nbr_idx, mask, etypes=None):
         h, (n, w) = self.heads, nbr_idx.shape
         z = Ht @ self.w                                               # (S, h*dh)
         src_logit = torch.einsum("shd,hd->sh", z.reshape(z.shape[0], h, -1), self.a_src)
@@ -129,10 +179,14 @@ class GNN(nn.Module):
         self.cfg = cfg
 
         def layer(l):
+            kw = dict(relu=l != 0, dtype=cfg.dtype, device=dev)
             if cfg.model == "gat":
-                return GATLayer(*cfg.dims(l), cfg.num_heads, relu=l != 0, dtype=cfg.dtype,
-                                device=dev)
-            return GCNLayer(*cfg.dims(l), relu=l != 0, dtype=cfg.dtype, device=dev)
+                return GATLayer(*cfg.dims(l), cfg.num_heads, **kw)
+            if cfg.model == "rgcn":
+                return RGCNLayer(*cfg.dims(l), cfg.num_relations, **kw)
+            if cfg.model == "sage":
+                return SAGELayer(*cfg.dims(l), **kw)
+            return GCNLayer(*cfg.dims(l), **kw)
 
         self.layers = nn.ModuleList(layer(l) for l in range(cfg.num_layers))
 
@@ -141,7 +195,7 @@ class GNN(nn.Module):
         H = H_input
         for l in reversed(range(self.cfg.num_layers)):
             blk = plan_layers[l]
-            H = self.layers[l](H, blk.self_idx, blk.nbr_idx, blk.mask)
+            H = self.layers[l](H, blk.self_idx, blk.nbr_idx, blk.mask, blk.etypes)
         return H
 
 
@@ -159,6 +213,10 @@ def init_gnn(cfg: GNNConfig, seed: int = 0, device: DeviceLike = None) -> GNN:
         d_in, d_out = cfg.dims(l)
         if cfg.model == "gcn":
             shapes = {"w": (d_in, d_out)}
+        elif cfg.model == "sage":
+            shapes = {"w_self": (d_in, d_out), "w_nbr": (d_in, d_out)}
+        elif cfg.model == "rgcn":
+            shapes = {"w_self": (d_in, d_out), "w_rel": (cfg.num_relations, d_in, d_out)}
         else:
             h = cfg.num_heads
             dh = max(1, d_out // h)
@@ -167,8 +225,10 @@ def init_gnn(cfg: GNNConfig, seed: int = 0, device: DeviceLike = None) -> GNN:
                       "w_out": (h * dh, d_out)}
         p = {}
         for k, (name, shape) in zip(ks, shapes.items()):
+            # Glorot: fan in and out are the last two axes
             lim = float(np.sqrt(6.0 / (shape[-2] + shape[-1])))
-            p[name] = threefry.uniform(k, shape, -lim, lim).reshape(shape[:2]).numpy()
+            w = threefry.uniform(k, shape, -lim, lim)
+            p[name] = (w[..., 0] if name.startswith("a_") else w).numpy()
         p["b"] = np.zeros((d_out,), np.float32)
         layers.append(p)
     return params_from_jax({"layers": layers}, cfg, device=device)
@@ -179,8 +239,10 @@ def params_from_jax(params_np: dict, cfg: GNNConfig, device: DeviceLike = None) 
 
     ``params_np`` is that pytree with numpy leaves, one dict per layer with
     the JAX names and shapes: ``{"w": (d_in, d_out), "b": (d_out,)}`` for
-    the GCN; ``w`` (d_in, h*dh), ``a_src`` and ``a_dst`` (h, dh), ``w_out``
-    (h*dh, d_out) and ``b`` for the GAT.  Any numpy weights in that layout
+    the GCN; ``w_self`` and ``w_nbr`` (d_in, d_out) and ``b`` for GraphSAGE;
+    ``w`` (d_in, h*dh), ``a_src`` and ``a_dst`` (h, dh), ``w_out``
+    (h*dh, d_out) and ``b`` for the GAT; ``w_self`` (d_in, d_out), ``w_rel``
+    (R, d_in, d_out) and ``b`` for R-GCN.  Any numpy weights in that layout
     work the same way.
     """
     model = GNN(cfg, device=device)
@@ -206,7 +268,6 @@ def params_from_jax(params_np: dict, cfg: GNNConfig, device: DeviceLike = None) 
 
 def gnn_apply(model: GNN, cfg: GNNConfig, plan_layers, H_input: torch.Tensor) -> torch.Tensor:
     """Forward pass over an L-layer plan; returns seed logits (cap_0, C)."""
-    _check_model(cfg)
     return model(plan_layers, H_input)
 
 
@@ -238,14 +299,15 @@ def gnn_apply_cooperative(
     """Cooperative forward (Alg. 1): redistribute, then per-PE compute.
 
     The redistribution is a global exchange (all PEs take part); the
-    bipartite layer compute is per PE and goes through ``ex.pe``.
+    bipartite layer compute is per PE and goes through ``ex.pe``, with
+    the block's relation ids where the plan has them.
     """
     from repro_torch.core.cooperative import redistribute
 
-    _check_model(cfg)
     H = H_input
     for l in reversed(range(cfg.num_layers)):
         blk = plan_layers[l]
         Ht = redistribute(ex, blk, H, tilde_caps[l])
-        H = ex.pe(model.layers[l], Ht, blk.self_idx, blk.nbr_idx, blk.mask)
+        args = (Ht, blk.self_idx, blk.nbr_idx, blk.mask)
+        H = ex.pe(model.layers[l], *args, *(() if blk.etypes is None else (blk.etypes,)))
     return H

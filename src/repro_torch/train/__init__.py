@@ -13,10 +13,10 @@ from repro_torch.train.metrics import (
     masked_softmax_xent_parts,
     micro_f1,
 )
-from repro_torch.train.optim import AdamState, adam_init, adam_update
+from repro_torch.train.optim import AdamState, adam_init, adam_update, cosine_lr, sgd_update
 
 __all__ = [
     "AdamState", "TrainConfig", "TrainResult", "adam_init", "adam_update",
-    "evaluate", "macro_f1", "make_loss_fn", "masked_softmax_xent",
-    "masked_softmax_xent_parts", "micro_f1", "train_gnn", "train_step",
+    "cosine_lr", "evaluate", "macro_f1", "make_loss_fn", "masked_softmax_xent",
+    "masked_softmax_xent_parts", "micro_f1", "sgd_update", "train_gnn", "train_step",
 ]

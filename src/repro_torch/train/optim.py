@@ -1,4 +1,5 @@
-"""Adam over a model's parameter list (port of ``repro.train.optim``).
+"""Adam, SGD and a cosine schedule over a model's parameter list (port of
+``repro.train.optim``).
 
 Plain functions in the JAX package's arithmetic order,
 ``p - lr * (m·s1) / (sqrt(v·s2) + eps)`` with ``s1 = 1 / (1 - b1^t)`` and
@@ -56,3 +57,32 @@ def adam_update(
             u = u + weight_decay * p.to(u.dtype)
         p.copy_((p.to(u.dtype) - lr * u).to(p.dtype))
     return AdamState(step=step, mu=state.mu, nu=state.nu)
+
+
+@torch.no_grad()
+def sgd_update(params, grads, lr: float = 1e-2, momentum_state=None, momentum: float = 0.9):
+    """``p - lr * g``, or with a momentum buffer ``m = momentum * m + g``,
+    ``p - lr * m``; updates ``params`` (and the buffers) in place and
+    returns the buffers (None without momentum)."""
+    params = list(params.parameters()) if hasattr(params, "parameters") else list(params)
+    if momentum_state is None:
+        for p, g in zip(params, grads):
+            p.copy_(p - lr * g)
+        return None
+    for p, g, m in zip(params, grads, momentum_state):
+        m.copy_(momentum * m + g)
+        p.copy_(p - lr * m)
+    return momentum_state
+
+
+def cosine_lr(step, base_lr: float, warmup: int, total: int, min_frac: float = 0.1) -> float:
+    """Linear warm-up to ``base_lr`` over ``warmup`` steps, then a cosine decay
+    to ``min_frac * base_lr`` at ``total``, in float32 as the JAX package
+    computes it."""
+    f = np.float32
+    step = f(step)
+    if step < warmup:
+        return float(f(base_lr) * step / f(max(warmup, 1)))
+    prog = np.clip((step - f(warmup)) / f(max(total - warmup, 1)), f(0.0), f(1.0))
+    cos = f(base_lr) * (f(min_frac) + f(1 - min_frac) * f(0.5) * (f(1) + np.cos(f(np.pi) * prog)))
+    return float(cos)

@@ -22,8 +22,9 @@ its backward within ``atol=1e-6 * max|g|`` (the kernel calls CUDA's
 all-masked rows exactly 0.  Each kernel rejects a wrongly typed or
 non-contiguous input by raising (``seg_softmax`` also floats that are not
 16-byte aligned).  A served trace must give the same
-integer accounting and plan entries as on the CPU, and a few
-cooperative training steps (GCN and GAT) the same plans and losses.
+integer accounting and plan entries as on the CPU, a few cooperative
+training steps (GCN, GAT, GraphSAGE with NS, R-GCN) the same plans and
+losses, and the NS, RW, full and LABOR-* samplers the same samples.
 """
 import numpy as np
 import pytest
@@ -444,6 +445,40 @@ def test_spmm_backward_edge_cases(cuda, case):
     torch.cuda.synchronize()
 
 
+# (S, d, n) of the mean-mode rows at R-GCN's widths: plan layers 1 and 2
+SPMM_MEAN_WIDE = {"d=1024": (26136, 1024, 1584), "d=768": (60000, 768, 9000)}
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset-view"])
+@pytest.mark.parametrize("case", list(SPMM_MEAN_WIDE))
+def test_spmm_mean_wide_matches_plain(cuda, case, offset):
+    """The mean mode at R-GCN's widths (6 and 8 passes of a 32-lane group
+    over d's float4s): forward and backward equal to their plain versions
+    bit for bit (int32 views too) on one relation's mask, one launch each,
+    the backward the same from call to call; on a 16-byte aligned source and
+    gradient, and on views 4 bytes past an allocation's start (the scalar
+    kernels)."""
+    S, d, n = SPMM_MEAN_WIDE[case]
+    w = 32
+    rng = np.random.default_rng(d)
+    src, idx, mask = _spmm_inputs(S, d, n, w, d + n, cuda)
+    mask &= torch.from_numpy(rng.integers(0, 4, (n, w)) == 1).to(cuda)  # one relation
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    if offset:
+        src = torch.cat([src.new_zeros(1), src.reshape(-1)])[1:].view(S, d)
+        g = torch.cat([g.new_zeros(1), g.reshape(-1)])[1:].view(n, d)
+    assert (src.data_ptr() % 16 != 0) == offset and (g.data_ptr() % 16 != 0) == offset
+    reset_launches()
+    got = spmm_cuda(src, idx, mask, True)
+    assert LAUNCHES["spmm"] == 1
+    assert _same_bits(got, spmm_ref(src, idx, mask, mean=True))
+    grad = spmm_backward_cuda(g, idx, mask, S, True)
+    assert LAUNCHES["spmm_backward"] == 1
+    assert _same_bits(grad, spmm_backward_ref(g, idx, mask, S, mean=True))
+    assert _same_bits(spmm_backward_cuda(g, idx, mask, S, True), grad)
+    torch.cuda.synchronize()
+
+
 def test_kernels_reject_bad_inputs(cuda):
     table = torch.zeros((8, 4), device=cuda)
     ids = torch.zeros(6, dtype=torch.int32, device=cuda)
@@ -595,14 +630,19 @@ def test_gat_and_coo_kernels_reject_bad_inputs(cuda):
         expand_indptr_cuda(iptr[:0], 8)
 
 
-@pytest.mark.parametrize("model", ["gcn", "gat"])
+@pytest.mark.parametrize("model", ["gcn", "gat", "sage", "rgcn"])
 def test_cooperative_training_matches_cpu(cuda, model):
+    """A few cooperative steps on the card and on the CPU: equal plans
+    (relation ids too) and losses within ``rtol=1e-4``; GraphSAGE samples
+    with NS, R-GCN trains on a graph with 4 relations."""
     ds = SyntheticGraphDataset(rmat_graph(scale=11, edge_factor=8, max_degree=16,
+                                          num_edge_types=4 if model == "rgcn" else 1,
                                           device="cpu"), feature_dim=16, num_classes=4)
     cfg = GNNConfig(model=model, num_layers=2, in_dim=16, hidden_dim=32, num_classes=4,
-                    num_heads=2)
+                    num_heads=2, num_relations=4)
     tc = TrainConfig(num_pes=4, local_batch=16, fanout=5, num_steps=3, kappa=4,
-                     eval_every=0, plan_backend="fused")
+                     eval_every=0, plan_backend="fused",
+                     sampler="ns" if model == "sage" else "labor0")
     plans = {}
     runs = {}
     for dev in (cuda, "cpu"):
@@ -612,17 +652,48 @@ def test_cooperative_training_matches_cpu(cuda, model):
             ds, cfg, tc, model=net, device=dev,
             on_step=lambda step, plan, d=str(dev): plans.setdefault(d, []).append(plan))
         if dev is cuda:
-            agg = ("spmm", "spmm_backward") if model == "gcn" else (
-                "seg_softmax", "seg_softmax_backward")
+            agg = ("seg_softmax", "seg_softmax_backward") if model == "gat" else (
+                "spmm", "spmm_backward")
             for k in ("frontier_gather", "unique_compact", "gather", *agg):
                 assert LAUNCHES.get(k, 0) > 0, k
     for a, b in zip(plans["cuda"], plans["cpu"]):
         for la, lb in zip(a.layers, b.layers):
             for name in ("seeds", "self_idx", "nbr_idx", "mask", "slot_to_tilde",
-                         "req_idx", "tilde_ids"):
+                         "req_idx", "tilde_ids", "etypes"):
+                if name == "etypes" and model != "rgcn":
+                    assert la.etypes is None and lb.etypes is None
+                    continue
                 assert torch.equal(getattr(la, name).cpu(), getattr(lb, name)), name
         assert torch.equal(a.input_ids.cpu(), b.input_ids)
     np.testing.assert_allclose(runs["cuda"].losses, runs["cpu"].losses, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["ns", "rw", "full", "labor*"])
+def test_samplers_on_card_match_cpu(cuda, name):
+    """Layer samples on the card equal the CPU's (``etypes`` too), under both
+    neighbor-table backends, at kappa = 4 (c > 0 from step 1)."""
+    from repro_torch.core import DependentRNG, make_sampler
+
+    g_cpu = rmat_graph(scale=11, edge_factor=8, max_degree=32, num_edge_types=4, device="cpu")
+    g = g_cpu.to(cuda)
+    rng = np.random.default_rng(11)
+    seeds = np.sort(rng.choice(g.num_vertices, 500, replace=False)).astype(np.int32)
+    seeds[-20:] = INVALID
+    s_cpu = torch.from_numpy(seeds)
+    for step in range(3):
+        state = DependentRNG(0, 4, step).state
+        for layer in (0, 1):
+            want = make_sampler(name, fanout=5).sample_layer(g_cpu, s_cpu, state, layer)
+            for backend in ("reference", "fused"):
+                got = make_sampler(name, fanout=5, backend=backend).sample_layer(
+                    g, s_cpu.to(cuda), state, layer)
+                for f in ("seeds", "nbr", "mask", "etypes"):
+                    a, b = getattr(got, f), getattr(want, f)
+                    assert (a is None) == (b is None), f
+                    if a is not None:
+                        assert torch.equal(a.cpu(), b), (f, step, layer, backend)
+    assert int(want.mask.sum()) > 0
+    torch.cuda.synchronize()
 
 
 def test_layer_to_coo_matches_cpu(cuda):

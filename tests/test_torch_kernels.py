@@ -298,6 +298,34 @@ def test_spmm_all_masked_rows_zero_and_empty():
     assert spmm_sum(src, e, e.bool()).shape == (0, 16)
 
 
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("frac", [0.02, 0.4, 1.0])
+def test_spmm_ref_cpu_rows_match_every_row(mean, frac):
+    """On the CPU the plain version adds only the rows with a masked slot;
+    bit for bit (int32 views, so the sign of a zero counts) the same as
+    adding every row's ``w`` slots, with -0.0, inf and NaN in source rows
+    (NaN compared as NaN)."""
+    rng = np.random.default_rng(int(frac * 100) + mean)
+    S, d, n, w = 70, 5, 300, 9
+    src = rng.standard_normal((S, d)).astype(np.float32)
+    src[rng.random((S, d)) < 0.2] = -0.0
+    src[rng.random((S, d)) < 0.05] = np.inf
+    src[rng.random((S, d)) < 0.05] = np.nan
+    idx = rng.integers(-1, S + 2, (n, w)).astype(np.int32)
+    mask = rng.random((n, w)) < frac
+    mask[::7] = False  # rows with no masked slot
+    t = [_t(x) for x in (src, idx, mask)]
+    got = spmm_ref(*t, mean=mean)
+    safe = t[1].clamp(0, S - 1).long()
+    want = torch.zeros((n, d))
+    for k in range(w):
+        want = want + torch.where(t[2][:, k, None], t[0][safe[:, k]], 0.0)
+    if mean:
+        want = want / t[2].sum(dim=1, keepdim=True).clamp(min=1).float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num().view(torch.int32), want.nan_to_num().view(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # seg_softmax (GAT edge softmax) and expand_indptr (layer_to_coo)
 # ---------------------------------------------------------------------------
