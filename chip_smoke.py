@@ -24,7 +24,8 @@ Phases:
    masked slots exactly 0.  Each row names the paths that run its shape
    (the ``spmm`` backward at the last plan layer runs on none: that layer
    reads the raw features) and its launches per batch or step.  Each
-   kernel's device time (CUDA-graph replay) and event time, its plain
+   kernel's device time (CUDA-graph replay, after warm-up replays of at
+   least 10 calls and 20 ms) and event time, its plain
    version's, a library yardstick where one PyTorch call computes the same
    function (timed like the kernel, by graph replay, unless the call syncs
    the device, as ``torch.unique`` does: then by its profiled kernel sum,
@@ -39,8 +40,13 @@ Phases:
    the R-GCN (its ``gather`` at d = 768) and of GraphSAGE with NS, one
    ``plan_at(0)`` each with ``rw`` and ``full``, and the work curves' NS
    plan at batch 1,024 (a row on the same inputs as an earlier row names
-   the new path there).  The ``seg_softmax`` rows print the
-   replaced design's time beside the new one ("was"), the
+   the new path there).  One more ``gather`` row, off the paths, takes
+   262,144 ids drawn from the R-GCN's table, all valid (the valid-row
+   branch, which the paths' 98% padding barely runs).  Each ``gather`` row
+   prints the card's write rate for the same output beside the kernel
+   (``fill_ms``: ``torch.zeros((n, d))`` by graph replay) and checks one
+   launch a call.  The ``seg_softmax`` and on-path ``gather`` rows print
+   the replaced design's time beside the new one ("was"), the
    ``frontier_gather`` rows the replaced design's separate mask op
    (``nbr != INVALID``) by graph replay at the same shape.  The two deepest
    dedups are also timed whole (sort + kernel) beside ``torch.unique``.
@@ -209,6 +215,15 @@ SEG_ATOL, SEG_BWD_ATOL = 1e-6, 1e-6
 # this script measured them on an H100 80GB HBM3 at 700 W (PERF.md)
 SEG_WAS_MS = {"seg_softmax": (0.00330, 0.00407, 0.04430),
               "seg_softmax_backward": (0.00257, 0.00364, 0.03469)}
+# the thread-per-float4 gather kernel that the lane-group design replaced:
+# device ms by graph replay at each path's step-0 input gather (GCN and
+# GraphSAGE d = 64, R-GCN d = 768; n = 1,048,576), as this script measured
+# them on an H100 80GB HBM3 at 700 W (PERF.md)
+GATHER_WAS_MS = {"train": 0.09774, "train_sage": 0.09798, "train_rgcn": 1.18858}
+GATHER_ALL_VALID = 262_144  # ids of the off-path all-valid gather row
+# graph replays before each timed window: at least this many calls, and
+# this many ms of them (graph_ms)
+WARM_CALLS, WARM_MS = 10, 20.0
 
 
 class PhaseError(RuntimeError):
@@ -254,7 +269,12 @@ def capture_stream():
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     """Device time of one call: ``calls`` calls captured in one CUDA graph,
-    replayed ``replays`` times between CUDA events (no host gaps)."""
+    replayed ``replays`` times between CUDA events (no host gaps), after
+    warm-up replays (at least ``WARM_CALLS`` calls and ``WARM_MS`` of them):
+    the first passes of a new graph over the outputs it allocated run slower
+    on the H100, most of all at the gather's 3.2 GB output."""
+    import math
+
     import torch
 
     side = capture_stream()
@@ -271,6 +291,13 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    warm = max(math.ceil(WARM_CALLS / calls), math.ceil(WARM_MS / max(a.elapsed_time(b), 1e-3)))
+    for _ in range(warm):
+        graph.replay()
     a.record()
     for _ in range(replays):
         graph.replay()
@@ -526,6 +553,8 @@ def report_bounds(out: dict) -> None:
                   f"{r['plain_event_ms']:.5f} library {r['library_event_ms']}; "
                   f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (bytes "
                   f"{r['bytes']}, ops {r['ops']})"
+                  + (f"; fill_ms {r['fill_ms']:.5f} (kernel {r['ms'] / r['fill_ms']:.4f} x "
+                     "fill)" if "fill_ms" in r else "")
                   + "".join(f"; {k} {r[k]}" for k in r if k.startswith("extra_")))
 
 
@@ -590,7 +619,7 @@ def phase1_train(engine) -> dict:
     dedups = plan_rows(out, engine, plan, train, per_pe)
     deepest = sorted(dedups, key=lambda t: -t[0].numel())[:2]
     dedup_whole(deepest)
-    add_row(out, "gather", gather_row(engine, plan, train, "1/step"))
+    add_row(out, "gather", gather_row(engine.store.features, plan.input_ids, train, "1/step"))
     caps, L = engine.caps, len(plan.layers)
 
     # spmm at every layer's (S~ rows, owned rows, d_in) for PE 0: the GCN
@@ -709,23 +738,28 @@ def plan_rows(out: dict, engine, plan, paths: list, per: str, tag: str = "",
     return dedups
 
 
-def gather_row(engine, plan, paths: list, per: str):
-    """``gather`` of all PEs' owned input ids of ``plan`` from ``engine``'s
-    feature table against its plain version, equal bit for bit (through
+def gather_row(table, ids, paths: list, per: str):
+    """``gather`` of ``ids`` (a plan's input ids, all PEs) from ``table``
+    against its plain version, equal bit for bit (through
     :func:`shared_row`).  Bytes: the ids, each distinct valid row read
-    once, the output written once."""
+    once, the output written once.  Beside the kernel: the card's own
+    write rate for the same output, ``torch.zeros((n, d))`` by graph
+    replay (``fill_ms``), and the replaced design's time on the path
+    (``extra_was``, ``GATHER_WAS_MS``)."""
     import torch
     from repro_torch.core.graph import INVALID
     from repro_torch.kernels.gather import gather_cuda, gather_ref
 
-    table = engine.store.features
-    ids = plan.input_ids.reshape(-1).contiguous()
+    ids = ids.reshape(-1).contiguous()
 
     def make():
         V, d = table.shape
         n = ids.shape[0]
         got, want = gather_cuda(table, ids), gather_ref(table, ids)
         check(torch.equal(got, want), f"gather V={V} d={d} n={n}: differs from plain")
+        call = lambda: gather_cuda(table, ids)
+        check(launches_per_call("gather", call) == 1, f"gather V={V} d={d} n={n}: not one "
+              "launch a call")
         valid = ids[ids != INVALID]
         rows_read = int(torch.unique(valid).numel())
         clamped = ids.clamp(0, V - 1)
@@ -733,11 +767,14 @@ def gather_row(engine, plan, paths: list, per: str):
         del got, want
         # 5 calls a graph at d = 64; fewer for a wider table (3.2 GB an output at d = 768)
         calls = max(1, 5 * 64 // d)
+        was = GATHER_WAS_MS.get(paths[0]) if paths else None
         return dict(
             shape=f"V={V} d={d} n={n} ({int(valid.numel())} valid)",
             bytes=4 * n + 4 * d * rows_read + 4 * n * d, ops=n, max_abs_err=err,
             paths=paths, per=per,
-            **timings(lambda: gather_cuda(table, ids), lambda: gather_ref(table, ids),
+            fill_ms=graph_ms(lambda: torch.zeros((n, d), device=table.device), calls),
+            **({"extra_was": f"{was} ms (thread per float4)"} if was else {}),
+            **timings(call, lambda: gather_ref(table, ids),
                       lambda: torch.index_select(table, 0, clamped), calls=calls),
         )
 
@@ -752,6 +789,8 @@ def phase1_paths(engine, rgcn_engine, sage_engine, tds, tc) -> dict:
     ``full``, and the work curves' NS plan at the largest batch (first
     trial).  A row on the same inputs as an earlier row names the new path
     there instead."""
+    import numpy as np
+    import torch
     from repro_torch.core.samplers import make_sampler
     from repro_torch.core.theory import sample_work_curve
     from repro_torch.engine import MinibatchEngine
@@ -761,7 +800,13 @@ def phase1_paths(engine, rgcn_engine, sage_engine, tds, tc) -> dict:
     for path, eng, tag in (("train_rgcn", rgcn_engine, "rgcn "), ("train_sage", sage_engine, "ns ")):
         plan = eng.plan_at(0)
         plan_rows(out, eng, plan, [path], f"{P}/step", tag)
-        add_row(out, "gather", gather_row(eng, plan, [path], "1/step"))
+        add_row(out, "gather", gather_row(eng.store.features, plan.input_ids, [path], "1/step"))
+    # off the paths: every id valid, drawn from the R-GCN's table (the
+    # valid-row branch, which the paths' 98% padding barely runs)
+    table = rgcn_engine.store.features
+    ids = np.random.default_rng(SEED + 4).integers(0, table.shape[0], GATHER_ALL_VALID)
+    add_row(out, "gather", gather_row(table, torch.from_numpy(ids.astype(np.int32)).cuda(),
+                                      [], "all ids valid"))
     for sampler in ("rw", "full"):
         eng = MinibatchEngine.from_config(
             tds.graph, dataclasses.replace(tc, sampler=sampler).engine_config(3), dataset=tds,

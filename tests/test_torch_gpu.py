@@ -299,18 +299,84 @@ def test_served_trace_matches_cpu(cuda):
         np.testing.assert_allclose(a.pred, b.pred, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("V,d,n", [(5000, 64, 20000), (300, 7, 1000), (64, 256, 1), (10, 4, 0)])
-def test_gather_matches_plain(cuda, V, d, n):
+def _gather_ids(kind, V, n, rng):
+    """``mixed``: ids in [-3, V + 3) with 10% INVALID; ``head``: a
+    sorted-unique head of 2% of ``n`` and an INVALID tail, as a plan's input
+    ids; ``padding``: all INVALID; ``valid``: all in [0, V);
+    ``interleaved``: half of them INVALID, anywhere; ``out-of-range``:
+    negative and >= V ids among valid ones and INVALID."""
+    if kind == "mixed":
+        ids = rng.integers(-3, V + 3, n).astype(np.int32)
+        ids[rng.random(n) < 0.1] = INVALID
+    elif kind == "head":
+        head = np.sort(rng.choice(V, n // 50, replace=False))
+        ids = np.concatenate([head, np.full(n - len(head), INVALID)])
+    elif kind == "padding":
+        ids = np.full(n, INVALID)
+    else:
+        ids = rng.integers(0, V, n)
+        if kind == "interleaved":
+            ids[rng.random(n) < 0.5] = INVALID
+        elif kind == "out-of-range":
+            pick = rng.random(n)
+            ids[pick < 0.2] = rng.integers(-2**31, 0, int((pick < 0.2).sum()))
+            ids[(pick >= 0.2) & (pick < 0.4)] = rng.integers(
+                V, 2**31 - 1, int(((pick >= 0.2) & (pick < 0.4)).sum()))
+            ids[pick >= 0.9] = INVALID
+    return torch.from_numpy(np.asarray(ids, np.int32))
+
+
+@pytest.mark.parametrize("V,d,n,kind", [
+    pytest.param(5000, 64, 20000, "mixed", id="5000-64-20000"),
+    pytest.param(300, 7, 1000, "mixed", id="300-7-1000"),
+    pytest.param(64, 256, 1, "mixed", id="64-256-1"),
+    pytest.param(10, 4, 0, "mixed", id="10-4-0"),
+    # the R-GCN's width: a plan's sorted-unique owned ids, then 98% padding
+    pytest.param(20000, 768, 50000, "head", id="20000-768-50000-head"),
+    pytest.param(2000, 768, 3000, "padding", id="2000-768-3000-padding"),
+    pytest.param(2000, 768, 3000, "valid", id="2000-768-3000-valid"),
+    pytest.param(300, 768, 0, "mixed", id="300-768-0"),
+    pytest.param(1000, 768, 2000, "out-of-range", id="1000-768-2000-out-of-range"),
+    pytest.param(5000, 64, 20000, "interleaved", id="5000-64-20000-interleaved"),
+    # one float4 a row, and the generic (float) path
+    pytest.param(500, 4, 3000, "mixed", id="500-4-3000"),
+    pytest.param(500, 6, 3000, "mixed", id="500-6-3000"),
+])
+def test_gather_matches_plain(cuda, V, d, n, kind):
     rng = np.random.default_rng(V + d)
     table = torch.from_numpy(rng.standard_normal((V, d)).astype(np.float32)).to(cuda)
-    ids = rng.integers(-3, V + 3, n).astype(np.int32)
-    ids[rng.random(n) < 0.1] = INVALID
-    ids = torch.from_numpy(ids).to(cuda)
-    assert torch.equal(gather(table, ids), gather_ref(table, ids))
-    # an unaligned table view takes the scalar path
+    ids = _gather_ids(kind, V, n, rng).to(cuda)
+    reset_launches()
+    got = gather(table, ids)
+    assert LAUNCHES.get("gather", 0) == (1 if n else 0)
+    assert torch.equal(got, gather_ref(table, ids))
+    # an unaligned table view takes the float path
     if d % 4 == 0 and V > 1:
         view = table.reshape(-1)[1 : 1 + (V - 1) * d].reshape(V - 1, d)
+        assert view.data_ptr() % 16 == 4
         assert torch.equal(gather(view, ids), gather_ref(view, ids))
+    torch.cuda.synchronize()
+
+
+def test_gather_output_past_2_31_elements(cuda):
+    """An output of more than 2**31 floats (d = 1,024, n = 2**21 + 64, 8.6
+    GB): rows past the 2**31st element land where they belong.  Compared
+    with the plain version a chunk of rows at a time, so that the
+    reference's own memory stays small."""
+    V, d, n = 4096, 1024, 2**21 + 64
+    rng = np.random.default_rng(31)
+    table = torch.from_numpy(rng.standard_normal((V, d)).astype(np.float32)).to(cuda)
+    ids = rng.integers(0, V, n).astype(np.int32)
+    ids[rng.random(n) < 0.1] = INVALID
+    ids[-64:] = np.arange(V - 64, V)  # distinct valid rows past element 2**31
+    ids = torch.from_numpy(ids).to(cuda)
+    reset_launches()
+    out = gather(table, ids)
+    assert LAUNCHES.get("gather", 0) == 1
+    assert out.numel() > 2**31
+    chunk = 2**18
+    for i in range(0, n, chunk):
+        assert torch.equal(out[i : i + chunk], gather_ref(table, ids[i : i + chunk])), i
     torch.cuda.synchronize()
 
 

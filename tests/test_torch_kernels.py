@@ -24,6 +24,7 @@ import torch
 import jax
 
 from repro.core import frontier as jfrontier
+from repro.core.feature_loader import FeatureStore as JFeatureStore
 from repro.data.synthetic import rmat_graph
 from repro.kernels.expand_indptr.kernel import expand_indptr_pallas
 from repro.kernels.expand_indptr.ref import expand_indptr_ref as j_expand_ref
@@ -41,7 +42,9 @@ from repro.store.kernel import probe_ref as j_probe_ref
 from repro.store.kernel import tag_probe_pallas
 from repro_torch.kernels.expand_indptr import expand_indptr, expand_indptr_ref
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_ref
+from repro_torch.core import FeatureStore
 from repro_torch.kernels.gather import gather, gather_ref
+from repro_torch.kernels.gather.ops import launch_shape
 from repro_torch.kernels.seg_softmax import (
     seg_softmax,
     seg_softmax_backward_ref,
@@ -222,19 +225,70 @@ def test_tag_probe_duplicate_tags_take_first_way_and_empty():
 # ---------------------------------------------------------------------------
 # gather (feature loading) and spmm (neighbor aggregation)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("V,d,n,page,block_n", [
-    (2048, 128, 512, 512, 512), (4096, 256, 1024, 1024, 512), (1024, 128, 512, 256, 256),
+def _gather_ids(kind, V, n, rng):
+    """``mixed``: ids with 32 INVALID shuffled in; ``head``: a sorted-unique
+    head of 2% of ``n`` and an INVALID tail, as a plan's input ids;
+    ``padding``: all INVALID."""
+    if kind == "mixed":
+        ids = np.concatenate([rng.integers(0, V, n - 32), np.full(32, INVALID)])
+        rng.shuffle(ids)
+    elif kind == "head":
+        head = np.sort(rng.choice(V, n // 50, replace=False))
+        ids = np.concatenate([head, np.full(n - len(head), INVALID)])
+    else:
+        ids = np.full(n, INVALID)
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("V,d,n,page,block_n,kind", [
+    pytest.param(2048, 128, 512, 512, 512, "mixed", id="2048-128-512-512-512"),
+    pytest.param(4096, 256, 1024, 1024, 512, "mixed", id="4096-256-1024-1024-512"),
+    pytest.param(1024, 128, 512, 256, 256, "mixed", id="1024-128-512-256-256"),
+    # the R-GCN's width: a plan's sorted-unique owned ids, then padding
+    pytest.param(1024, 768, 512, 512, 256, "head", id="1024-768-512-512-256-head"),
+    pytest.param(1024, 768, 256, 512, 256, "padding", id="1024-768-256-512-256-padding"),
 ])
-def test_gather_matches_jax_ref_and_pallas(V, d, n, page, block_n):
+def test_gather_matches_jax_ref_and_pallas(V, d, n, page, block_n, kind):
     rng = np.random.default_rng(V + n)
     tab = rng.standard_normal((V, d)).astype(np.float32)
-    ids = np.concatenate([rng.integers(0, V, n - 32), np.full(32, INVALID)]).astype(np.int32)
-    rng.shuffle(ids)
+    ids = _gather_ids(kind, V, n, rng)
     got = gather_ref(_t(tab), _t(ids))
     _eq(got, j_gather_ref(jnp.asarray(tab), jnp.asarray(ids)))
     _eq(got, paged_gather_pallas(jnp.asarray(tab), jnp.asarray(ids), block_n=block_n,
                                  block_d=128, page=page, interpret=True))
     assert torch.equal(gather(_t(tab), _t(ids)), got)
+    if kind == "padding":
+        assert not got.any()
+
+
+def test_feature_store_gather_matches_jax_at_rgcn_width():
+    """The port's ``FeatureStore.gather`` against the JAX one at d = 768 on
+    ``(P, cap)`` input ids as a plan holds them (each PE's sorted-unique
+    owned ids, INVALID after), with -2 and ids past V among them: both
+    clamp those into [0, V) and zero only INVALID."""
+    P, cap, V, d = 4, 64, 300, 768
+    rng = np.random.default_rng(7)
+    tab = rng.standard_normal((V, d)).astype(np.float32)
+    ids = np.full((P, cap), INVALID, np.int32)
+    for p in range(P):
+        head = np.sort(rng.choice(V, 5 + 9 * p, replace=False))
+        ids[p, : len(head)] = head
+    ids[1, 40], ids[2, 3], ids[3, 60] = -2, V + 5, -2
+    got = FeatureStore(_t(tab)).gather(_t(ids))
+    assert got.shape == (P, cap, d)
+    _eq(got, JFeatureStore(jnp.asarray(tab)).gather(jnp.asarray(ids)))
+    assert torch.equal(got[1, 40], _t(tab[0])) and torch.equal(got[2, 3], _t(tab[V - 1]))
+
+
+@pytest.mark.parametrize("d,vec4,want", [
+    (768, True, (32, 6)), (64, True, (16, 1)), (1024, True, (32, 8)), (4, True, (1, 1)),
+    (8192, True, (32, 8)), (6, False, (8, 1)), (7, False, (8, 1)), (768, False, (32, 8)),
+    (1, False, (1, 1)),
+])
+def test_gather_launch_shape(d, vec4, want):
+    """Lanes a row (the next power of two >= the row's columns, at most 32)
+    and columns a lane per row in flight (at most 8) of the CUDA gather."""
+    assert launch_shape(d, vec4) == want
 
 
 def test_gather_out_of_range_and_empty():
