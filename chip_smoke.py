@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and dependent-minibatching
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 0-1 only (a kernel edit's check)
@@ -42,7 +43,13 @@ Phases:
    plan at batch 1,024 (a row on the same inputs as an earlier row names
    the new path there).  One more ``gather`` row, off the paths, takes
    262,144 ids drawn from the R-GCN's table, all valid (the valid-row
-   branch, which the paths' 98% padding barely runs).  Each ``gather`` row
+   branch, which the paths' 98% padding barely runs).  Phase 8's path
+   adds rows: its cooperative κ = 16 plans are the R-GCN's (their rows
+   only gain the path's name), its independent step-0 plan gets
+   ``frontier_gather`` and ``unique_compact`` rows of its own (PE 0), and
+   ``tag_probe`` gets a row at each mode's probe of step 1 (the inputs the
+   tiered store passes, recorded, n = P x the input cap, S = 32,768 sets,
+   W = 8).  Each ``gather`` row
    prints the card's write rate for the same output beside the kernel
    (``fill_ms``: ``torch.zeros((n, d))`` by graph replay) and checks one
    launch a call.  The ``seg_softmax`` and on-path ``gather`` rows print
@@ -117,6 +124,23 @@ Phases:
    CPU's; and the work curves of Thm 3.1/3.2 (``measure_work_curve``, 3
    layers, 2 trials at batch sizes 64, 256 and 1,024) for ``ns``,
    ``labor0``, ``labor*`` and ``rw``, counts equal to the CPU's.
+8. Dependent minibatching (§4.2, the κ sweep of Fig. 5) on phase 6's graph
+   and 768 features: phase 3's engine configuration with the tiered cache
+   on (``CacheConfig(enabled=True)``: 65,536 rows and 8 ways per PE), in
+   cooperative and independent mode (P = 4, local batch 64), at κ = 1,
+   16, 256 and ∞, 16 steps of ``engine.stream(16, prefetch=2,
+   fetch_features=True)`` each.  Every step's ``plan.input_ids`` go to the
+   exact LRU oracle (``CooperativeCacheArray``, host), a card
+   ``ClockCache`` and a CPU ``ClockCache``, and in independent mode to
+   ``count_duplicates_across_pes``.  Checked: at every (mode, κ) the card
+   ``ClockCache``'s per-PE hits, misses and requests equal the engine's
+   tiered store's and the CPU replay's; at κ = 16 the first 4 items of a
+   ``prefetch=0`` stream equal the ``prefetch=2`` stream's and the first
+   2 equal a CPU stream's (integer plan leaves, seeds, features bit for
+   bit, and the tiered counters); the LRU miss rate at κ = ∞ is below the
+   one at κ = 1 in both modes.  Printed: miss rates, the CLOCK-LRU gap,
+   the κ = 1/∞ ratio, rows fetched host->device, duplicates, wall ms per
+   step (prefetch 0 against 2 at κ = 16), launches per step, peak memory.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, at its largest shape on a path; the last line is ``{"ok": true,
@@ -199,6 +223,7 @@ PATH_KERNELS = {
     "plan_rw": ("unique_compact",),
     "plan_full": ("frontier_gather", "unique_compact"),
     "curves": ("frontier_gather",),
+    "dependent": ("frontier_gather", "unique_compact", "tag_probe"),
 }
 # the R-GCN of phase 6: the JAX package's mag240M widths
 # (src/repro/launch/gnn_dryrun.py, SCALE_MAG)
@@ -224,6 +249,11 @@ GATHER_ALL_VALID = 262_144  # ids of the off-path all-valid gather row
 # graph replays before each timed window: at least this many calls, and
 # this many ms of them (graph_ms)
 WARM_CALLS, WARM_MS = 10, 20.0
+PROFILE_TRIES = 3  # traces profiled_kernels takes while they hold no CUDA record
+# phase 8: the κ sweep (None is κ = ∞), steps per (mode, κ), and at κ = 16
+# the items held against prefetch 0 and against the CPU
+DEP_MODES, DEP_KAPPAS, DEP_STEPS = ("cooperative", "independent"), (1, 16, 256, None), 16
+DEP_PREFETCH_ITEMS, DEP_CPU_ITEMS = 4, 2
 
 
 class PhaseError(RuntimeError):
@@ -322,7 +352,10 @@ def cuda_kernel_us(prof) -> list:
 
 def profiled_kernels(fn, iters: int = 20) -> list:
     """(device us, launches, name) per call of each kernel (and memset) that
-    ``fn`` launches, from a torch.profiler trace."""
+    ``fn`` launches, from a torch.profiler trace.  The card machine's tracer
+    drops kernel records, and once dropped every record of a trace: a trace
+    with no CUDA record at all is taken again, up to ``PROFILE_TRIES`` times
+    (the callers' checks then see the new trace)."""
     import re
 
     import torch
@@ -330,14 +363,18 @@ def profiled_kernels(fn, iters: int = 20) -> list:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = []
-    for us, count, key in cuda_kernel_us(prof):
-        name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
-        out.append((us / iters, count / iters, name.group(1) if name else key[:24]))
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = []
+        for us, count, key in cuda_kernel_us(prof):
+            name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
+            out.append((us / iters, count / iters, name.group(1) if name else key[:24]))
+        if out:
+            return out
+        print(f"profiler: no CUDA record in trace {attempt + 1} of {PROFILE_TRIES}", flush=True)
     return out
 
 
@@ -469,7 +506,7 @@ def phase1(ds, caps, cache_rows: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.graph import INVALID
-    from repro_torch.store import hash_set, probe_ref, tag_probe_cuda
+    from repro_torch.store import hash_set
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -507,30 +544,41 @@ def phase1(ds, caps, cache_rows: int) -> dict:
     sets = hash_set(ids_t, S)
     hit = rng.random(len(ids)) < 0.5
     tags[sets.cpu().numpy()[hit], rng.integers(0, W, hit.sum())] = ids[hit]
-    tags_t = torch.from_numpy(tags).to(dev)
-    n = len(ids)
-    got = tag_probe_cuda(tags_t, sets, ids_t)
-    want = probe_ref(tags_t, sets, ids_t)
-    err = int((got != want).sum())
-    check(err == 0, f"tag_probe n={n}: {err} entries differ from plain")
-    call = lambda: tag_probe_cuda(tags_t, sets, ids_t)
-    split = profiled_kernels(call)
-    check(len(split) == 1 and split[0][1] <= 1 and "tag_probe" in split[0][2]
-          and launches_per_call("tag_probe", call) == 1,
-          f"tag_probe: not one kernel a call: {split}")
-    nbytes = 4 * n * 3 + 4 * W * int(torch.unique(sets).numel())
-    # per id: the row address, then one compare per way up to the first match
-    ops = n + int(torch.where(want >= 0, want + 1, W).sum())
-    out["tag_probe"] = [dict(
-        shape=f"n={n} S={S} W={W}", bytes=nbytes, ops=ops,
-        max_abs_err=max_abs_err(got, want), paths=["serve"], per="1/batch",
-        extra_split=kernel_split(split),
-        **timings(lambda: tag_probe_cuda(tags_t, sets, ids_t),
-                  lambda: probe_ref(tags_t, sets, ids_t)),
-    )]
+    out["tag_probe"] = [probe_row(torch.from_numpy(tags).to(dev), sets, ids_t, ["serve"],
+                                  "1/batch", "serve")]
 
     report_bounds(out)
     return out
+
+
+def probe_row(tags, sets, ids, paths: list, per: str, label: str) -> dict:
+    """``tag_probe`` on ``(tags (S, W), sets, ids)`` against its plain
+    version, equal bit for bit, from one CUDA kernel a call.  Bytes: the
+    ids and sets read and the ways written once, each probed set's W tags
+    read once; operations: per id the row address, then one compare per
+    way up to the first match."""
+    import torch
+    from repro_torch.store import probe_ref, tag_probe_cuda
+
+    S, W = tags.shape
+    n = ids.shape[0]
+    got = tag_probe_cuda(tags, sets, ids)
+    want = probe_ref(tags, sets, ids)
+    err = int((got != want).sum())
+    check(err == 0, f"tag_probe {label} n={n}: {err} entries differ from plain")
+    call = lambda: tag_probe_cuda(tags, sets, ids)
+    split = profiled_kernels(call)
+    check(len(split) == 1 and split[0][1] <= 1 and "tag_probe" in split[0][2]
+          and launches_per_call("tag_probe", call) == 1,
+          f"tag_probe {label}: not one kernel a call: {split}")
+    return dict(
+        shape=f"{label}: n={n} S={S} W={W} hits={int((want >= 0).sum())}",
+        bytes=4 * n * 3 + 4 * W * int(torch.unique(sets).numel()),
+        ops=n + int(torch.where(want >= 0, want + 1, W).sum()),
+        max_abs_err=max_abs_err(got, want), paths=paths, per=per,
+        extra_split=kernel_split(split),
+        **timings(call, lambda: probe_ref(tags, sets, ids)),
+    )
 
 
 def report_bounds(out: dict) -> None:
@@ -825,6 +873,73 @@ def phase1_paths(engine, rgcn_engine, sage_engine, tds, tc) -> dict:
                                  f"ns curve batch {CURVE_BATCHES[-1]} layer {l}")))
     report_bounds(out)
     return out
+
+
+def phase1_dependent(dep_engines: dict, P: int) -> dict:
+    """The kernels of phase 8's path at its shapes: step 0's plan of each
+    mode (``dep_engines``, κ = 16, cache on; the cooperative plan is the
+    R-GCN's, so its rows only gain the path's name) and ``tag_probe`` at
+    each mode's probe of step 1."""
+    out = {}
+    for mode, eng in dep_engines.items():
+        plan = eng.plan_at(0)
+        if mode == "cooperative":
+            plan_rows(out, eng, plan, ["dependent"], f"{P}/step", "dependent ")
+        else:
+            independent_rows(out, eng, plan, ["dependent"], f"{P}/step", "independent ")
+        tags, sets, ids = recorded_probe(eng, plan)
+        # the tiered store's probe and the ClockCache's, which holds the same state
+        add_row(out, "tag_probe", probe_row(tags, sets, ids, ["dependent"], "2/step",
+                                            f"dependent {mode} step 1"))
+    report_bounds(out)
+    return out
+
+
+def independent_rows(out: dict, engine, plan, paths: list, per: str, tag: str) -> None:
+    """Rows of ``frontier_gather`` at PE 0's frontier of every layer of a
+    stacked independent ``plan`` and of ``unique_compact`` at PE 0's
+    dedups in ``build_minibatch`` (the seeds; per hop, the frontier with
+    its sampled neighbors, rebuilt from the plan), added to ``out``."""
+    import torch
+    from repro_torch.core.graph import INVALID
+
+    g, caps, L = engine.graph, engine.caps, len(plan.layers)
+    dedups = [(torch.from_numpy(engine.seed_batch(0)[0]).to(g.indptr.device), caps[0], "seeds")]
+    for l, layer in enumerate(plan.layers):
+        seeds = layer.seeds[0].contiguous()
+        add_row(out, "frontier_gather", shared_row(
+            "frontier_gather", (g.indptr, g.indices, seeds), paths, per,
+            lambda: frontier_row(g, seeds, paths, per, f"{tag}layer {l}")))
+        nxt = plan.layers[l + 1].seeds[0] if l + 1 < L else plan.input_ids[0]
+        nbr = torch.where(layer.mask[0], nxt[layer.nbr_idx[0].clamp(min=0).long()], INVALID)
+        dedups.append((torch.cat([layer.seeds[0], nbr.reshape(-1)]), caps[l + 1], f"hop {l}"))
+    for ids, cap, label in dedups:
+        ids = ids.contiguous()
+        add_row(out, "unique_compact", shared_row(
+            "unique_compact", (ids, cap), paths, per,
+            lambda: dedup_row(ids, cap, paths, per, f"{tag}{label}")))
+
+
+def recorded_probe(engine, plan0) -> tuple:
+    """The ``tag_probe`` inputs ``(tags, sets, ids)`` that the engine's
+    tiered store passes at step 1, after step 0's gather: recorded by a
+    wrapper around the probe for one ``gather_features`` call."""
+    import repro_torch.store.clock as clock
+
+    engine.gather_features(plan0)
+    seen, probe = [], clock.tag_probe
+
+    def record(tags, sets, ids):
+        seen.append((tags.clone(), sets.clone(), ids.clone()))
+        return probe(tags, sets, ids)
+
+    clock.tag_probe = record
+    try:
+        engine.gather_features(engine.plan_at(1))
+    finally:
+        clock.tag_probe = probe
+    check(len(seen) == 1, f"{len(seen)} tag_probe calls in one tiered gather, want 1")
+    return seen[0]
 
 
 def phase1_mean(rgcn_engine, sage_engine) -> dict:
@@ -1259,12 +1374,13 @@ def profile_serve(server, trace) -> None:
 # phase 3
 # --------------------------------------------------------------------------
 def int_leaves(plan) -> dict:
-    """Every integer (and bool) leaf of a cooperative plan, by name."""
+    """Every integer (and bool) leaf of a plan (cooperative or stacked
+    independent), by name."""
     out = {"input_ids": plan.input_ids, "seed_ids": plan.seed_ids}
     for l, layer in enumerate(plan.layers):
         for name in ("seeds", "self_idx", "nbr_idx", "mask", "etypes",
                      "slot_to_tilde", "req_idx", "tilde_ids"):
-            if getattr(layer, name) is not None:
+            if getattr(layer, name, None) is not None:
                 out[f"{name}{l}"] = getattr(layer, name)
     return out
 
@@ -1519,6 +1635,178 @@ def phase_curves(graph) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 8
+# --------------------------------------------------------------------------
+def dependent_config(tc, mode: str, kappa):
+    """Phase 3's engine configuration (3 layers) in ``mode`` at ``kappa``,
+    with the tiered cache on (V // 4 rows and 8 ways per PE)."""
+    from repro_torch.engine import CacheConfig, EngineConfig
+
+    return EngineConfig(
+        mode=mode, num_pes=tc.num_pes, local_batch=tc.local_batch, num_layers=3,
+        sampler=tc.sampler, fanout=tc.fanout, schedule=tc.schedule, kappa=kappa,
+        partition=tc.partition, seed=tc.seed, plan_backend=tc.plan_backend,
+        executor=tc.executor, cache=CacheConfig(enabled=True),
+    )
+
+
+def same_items(a, b, what: str) -> None:
+    """Two stream items equal: step, seeds, every integer plan leaf and the
+    features, bit for bit (``b`` may live on the CPU)."""
+    import numpy as np
+    import torch
+
+    check(a.step == b.step, f"{what}: step {a.step} != {b.step}")
+    check(np.array_equal(a.seeds, b.seeds), f"{what} step {a.step}: seeds differ")
+    la, lb = int_leaves(a.plan), int_leaves(b.plan)
+    check(set(la) == set(lb), f"{what} step {a.step}: plan leaves {sorted(la)} vs {sorted(lb)}")
+    for name in la:
+        check(la[name].dtype == lb[name].dtype and torch.equal(la[name].cpu(), lb[name].cpu()),
+              f"{what} step {a.step}: plan leaf {name} differs")
+    check(a.features.shape == b.features.shape
+          and torch.equal(a.features, b.features.to(a.features.device)),
+          f"{what} step {a.step}: features differ")
+
+
+def clock_counters(state) -> tuple:
+    """Per-PE (hits, misses, requested) of a CLOCK state, as host lists."""
+    return tuple(tuple(getattr(state, k).cpu().tolist()) for k in ("hits", "misses", "requested"))
+
+
+def lap(split: dict, key: str, t0: float) -> float:
+    """Add the ms since ``t0`` to ``split[key]``; returns the time now."""
+    now = time.perf_counter()
+    split[key] += 1e3 * (now - t0)
+    return now
+
+
+def phase_dependent(ds, tc) -> dict:
+    """Phase 8: the κ sweep of §4.2 through ``engine.stream(fetch_features=
+    True)``, consumed by the LRU oracle, a card and a CPU ``ClockCache``
+    (and, in independent mode, ``count_duplicates_across_pes``), with the
+    checks of the module docstring.  Counters are zeroed at the start and
+    read at the end: every card run of the phase is the path.  Returns the
+    launches."""
+    import torch
+    from repro_torch.core import INVALID, CooperativeCacheArray
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.store import ClockCache, unique_rows
+
+    t_phase = time.perf_counter()
+    P = tc.num_pes
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    lru_rate = {}
+    for mode in DEP_MODES:
+        for kappa in DEP_KAPPAS:
+            tag = f"phase8 {mode} kappa={kappa if kappa else 'inf'}"
+            cfg = dependent_config(tc, mode, kappa)
+            t0 = time.perf_counter()
+            engine = MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device="cuda")
+            setup_s = time.perf_counter() - t0
+            tiered = engine.tiered
+            rows, ways = tiered.capacity, tiered.ways
+            lru = CooperativeCacheArray(P, rows)
+            card, cpu = (ClockCache(rows, ways, num_pes=P, device=d) for d in ("cuda", "cpu"))
+            before = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+            kept, walls, dups = [], [], 0
+            split = dict.fromkeys(("compact", "lru", "card clock", "cpu clock", "dups"), 0.0)
+            it = iter(engine.stream(DEP_STEPS, prefetch=2, fetch_features=True))
+            for step in range(DEP_STEPS):
+                t0 = time.perf_counter()
+                item = next(it)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                ids = item.plan.input_ids
+                # the host consumers take each PE's sorted unique ids with the
+                # INVALID padding cut: the same accesses, a few thousand ids
+                # a PE where the plan pads to 262,144
+                t0 = time.perf_counter()
+                uniq = unique_rows(ids)
+                host_ids = uniq[:, :int((uniq != INVALID).sum(1).max())].cpu()
+                t0 = lap(split, "compact", t0)
+                lru.access(host_ids)
+                t0 = lap(split, "lru", t0)
+                card.access(ids)
+                t0 = lap(split, "card clock", t0)
+                cpu.access(host_ids)
+                t0 = lap(split, "cpu clock", t0)
+                if mode == "independent":
+                    dups += engine.store.count_duplicates_across_pes(host_ids)
+                    lap(split, "dups", t0)
+                if kappa == 16 and step < DEP_PREFETCH_ITEMS:
+                    kept.append(item)
+            torch.cuda.synchronize()
+            per = {k: (LAUNCHES.get(k, 0) - before[k]) / DEP_STEPS
+                   for k in PATH_KERNELS["dependent"]}
+            check(per["tag_probe"] == 2, f"{tag}: {per['tag_probe']} tag_probe launches a "
+                  "step, want 2 (the tiered store's and the ClockCache's)")
+            counters = {"tiered": clock_counters(tiered.state), "card ClockCache":
+                        clock_counters(card.state), "cpu ClockCache": clock_counters(cpu.state)}
+            check(len(set(counters.values())) == 1,
+                  f"{tag}: per-PE (hits, misses, requested) differ: {counters}")
+            lru_rate[mode, kappa] = lru.miss_rate
+            mb = tiered.fetched_rows * tiered.host.shape[1] * tiered.host.element_size() / 1e6
+            print(f"{tag}: LRU miss rate {lru.miss_rate:.6f}, CLOCK {card.miss_rate:.6f} (gap "
+                  f"{card.miss_rate - lru.miss_rate:+.6f}); per-PE (hits, misses, requested) "
+                  f"{counters['tiered']} equal in the tiered store and both ClockCaches; "
+                  f"fetched rows {tiered.fetched_rows} ({tiered.fetched_rows / DEP_STEPS:.1f} a "
+                  f"step, {mb / DEP_STEPS:.2f} MB a step)"
+                  + (f"; duplicate fetches across PEs {dups} ({dups / DEP_STEPS:.1f} a step)"
+                     if mode == "independent" else "")
+                  + f"; wall ms a stream step (prefetch 2) mean {sum(walls) / DEP_STEPS:.3f} "
+                  f"[{min(walls):.3f}-{max(walls):.3f}]; consumers ms a step "
+                  + ", ".join(f"{k} {v / DEP_STEPS:.3f}" for k, v in split.items() if v)
+                  + f"; launches a step {per}; engine set-up {setup_s:.2f} s")
+            if kappa != 16:
+                continue
+            # prefetch 0 against prefetch 2 on a fresh engine; at prefetch 0
+            # item i is yielded after exactly i + 1 gathers, so its store is
+            # read after as many gathers as the CPU stream's below
+            fresh = MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device="cuda")
+            p0_walls, it = [], iter(fresh.stream(DEP_PREFETCH_ITEMS, prefetch=0,
+                                                 fetch_features=True))
+            for i, a in enumerate(kept):
+                t0 = time.perf_counter()
+                b = next(it)
+                torch.cuda.synchronize()
+                p0_walls.append(1e3 * (time.perf_counter() - t0))
+                same_items(a, b, f"{tag} prefetch 2 vs 0")
+                if i == DEP_CPU_ITEMS - 1:
+                    got = clock_counters(fresh.tiered.state) + (fresh.tiered.fetched_rows,)
+            t0 = time.perf_counter()
+            host = MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device="cpu")
+            cpu_items = list(host.stream(DEP_CPU_ITEMS, prefetch=0, fetch_features=True))
+            cpu_s = time.perf_counter() - t0
+            for a, b in zip(kept, cpu_items):
+                same_items(a, b, f"{tag} card vs cpu")
+            want = clock_counters(host.tiered.state) + (host.tiered.fetched_rows,)
+            check(got == want, f"{tag}: tiered counters card {got} != cpu {want}")
+            print(f"{tag}: the first {DEP_PREFETCH_ITEMS} items equal at prefetch 0 and 2, the "
+                  f"first {DEP_CPU_ITEMS} equal to the CPU's ({cpu_s:.2f} s), tiered counters "
+                  f"after {DEP_CPU_ITEMS} gathers equal (per-PE hits, misses, requested; "
+                  f"fetched rows {got[-1]}); wall ms a stream step prefetch 0 mean "
+                  f"{sum(p0_walls) / len(p0_walls):.3f} [{min(p0_walls):.3f}-{max(p0_walls):.3f}]"
+                  f" over {DEP_PREFETCH_ITEMS} steps against prefetch 2 "
+                  f"{sum(walls) / DEP_STEPS:.3f} over {DEP_STEPS} (the first next() builds 2 "
+                  "items)")
+            del kept, a, b, it, cpu_items, fresh, host
+        r1, rinf = lru_rate[mode, 1], lru_rate[mode, None]
+        print(f"phase8 {mode}: LRU miss rate kappa=1 {r1:.6f}, kappa=inf {rinf:.6f}, ratio "
+              f"{r1 / rinf if rinf else float('inf'):.4f}")
+        check(rinf < r1, f"phase8 {mode}: LRU miss rate at kappa=inf {rinf} is not below "
+              f"kappa=1's {r1}")
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    for k in PATH_KERNELS["dependent"]:
+        check(launches[k] > 0, f"kernel {k} was not launched on the dependent path")
+    print(f"phase8: {time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
+    return launches
+
+
 # kernels of the redesigned wrappers, by name in a profile (the spmm
 # backward's scan kernel comes from scan.cuh), every torch.sort of a step
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
@@ -1603,6 +1891,7 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
 
 
 def main(argv: list) -> int:
+    t_start = time.perf_counter()
     kernels_only = argv == ["--kernels-only"]
     if argv and not kernels_only:
         print(f"usage: {sys.argv[0]} [--kernels-only]", file=sys.stderr)
@@ -1682,14 +1971,18 @@ def main(argv: list) -> int:
               f"relation counts {rds.graph.edge_types.bincount().tolist()}, features "
               f"{rds.features.shape}, in {time.perf_counter() - t0:.1f} s; NS row width "
               f"w={sage_engine.sampler.row_width(sage_engine.graph)}")
+        dep_engines = {mode: MinibatchEngine.from_config(
+            rds.graph, dependent_config(tc, mode, 16), dataset=rds, device="cuda")
+            for mode in DEP_MODES}
         t0 = time.perf_counter()
         k = phase1(ds, caps, cache_rows)
         for rows in (phase1_train(engine), phase1_mean(rgcn_engine, sage_engine),
-                     phase1_paths(engine, rgcn_engine, sage_engine, tds, tc)):
+                     phase1_paths(engine, rgcn_engine, sage_engine, tds, tc),
+                     phase1_dependent(dep_engines, tc.num_pes)):
             for name, r in rows.items():
                 k[name] = k.get(name, []) + r
         print(f"phase1: {sum(map(len, k.values()))} rows in {time.perf_counter() - t0:.1f} s")
-        del engine, rgcn_engine, sage_engine
+        del engine, rgcn_engine, sage_engine, dep_engines
         ROWS_BY_INPUT.clear()  # the rows' inputs (a 0.8 GB feature table among them)
         if kernels_only:
             print("chip_smoke: --kernels-only: phases 0-1 done, no result line")
@@ -1708,11 +2001,12 @@ def main(argv: list) -> int:
         del gat
         launches["train_rgcn"] = phase_train("phase6", "train_rgcn", rds, rgcn_cfg, tc,
                                              cpu_steps=RGCN_CPU_STEPS)["launches"]
-        del rds
         launches["train_sage"] = phase_train("phase7", "train_sage", tds, sage_cfg,
                                              ns_tc)["launches"]
         launches.update(phase_plans(tds, tc))
         launches["curves"] = phase_curves(tg)
+        launches["dependent"] = phase_dependent(rds, tc)
+        del rds
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1732,6 +2026,7 @@ def main(argv: list) -> int:
             "shape": r["shape"], "paths": r["paths"],
             "event_ms": r["event_ms"], "plain_event_ms": r["plain_event_ms"],
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

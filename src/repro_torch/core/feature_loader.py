@@ -34,3 +34,12 @@ class FeatureStore:
             u = np.unique(ids)
             return int((u != INVALID).sum())
         return sum(self.count_fetched(row) for row in ids)
+
+    def count_duplicates_across_pes(self, per_pe_ids) -> int:
+        """Extra fetches Independent pays vs a perfectly-shared fetch."""
+        if isinstance(per_pe_ids, torch.Tensor):
+            per_pe_ids = per_pe_ids.cpu().numpy()
+        per_pe_ids = np.asarray(per_pe_ids)
+        per_pe_unique = self.count_fetched(per_pe_ids)
+        global_unique = int((np.unique(per_pe_ids.ravel()) != INVALID).sum())
+        return per_pe_unique - global_unique

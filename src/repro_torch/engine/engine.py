@@ -6,8 +6,8 @@ training computation under two minibatching modes at identical global
 batch size.  ``from_config`` derives the sampler, capacity plan,
 partition, executor and feature stores from one :class:`EngineConfig`;
 ``seed_batch``/``plan_at`` draw the step's seeds and build its plan;
-``apply_model`` holds the one mode dispatch (per-PE apply vs all-to-all
-redistribution).
+``stream`` iterates over steps (:class:`MinibatchStream`); ``apply_model``
+holds the one mode dispatch (per-PE apply vs all-to-all redistribution).
 
 Dependency schedules (§3.2 + A.7): ``iid`` (fresh seed per step),
 ``smoothed`` (κ-window RNG interpolation) and ``nested`` (κ sub-batches
@@ -45,6 +45,7 @@ from repro_torch.core.samplers.base import Sampler, make_sampler
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.plan import Plan
+from repro_torch.engine.stream import MinibatchStream
 from repro_torch.store.tiers import TieredFeatureStore
 
 _GOLDEN = 0x9E3779B9
@@ -108,7 +109,7 @@ class MinibatchEngine:
             if cfg.executor != "sim":
                 raise NotImplementedError(
                     "executor='shard' (multi-device cooperative execution) is "
-                    "not ported to repro_torch yet (ROADMAP.md queue A, item A7)"
+                    "not ported to repro_torch yet (ROADMAP.md queue A, item A11)"
                 )
             caps = CoopCapacityPlan.geometric(
                 cfg.local_batch, cfg.num_layers, cfg.fanout, V, cfg.num_pes,
@@ -308,3 +309,19 @@ class MinibatchEngine:
         if plan.input_ids.ndim > 1:  # stacked (P, ...) independent plans
             return gnn_apply_stacked(model, gnn_cfg, plan.layers, H)
         return gnn_apply(model, gnn_cfg, plan.layers, H)
+
+    # ------------------------------------------------------------------
+    # Streaming
+    # ------------------------------------------------------------------
+    def stream(
+        self,
+        num_steps: int,
+        start_step: int = 0,
+        prefetch: int = 2,
+        fetch_features: bool = False,
+    ) -> MinibatchStream:
+        """Iterator over :class:`StreamItem` (plan, rng, seeds, step and,
+        with ``fetch_features``, the input features through the tiered
+        store when configured), ``prefetch`` items built ahead (see
+        :class:`MinibatchStream`)."""
+        return MinibatchStream(self, num_steps, start_step, prefetch, fetch_features)

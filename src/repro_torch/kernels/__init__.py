@@ -3,7 +3,9 @@
 Each kernel ships as a ``.cu`` source with a plain C interface, an
 ``ops.py`` wrapper (plain torch version for CPU tensors, the kernel for
 CUDA tensors, a launch counter) and a ``ref.py`` plain version.  The
-build lives in :mod:`repro_torch.kernels._build`.
+build lives in :mod:`repro_torch.kernels._build`.  A wrapper given inputs
+its kernel does not take raises :class:`KernelContractError`
+(:mod:`repro_torch.kernels.errors`, a ``ValueError``).
 
 Ported so far (TPU kernel it replaces in brackets):
 
@@ -23,6 +25,7 @@ Ported so far (TPU kernel it replaces in brackets):
   :mod:`repro_torch.store.kernel` [``repro/store/kernel.py``].
 """
 from repro_torch.kernels._build import LAUNCHES, reset_launches
+from repro_torch.kernels.errors import KernelContractError, require_divisible
 from repro_torch.kernels.expand_indptr.ops import expand_indptr
 from repro_torch.kernels.frontier_gather.ops import frontier_gather
 from repro_torch.kernels.gather.ops import gather
@@ -31,6 +34,7 @@ from repro_torch.kernels.spmm.ops import spmm_mean, spmm_sum
 from repro_torch.kernels.unique_compact.ops import unique_compact, unique_with_inverse
 
 __all__ = [
-    "LAUNCHES", "expand_indptr", "frontier_gather", "gather", "reset_launches",
-    "seg_softmax", "spmm_mean", "spmm_sum", "unique_compact", "unique_with_inverse",
+    "KernelContractError", "LAUNCHES", "expand_indptr", "frontier_gather", "gather",
+    "require_divisible", "reset_launches", "seg_softmax", "spmm_mean", "spmm_sum",
+    "unique_compact", "unique_with_inverse",
 ]

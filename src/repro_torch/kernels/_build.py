@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.errors import KernelContractError
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = [
@@ -155,14 +157,16 @@ def call_int(name: str, fn: str, *args: int) -> int:
 
 
 def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
+    """Raise :class:`KernelContractError` unless every tensor is a
+    contiguous CUDA tensor of ``dtype``."""
     for key, t in tensors.items():
         if t.device.type != "cuda":
-            raise ValueError(f"{kernel}: {key} is on {t.device}, not CUDA")
+            raise KernelContractError(kernel, f"{key} is on {t.device}, not CUDA")
         if t.dtype != dtype:
-            raise ValueError(f"{kernel}: {key} has dtype {t.dtype}, not {dtype}")
+            raise KernelContractError(kernel, f"{key} has dtype {t.dtype}, not {dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {key} is not contiguous")
+            raise KernelContractError(kernel, f"{key} is not contiguous",
+                                      {"stride": tuple(t.stride())})
 
 
 def require_cuda_int32(kernel: str, **tensors: torch.Tensor) -> None:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.errors import KernelContractError
 from repro_torch.kernels.frontier_gather.ref import frontier_gather_ref
 
 
@@ -21,6 +22,9 @@ def frontier_gather_cuda(
     _build.require_cuda_int32(
         "frontier_gather", indptr=indptr, indices=indices, seeds=seeds
     )
+    if seeds.ndim != 1 or max_degree < 0:
+        raise KernelContractError("frontier_gather", "want (n,) seeds and max_degree >= 0",
+                                  {"seeds": tuple(seeds.shape), "max_degree": max_degree})
     (n,) = seeds.shape
     nbr = torch.empty((n, max_degree), dtype=torch.int32, device=seeds.device)
     mask = torch.empty((n, max_degree), dtype=torch.bool, device=seeds.device)
@@ -42,5 +46,5 @@ def frontier_gather(
     if seeds.device.type == "cpu":
         return frontier_gather_ref(indptr, indices, seeds, max_degree)
     if seeds.device.type != "cuda":
-        raise ValueError(f"frontier_gather: unsupported device {seeds.device}")
+        raise KernelContractError("frontier_gather", f"unsupported device {seeds.device}")
     return frontier_gather_cuda(indptr, indices, seeds.contiguous(), max_degree)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.errors import KernelContractError
 from repro_torch.kernels.gather.ref import gather_ref
 
 MAX_K = 8  # the widest instantiation: 8 columns a lane per row
@@ -32,10 +33,8 @@ def gather_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     _build.require_cuda("gather", torch.float32, table=table)
     _build.require_cuda_int32("gather", ids=ids)
     if table.ndim != 2 or ids.ndim != 1:
-        raise ValueError(
-            f"gather: want a (V, d) table and (n,) ids, got {tuple(table.shape)} "
-            f"and {tuple(ids.shape)}"
-        )
+        raise KernelContractError("gather", "want a (V, d) table and (n,) ids",
+                                  {"table": tuple(table.shape), "ids": tuple(ids.shape)})
     V, d = table.shape
     (n,) = ids.shape
     out = torch.empty((n, d), dtype=table.dtype, device=table.device)
@@ -52,6 +51,6 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if ids.device.type == "cpu":
         return gather_ref(table, ids)
     if ids.device.type != "cuda":
-        raise ValueError(f"gather: unsupported device {ids.device}")
+        raise KernelContractError("gather", f"unsupported device {ids.device}")
     out = gather_cuda(table.contiguous(), ids.reshape(-1).contiguous())
     return out.reshape(*ids.shape, table.shape[1])

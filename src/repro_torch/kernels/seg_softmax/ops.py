@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.errors import KernelContractError
 from repro_torch.kernels.seg_softmax.ref import seg_softmax_backward_ref, seg_softmax_ref
 
 ALIGN = 16
@@ -22,12 +23,13 @@ def _check(kernel: str, mask: torch.Tensor, **floats: torch.Tensor):
     _build.require_cuda(kernel, torch.bool, mask=mask)
     for key, t in floats.items():
         if t.ndim not in (2, 3) or tuple(t.shape[:2]) != tuple(mask.shape):
-            raise ValueError(
-                f"{kernel}: want (n, w) or (n, w, h) {key} over an (n, w) mask, got "
-                f"{tuple(t.shape)} and {tuple(mask.shape)}"
+            raise KernelContractError(
+                kernel, f"want (n, w) or (n, w, h) {key} over an (n, w) mask",
+                {key: tuple(t.shape), "mask": tuple(mask.shape)},
             )
         if t.data_ptr() % ALIGN:  # the kernels load and store 16 bytes at a time
-            raise ValueError(f"{kernel}: {key} is not {ALIGN}-byte aligned")
+            raise KernelContractError(kernel, f"{key} is not {ALIGN}-byte aligned",
+                                      {"address": t.data_ptr()})
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -56,8 +58,8 @@ def seg_softmax_backward_cuda(alpha: torch.Tensor, grad: torch.Tensor,
     """Gradient of the logits from the CUDA backward kernel."""
     _check("seg_softmax_backward", mask, alpha=alpha, grad=grad)
     if alpha.shape != grad.shape:
-        raise ValueError(f"seg_softmax_backward: alpha {tuple(alpha.shape)} != grad "
-                         f"{tuple(grad.shape)}")
+        raise KernelContractError("seg_softmax_backward", "alpha and grad differ in shape",
+                                  {"alpha": tuple(alpha.shape), "grad": tuple(grad.shape)})
     out = torch.empty_like(alpha)
     if alpha.numel():
         _build.launch("seg_softmax", "seg_softmax_backward_launch", alpha, grad, mask, out,
@@ -67,7 +69,7 @@ def seg_softmax_backward_cuda(alpha: torch.Tensor, grad: torch.Tensor,
 
 def _on_cpu(t: torch.Tensor, kernel: str) -> bool:
     if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: unsupported device {t.device}")
+        raise KernelContractError(kernel, f"unsupported device {t.device}")
     return t.device.type == "cpu"
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.errors import KernelContractError
 from repro_torch.kernels.spmm.ref import spmm_backward_ref, spmm_ref
 
 
@@ -19,9 +20,10 @@ def _check(kernel: str, rows: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.T
     _build.require_cuda_int32(kernel, nbr_idx=nbr_idx)
     _build.require_cuda(kernel, torch.bool, mask=mask)
     if rows.ndim != 2 or nbr_idx.ndim != 2 or mask.shape != nbr_idx.shape:
-        raise ValueError(
-            f"{kernel}: want (rows, d), (n, w) indices and an (n, w) mask, got "
-            f"{tuple(rows.shape)}, {tuple(nbr_idx.shape)}, {tuple(mask.shape)}"
+        raise KernelContractError(
+            kernel, "want (rows, d), (n, w) indices and an (n, w) mask",
+            {"rows": tuple(rows.shape), "nbr_idx": tuple(nbr_idx.shape),
+             "mask": tuple(mask.shape)},
         )
 
 
@@ -32,7 +34,8 @@ def spmm_cuda(src: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.Tensor,
     S, d = src.shape
     n, w = nbr_idx.shape
     if S == 0 and bool(mask.any()):
-        raise ValueError("spmm: masked slots into an empty source matrix")
+        raise KernelContractError("spmm", "masked slots into an empty source matrix",
+                                  {"src": tuple(src.shape)})
     out = torch.empty((n, d), dtype=src.dtype, device=src.device)
     if n * d:
         _build.launch("spmm", "spmm_forward_launch", src, nbr_idx, mask, out,
@@ -53,9 +56,11 @@ def spmm_backward_cuda(grad_out: torch.Tensor, nbr_idx: torch.Tensor,
     n, d = grad_out.shape
     w = nbr_idx.shape[1]
     if nbr_idx.shape[0] != n:
-        raise ValueError(f"spmm_backward: {n} gradient rows for {nbr_idx.shape[0]} index rows")
+        raise KernelContractError("spmm_backward", "gradient rows != index rows",
+                                  {"grad_out": n, "nbr_idx": nbr_idx.shape[0]})
     if n * w >= 2**31 - 1 or num_src >= 2**31 - 1:
-        raise ValueError(f"spmm_backward: n*w={n * w} slots or {num_src} rows exceed int32")
+        raise KernelContractError("spmm_backward", "slots or rows exceed int32",
+                                  {"n*w": n * w, "num_src": num_src})
     dev = grad_out.device
     if not (n * d * w and num_src):
         return torch.zeros((num_src, d), dtype=grad_out.dtype, device=dev)
@@ -69,7 +74,7 @@ def spmm_backward_cuda(grad_out: torch.Tensor, nbr_idx: torch.Tensor,
 
 def _device_of(t: torch.Tensor, kernel: str) -> str:
     if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: unsupported device {t.device}")
+        raise KernelContractError(kernel, f"unsupported device {t.device}")
     return t.device.type
 
 

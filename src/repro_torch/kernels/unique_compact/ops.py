@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.errors import KernelContractError
 from repro_torch.kernels.unique_compact.ref import unique_with_inverse_ref
 
 
@@ -28,12 +29,15 @@ def unique_compact_cuda(
     _build.require_cuda_int32("unique_compact", sorted_ids=sorted_ids)
     _build.require_cuda("unique_compact", torch.int64, order=order)
     if not 1 <= cap < 2**31:
-        raise ValueError(f"unique_compact: cap must be in [1, 2**31), got {cap}")
+        raise KernelContractError("unique_compact", "cap must be in [1, 2**31)", {"cap": cap})
+    if sorted_ids.ndim != 1 or order.shape != sorted_ids.shape:
+        raise KernelContractError("unique_compact", "want (m,) sorted ids and their (m,) order",
+                                  {"sorted_ids": tuple(sorted_ids.shape),
+                                   "order": tuple(order.shape)})
     (m,) = sorted_ids.shape
     if m >= 2**31:
-        raise ValueError(f"unique_compact: m={m} exceeds the int32 index range")
-    if order.shape != sorted_ids.shape:
-        raise ValueError(f"unique_compact: order {tuple(order.shape)} for {m} ids")
+        raise KernelContractError("unique_compact", "m exceeds the int32 index range",
+                                  {"m": m})
     dev = sorted_ids.device
     inv = torch.empty((m,), dtype=torch.int32, device=dev)
     uniq = torch.empty((cap,), dtype=torch.int32, device=dev)
@@ -56,7 +60,7 @@ def unique_with_inverse(
     if flat.device.type == "cpu":
         return unique_with_inverse_ref(flat, cap)
     if flat.device.type != "cuda":
-        raise ValueError(f"unique_compact: unsupported device {flat.device}")
+        raise KernelContractError("unique_compact", f"unsupported device {flat.device}")
     s, order = torch.sort(flat)
     inv, uniq = unique_compact_cuda(s.contiguous(), cap, order)
     return uniq, inv

@@ -9,17 +9,22 @@ by a clock hand over reference bits.  A batch access:
    (:func:`repro_torch.store.kernel.tag_probe` -- the CUDA kernel),
 3. sets the reference bit of every hit,
 4. inserts misses round by round (at most one insert per set per round,
-   ``ways`` rounds), each round running CLOCK victim selection
-   vectorized across all sets.
+   at most ``ways`` rounds), each round running CLOCK victim selection
+   vectorized across the sets it inserts into.
 
 State tensors carry a leading ``(P, ...)`` PE axis.  Unlike the JAX
 package, an access returns new tensors for the changed leaves and
 leaves the old state untouched, so callers may keep both.
+
+:class:`ClockCache` replays id batches through the policy alone (no
+feature rows), so its hit rate can be held against the exact LRU oracle
+(:class:`repro_torch.core.cache.LRUCache`).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.graph import INVALID
@@ -116,28 +121,31 @@ def _insert_one(tags, ref, hand, ids, sets, hit, way):
 
     fill_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
     wpos = torch.arange(W, dtype=torch.int32, device=dev)
+    tags, hand = tags.clone(), hand.clone()
     for r in range(W):
         sel = miss & (rank == r)
-        # explicit filter in place of a dropped out-of-bounds scatter
-        ins = torch.full((S,), INVALID, dtype=torch.int32, device=dev)
-        ins[sets[sel].long()] = ids[sel]
-        do = ins != INVALID                                    # (S,)
-        # CLOCK sweep, vectorized over sets: walk ways from the hand,
+        if not bool(sel.any()):  # ranks run 0, 1, ...: no later round inserts
+            break
+        # the sets this round inserts into, one miss each (ranks are unique
+        # within a set); every other set is left as it is
+        rows = sets[sel].long()
+        h = hand[rows]
+        # CLOCK sweep, vectorized over those sets: walk ways from the hand,
         # victim = first clear ref bit; if all set, clear the full circle
         # and take the hand position (classic second chance).
-        ordered = (hand[:, None] + wpos[None, :]) % W          # (S, W)
-        ref_ord = torch.gather(ref, 1, ordered.long())
+        ordered = (h[:, None] + wpos[None, :]) % W             # (k, W)
+        ref_ord = torch.gather(ref[rows], 1, ordered.long())
         k = torch.argmin(ref_ord.to(torch.uint8), dim=1)
         swept = (wpos[None, :] < k[:, None]) | ref_ord.all(1)[:, None]
         ref_ord = ref_ord & ~swept
-        inv = (wpos[None, :] - hand[:, None]) % W
+        inv = (wpos[None, :] - h[:, None]) % W
         ref_nat = torch.gather(ref_ord, 1, inv.long())
         victim = torch.gather(ordered, 1, k[:, None])[:, 0]
         at_victim = wpos[None, :] == victim[:, None]
-        tags = torch.where(do[:, None] & at_victim, ins[:, None], tags)
-        ref = torch.where(do[:, None], at_victim | ref_nat, ref)
-        hand = torch.where(do, (victim + 1) % W, hand)
-        fill_slot = torch.where(sel, sets * W + victim[sets.long()], fill_slot)
+        tags[rows] = torch.where(at_victim, ids[sel][:, None], tags[rows])
+        ref[rows] = at_victim | ref_nat
+        hand[rows] = (victim + 1) % W
+        fill_slot[sel] = sets[sel] * W + victim
 
     # a later round may have evicted an earlier same-batch insert (only
     # possible at W == 1): an admitted row owns its slot only if its tag
@@ -181,3 +189,63 @@ def clock_access(state: ClockState, uniq: torch.Tensor) -> tuple[ClockState, Clo
         requested=state.requested + valid.sum(1, dtype=torch.int32),
     )
     return new, ClockAccess(uniq=uniq, hit=hit, slot=slot, fill_slot=fill_slot)
+
+
+class ClockCache:
+    """Stateful replay wrapper mirroring ``LRUCache.access_batch``.
+
+    Tracks only tags/ref/hand/counters (no feature rows) so tests and the
+    chip smoke can replay id traces through the device policy and compare
+    hit rates against the exact LRU oracle.  ``num_pes > 1`` mirrors
+    ``CooperativeCacheArray``: row p of an access touches only PE p's
+    cache.  Runs on CUDA unless ``device="cpu"``; each access there makes
+    one ``tag_probe`` launch.
+    """
+
+    def __init__(self, capacity: int, ways: int = 8, num_pes: int = 1,
+                 device: DeviceLike = None):
+        self.capacity = capacity
+        self.ways = ways
+        self.num_pes = num_pes
+        self.device = resolve_device(device)
+        self.state = clock_init(capacity, ways, num_pes, self.device)
+
+    def access_batch(self, ids) -> int:
+        """Access the unique valid ids of one batch; returns #misses."""
+        if not isinstance(ids, torch.Tensor):
+            ids = torch.from_numpy(np.asarray(ids, np.int32))
+        ids = ids.to(device=self.device, dtype=torch.int32)
+        if self.num_pes == 1:
+            ids = ids.reshape(1, -1)
+        elif ids.ndim != 2 or ids.shape[0] != self.num_pes:
+            raise ValueError(
+                f"expected (P={self.num_pes}, n) ids, got {tuple(ids.shape)}"
+            )
+        before = self.state.misses
+        self.state, _ = clock_access(self.state, unique_rows(ids))
+        return int((self.state.misses - before).sum())
+
+    # cooperative-parity alias (CooperativeCacheArray.access)
+    access = access_batch
+
+    @property
+    def hits(self) -> int:
+        return int(self.state.hits.sum())
+
+    @property
+    def misses(self) -> int:
+        return int(self.state.misses.sum())
+
+    @property
+    def miss_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.misses / total if total else 0.0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def reset_stats(self) -> None:
+        z = torch.zeros((self.num_pes,), dtype=torch.int32, device=self.device)
+        self.state = self.state._replace(hits=z, misses=z, requested=z)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.errors import KernelContractError
 
 
 def probe_ref(tags: torch.Tensor, sets: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -29,10 +30,12 @@ def probe_ref(tags: torch.Tensor, sets: torch.Tensor, ids: torch.Tensor) -> torc
 def tag_probe_cuda(tags: torch.Tensor, sets: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel: one thread per id reads its set's W tags."""
     _build.require_cuda_int32("tag_probe", tags=tags, sets=sets, ids=ids)
-    S, W = tags.shape
+    if tags.ndim != 2 or ids.ndim != 1 or sets.shape != ids.shape:
+        raise KernelContractError("tag_probe", "want (S, W) tags and (n,) sets and ids",
+                                  {"tags": tuple(tags.shape), "sets": tuple(sets.shape),
+                                   "ids": tuple(ids.shape)})
+    W = tags.shape[1]
     (n,) = ids.shape
-    if sets.shape != (n,):
-        raise ValueError(f"tag_probe: sets shape {tuple(sets.shape)} != ids shape {(n,)}")
     out = torch.empty((n,), dtype=torch.int32, device=ids.device)
     if n:
         _build.launch("tag_probe", "tag_probe_launch", tags, sets, ids, out, n, W)
@@ -44,5 +47,5 @@ def tag_probe(tags: torch.Tensor, sets: torch.Tensor, ids: torch.Tensor) -> torc
     if ids.device.type == "cpu":
         return probe_ref(tags, sets, ids)
     if ids.device.type != "cuda":
-        raise ValueError(f"tag_probe: unsupported device {ids.device}")
+        raise KernelContractError("tag_probe", f"unsupported device {ids.device}")
     return tag_probe_cuda(tags.contiguous(), sets.contiguous(), ids.contiguous())

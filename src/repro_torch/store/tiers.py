@@ -33,29 +33,35 @@ from repro_torch.store.clock import ClockAccess, ClockState, clock_access, clock
 
 
 def _assemble(
-    data: torch.Tensor, acc: ClockAccess, fetched: torch.Tensor, ids: torch.Tensor
+    data: torch.Tensor, acc: ClockAccess, rows: torch.Tensor, ids: torch.Tensor
 ) -> torch.Tensor:
     """Combine cache hits + host fetches into the output; admit fetches.
 
-    ``data``: (P, slots, d) cache rows, updated in place.  ``fetched``:
-    (P, n, d) host rows aligned with ``acc.uniq`` (zeros at hits/padding).
-    Returns the gathered (P, n_ids, d) output.
+    ``data``: (P, slots, d) cache rows, updated in place.  ``rows``: (k, d)
+    host rows of the missed unique ids, in the row-major order of the
+    missed entries of ``acc.uniq``.  Returns the gathered (P, n_ids, d)
+    output: zeros, then each valid id's row copied in (a hit's from the
+    cache, a miss's from ``rows``).
     """
-    P, nslots, d = data.shape
-    n = acc.uniq.shape[1]
+    P, n = acc.uniq.shape
+    dev = data.device
+    valid = ids != INVALID
+    # every valid id's position among its PE's unique ids (duplicates too)
+    pos = torch.searchsorted(acc.uniq, ids).clamp(max=n - 1)
+    missed = (acc.uniq != INVALID) & ~acc.hit
+    row_of = torch.full((P, n), -1, dtype=torch.int64, device=dev)
+    row_of[missed] = torch.arange(rows.shape[0], device=dev)
+    out = torch.zeros((P, ids.shape[1], data.shape[2]), dtype=data.dtype, device=dev)
     # read hit rows BEFORE admitting this batch's fetches: a slot being
     # recycled in this batch must serve its lookup-time value
-    cached = torch.stack([data[p][acc.slot[p].clamp(min=0).long()] for p in range(P)])
-    uniq_rows_ = torch.where(acc.hit[..., None], cached, fetched)
-    for p in range(P):
-        admit = acc.fill_slot[p] >= 0  # explicit filter for dropped rows
-        data[p][acc.fill_slot[p][admit].long()] = fetched[p][admit]
-    # route every original id (duplicates included) to its unique row
-    pos = torch.stack([torch.searchsorted(acc.uniq[p], ids[p]) for p in range(P)])
-    out = torch.gather(
-        uniq_rows_, 1, pos.clamp(0, n - 1)[..., None].expand(-1, -1, d)
-    )
-    return torch.where((ids != INVALID)[..., None], out, 0.0)
+    hit = valid & torch.gather(acc.hit, 1, pos)
+    p, j = hit.nonzero(as_tuple=True)
+    out[p, j] = data[p, torch.gather(acc.slot, 1, pos)[p, j].long()]
+    p, j = (valid & ~hit).nonzero(as_tuple=True)
+    out[p, j] = rows[row_of[p, pos[p, j]]]
+    p, j = (acc.fill_slot >= 0).nonzero(as_tuple=True)  # dropped rows are not admitted
+    data[p, acc.fill_slot[p, j].long()] = rows[row_of[p, j]]
+    return out
 
 
 class TieredFeatureStore:
@@ -88,6 +94,7 @@ class TieredFeatureStore:
         self.data = torch.zeros((num_pes, capacity, d), dtype=self.host.dtype,
                                 device=self.device)
         self.fetched_rows = 0  # rows pulled across the host->device link
+        self.batches = 0
 
     def gather(self, ids) -> torch.Tensor:
         """Masked gather through the cache; INVALID rows come back zero."""
@@ -106,17 +113,15 @@ class TieredFeatureStore:
 
         # slow tier: fetch only the missed unique rows from host memory
         missed = (acc.uniq != INVALID) & ~acc.hit
-        where = missed.nonzero()                      # (k, 2) on the device
         miss_ids = acc.uniq[missed].long().cpu()
         rows = self.host[miss_ids.clamp(0, self.host.shape[0] - 1)]
         if self.device.type == "cuda":
             rows = rows.pin_memory()
-        fetched = torch.zeros(acc.uniq.shape + (self.host.shape[1],),
-                              dtype=self.host.dtype, device=self.device)
-        fetched[where[:, 0], where[:, 1]] = rows.to(self.device, non_blocking=True)
+        rows = rows.to(self.device, non_blocking=True)
         self.fetched_rows += int(miss_ids.shape[0])
+        self.batches += 1
 
-        out = _assemble(self.data, acc, fetched, ids)
+        out = _assemble(self.data, acc, rows, ids)
         return out[0] if squeeze else out
 
     @property
@@ -137,3 +142,15 @@ class TieredFeatureStore:
         total = self.hits + self.misses
         return self.hits / total if total else 0.0
 
+    @property
+    def miss_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.misses / total if total else 0.0
+
+    def reset_stats(self) -> None:
+        """Zero the CLOCK counters, ``fetched_rows`` and ``batches``; the
+        cache's contents stay."""
+        z = torch.zeros((self.num_pes,), dtype=torch.int32, device=self.device)
+        self.state = self.state._replace(hits=z, misses=z, requested=z)
+        self.fetched_rows = 0
+        self.batches = 0

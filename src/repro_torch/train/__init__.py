@@ -1,4 +1,5 @@
 """Training of the port: the cooperative (or independent) GNN train step."""
+from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.train.loop import (
     TrainConfig,
     TrainResult,
@@ -17,6 +18,7 @@ from repro_torch.train.optim import AdamState, adam_init, adam_update, cosine_lr
 
 __all__ = [
     "AdamState", "TrainConfig", "TrainResult", "adam_init", "adam_update",
-    "cosine_lr", "evaluate", "macro_f1", "make_loss_fn", "masked_softmax_xent",
-    "masked_softmax_xent_parts", "micro_f1", "sgd_update", "train_gnn", "train_step",
+    "cosine_lr", "evaluate", "load_checkpoint", "macro_f1", "make_loss_fn",
+    "masked_softmax_xent", "masked_softmax_xent_parts", "micro_f1", "save_checkpoint",
+    "sgd_update", "train_gnn", "train_step",
 ]

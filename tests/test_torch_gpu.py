@@ -24,7 +24,10 @@ non-contiguous input by raising (``seg_softmax`` also floats that are not
 16-byte aligned).  A served trace must give the same
 integer accounting and plan entries as on the CPU, a few cooperative
 training steps (GCN, GAT, GraphSAGE with NS, R-GCN) the same plans and
-losses, and the NS, RW, full and LABOR-* samplers the same samples.
+losses, and the NS, RW, full and LABOR-* samplers the same samples.  The
+stateful ``ClockCache`` must keep the CPU's CLOCK state over a κ trace
+(one ``tag_probe`` launch per access), and ``engine.stream`` with
+features through the tiered cache give the CPU's items and counters.
 """
 import numpy as np
 import pytest
@@ -782,3 +785,69 @@ def test_layer_to_coo_matches_cpu(cuda):
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
     assert LAUNCHES.get("expand_indptr", 0) == len(plans["cpu"].layers)
     torch.cuda.synchronize()
+
+
+def _kappa_trace(steps, P, n, V, kappa, seed):
+    """(P, n) id batches, each id resampled with probability 1/kappa a step,
+    about 5% INVALID."""
+    rng = np.random.default_rng(seed)
+    cur = rng.integers(0, V, (P, n))
+    out = []
+    for _ in range(steps):
+        cur = np.where(rng.random((P, n)) < 1.0 / kappa, rng.integers(0, V, (P, n)), cur)
+        ids = cur.astype(np.int32)
+        ids[rng.random((P, n)) < 0.05] = INVALID
+        out.append(ids)
+    return out
+
+
+def test_clock_cache_on_card_matches_cpu(cuda):
+    """A κ = 8 trace through ``ClockCache`` at 4 PEs on the card and on the
+    CPU: per-batch misses and the whole CLOCK state equal after every
+    batch, one ``tag_probe`` launch per access."""
+    from repro_torch.store import ClockCache
+
+    card = ClockCache(1024, 8, num_pes=4, device=cuda)
+    cpu = ClockCache(1024, 8, num_pes=4, device="cpu")
+    trace = _kappa_trace(12, 4, 600, 8192, 8, seed=5)
+    reset_launches()
+    for step, ids in enumerate(trace):
+        assert card.access(torch.from_numpy(ids).to(cuda)) == cpu.access(ids), step
+        for name in cpu.state._fields:
+            assert torch.equal(getattr(card.state, name).cpu(), getattr(cpu.state, name)), (
+                name, step)
+        assert LAUNCHES.get("tag_probe", 0) == step + 1
+    assert card.hits > 0 and card.miss_rate == cpu.miss_rate
+    card.reset_stats()
+    assert (card.hits, card.misses) == (0, 0)
+
+
+def test_stream_with_features_on_card_matches_cpu(cuda):
+    """``engine.stream(fetch_features=True)`` through the tiered cache, 3
+    steps, on the card and on the CPU: seeds, every integer plan leaf and
+    the features bit for bit, the cache counters equal; one ``tag_probe``
+    launch per step."""
+    from repro_torch.engine import CacheConfig, EngineConfig
+
+    ds = SyntheticGraphDataset(rmat_graph(scale=11, edge_factor=8, max_degree=16,
+                                          device="cpu"), feature_dim=16, num_classes=4)
+    cfg = EngineConfig(mode="cooperative", num_pes=4, local_batch=16, num_layers=2,
+                       sampler="labor0", fanout=5, schedule="smoothed", kappa=4,
+                       plan_backend="fused", cache=CacheConfig(enabled=True, capacity=256))
+    engines = {d: MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device=d)
+               for d in ("cuda", "cpu")}
+    reset_launches()
+    items = {d: list(e.stream(3, prefetch=2, fetch_features=True)) for d, e in engines.items()}
+    assert LAUNCHES.get("tag_probe", 0) == 3
+    for a, b in zip(items["cuda"], items["cpu"]):
+        assert a.step == b.step and np.array_equal(a.seeds, b.seeds)
+        assert torch.equal(a.plan.input_ids.cpu(), b.plan.input_ids)
+        for la, lb in zip(a.plan.layers, b.plan.layers):
+            for name in ("seeds", "self_idx", "nbr_idx", "mask", "slot_to_tilde",
+                         "req_idx", "tilde_ids"):
+                assert torch.equal(getattr(la, name).cpu(), getattr(lb, name)), name
+        assert a.features.is_cuda and torch.equal(a.features.cpu(), b.features)
+    ta, tb = engines["cuda"].tiered, engines["cpu"].tiered
+    assert (ta.hits, ta.misses, ta.requested, ta.fetched_rows) == (
+        tb.hits, tb.misses, tb.requested, tb.fetched_rows)
+    assert ta.requested > 0
