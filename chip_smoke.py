@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and dependent-minibatching
-paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, dependent-minibatching and
+multi-process cooperative paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 0-1 only (a kernel edit's check)
@@ -141,6 +141,26 @@ Phases:
    one at κ = 1 in both modes.  Printed: miss rates, the CLOCK-LRU gap,
    the κ = 1/∞ ratio, rows fetched host->device, duplicates, wall ms per
    step (prefetch 0 against 2 at κ = 16), launches per step, peak memory.
+9. Multi-process cooperative training: phase 3's configuration with
+   ``executor="shard"``, one PE per process (``torch.multiprocessing``,
+   ``spawn``; a FileStore and a collective timeout, so a rank that dies
+   fails the phase), each rank calling ``train_gnn`` on phase 3's graph
+   and dataset, made once here and handed to the ranks.  9a: 4 ranks on
+   the one card over gloo (CUDA tensors, which gloo stages through host
+   memory); 9b: 1 rank over NCCL (P = 1), so NCCL's all-to-all and
+   all-reduce run on the card.  The kernels were built in phase 0; a rank
+   only loads them.  Checked: every step's stacked plan (``stack_plan``)
+   equal bit for bit to phase 3's card ``SimExecutor`` plan (9b: to a P = 1
+   ``SimExecutor``'s on the card), losses within ``rtol=1e-4`` of its,
+   step-0 gradients within ``1e-5`` of each parameter's largest ``|g|``,
+   every rank's weights equal bit for bit after every step, and each
+   rank's launches per step (``frontier_gather`` L, ``unique_compact``
+   2L + 1, ``gather`` 1, ``spmm`` L, its backward L - 1).  Printed per
+   rank and step: wall ms split into plan, gather, forward+backward,
+   all-reduce and Adam, and each direction's exchanges (ids, embeddings
+   forward, gradients backward) with their bytes and event ms; peak
+   memory per rank.  On one card the exchange crosses host memory between
+   processes: its time says nothing about an NVLink all-to-all.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, at its largest shape on a path; the last line is ``{"ok": true,
@@ -152,6 +172,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -224,6 +245,7 @@ PATH_KERNELS = {
     "plan_full": ("frontier_gather", "unique_compact"),
     "curves": ("frontier_gather",),
     "dependent": ("frontier_gather", "unique_compact", "tag_probe"),
+    "train_shard": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
 }
 # the R-GCN of phase 6: the JAX package's mag240M widths
 # (src/repro/launch/gnn_dryrun.py, SCALE_MAG)
@@ -254,6 +276,9 @@ PROFILE_TRIES = 3  # traces profiled_kernels takes while they hold no CUDA recor
 # the items held against prefetch 0 and against the CPU
 DEP_MODES, DEP_KAPPAS, DEP_STEPS = ("cooperative", "independent"), (1, 16, 256, None), 16
 DEP_PREFETCH_ITEMS, DEP_CPU_ITEMS = 4, 2
+# phase 9: how long a collective waits for the other ranks, and how long a
+# run of the ranks may take, process start included, before it is killed
+SHARD_COLLECTIVE_S, SHARD_DEADLINE_S = 120, 300
 
 
 class PhaseError(RuntimeError):
@@ -668,6 +693,12 @@ def phase1_train(engine) -> dict:
     deepest = sorted(dedups, key=lambda t: -t[0].numel())[:2]
     dedup_whole(deepest)
     add_row(out, "gather", gather_row(engine.store.features, plan.input_ids, train, "1/step"))
+    # the shard path (phase 9): a rank builds and computes PE 0's shapes
+    # (rank 0's plan is PE 0's row) and gathers only its own input ids
+    shard, per_rank = ["train_shard"], "1/rank step"
+    plan_rows(out, engine, plan, shard, per_rank)
+    add_row(out, "gather", gather_row(engine.store.features, plan.input_ids[0], shard,
+                                      per_rank))
     caps, L = engine.caps, len(plan.layers)
 
     # spmm at every layer's (S~ rows, owned rows, d_in) for PE 0: the GCN
@@ -677,8 +708,8 @@ def phase1_train(engine) -> dict:
     for l, layer in enumerate(plan.layers):
         d = 64 if l == L - 1 else 256
         f, b = spmm_rows(layer.nbr_idx[0], layer.mask[0], caps.tilde_caps[l], d, rng,
-                         paths=["train"], per=per_pe, backward_on_path=l < L - 1,
-                         label=f"layer {l}")
+                         paths=["train", *shard], per=f"{per_pe}; {per_rank} on train_shard",
+                         backward_on_path=l < L - 1, label=f"layer {l}")
         fwd.append(f)
         bwd.append(b)
     out["spmm"], out["spmm_backward"] = fwd, bwd
@@ -1385,6 +1416,11 @@ def int_leaves(plan) -> dict:
     return out
 
 
+def host_leaves(plan) -> dict:
+    """:func:`int_leaves` as host numpy arrays."""
+    return {k: v.cpu().numpy() for k, v in int_leaves(plan).items()}
+
+
 def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False,
                 cpu_steps: int | None = None) -> dict:
     """Cooperative training of ``gnn_cfg`` on the card and on the CPU, each
@@ -1396,7 +1432,9 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
     losses must agree, the initial weights be equal and the step-0
     gradients agree (:func:`check_gradients`); where the CPU ran every
     step, the final weights within ``TRAIN_ATOL`` too.  Returns the
-    launches, the loss gap, the walls and the card's step-0 plan."""
+    launches, the loss gap, the walls, the card's step-0 plan, every card
+    step's integer plan leaves on the host, the card's losses and its
+    initial weights and step-0 gradients."""
     import numpy as np
     import torch
     from repro_torch.engine import MinibatchEngine
@@ -1508,10 +1546,11 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
     walls = [sum(st.values()) for st in card.stage_ms]
     profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in card.stage_ms])
     return {"launches": launches, "loss_rel": loss_rel, "walls": walls,
-            "plan0": plans["cuda"][0]}
+            "plan0": plans["cuda"][0], "plans": [host_leaves(p) for p in plans["cuda"]],
+            "losses": card.losses, "first": first["cuda"]}
 
 
-def check_gradients(tag: str, card: dict, cpu: dict) -> None:
+def check_gradients(tag: str, card: dict, cpu: dict, what: str = "card vs cpu") -> None:
     """The initial weights equal, card against CPU, and each parameter's
     step-0 gradient within ``GRAD_RTOL`` of that parameter's largest
     ``|g|`` on the CPU.  (Adam's first step, ``lr * g / (|g| + eps)``,
@@ -1531,7 +1570,7 @@ def check_gradients(tag: str, card: dict, cpu: dict) -> None:
         rel = gap / scale if scale else 0.0
         if rel >= worst:
             worst, where = rel, name
-    print(f"{tag} step 0 card vs cpu: initial weights equal; gradients within {worst:.3e} of "
+    print(f"{tag} step 0 {what}: initial weights equal; gradients within {worst:.3e} of "
           f"each parameter's largest |g| (worst {where}; bound {GRAD_RTOL}), over "
           f"{len(cpu['names'])} parameters")
 
@@ -1807,6 +1846,257 @@ def phase_dependent(ds, tc) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 9
+# --------------------------------------------------------------------------
+def shard_rank(rank: int, world: int, backend: str, store: str, out_dir: str, device: str,
+               tds, gnn_cfg, tc) -> None:
+    """One rank of phase 9, in a process of its own: ``train_gnn`` with
+    ``executor="shard"`` for this rank's PE, counters zeroed right before.
+    After each step (``on_step``): the launches, the stacked plan
+    (``stack_plan``, an all-gather) and whether every rank's weights are
+    equal bit for bit (an all-gather); at step 0 the all-reduced gradient
+    (tensor hooks read this rank's share during the step).  Writes its
+    results to ``out_dir/rank{rank}.pt``.  The kernels must be built
+    already: a rank only loads them."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.kernels import LAUNCHES, _build, reset_launches
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.train import train_gnn
+
+    laps = [time.perf_counter()]
+    tds = host_tensors(tds, back=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        missing = [n for n, src in _build.sources().items() if not _build._target(src).exists()]
+        check(not missing, f"rank {rank}: kernels {missing} were not built before the ranks")
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_COLLECTIVE_S))
+    laps.append(time.perf_counter())
+    try:
+        tc = dataclasses.replace(tc, executor="shard")
+        runner = MinibatchEngine.from_config(tds.graph, tc.engine_config(gnn_cfg.num_layers),
+                                             dataset=tds, device=dev).shard_runner
+        model = init_gnn(gnn_cfg, seed=tc.seed, device=dev)
+        params = list(model.parameters())
+        share = {}
+
+        def keep(i, g):
+            share.setdefault(i, g.detach().clone())
+
+        hooks = [p.register_hook(functools.partial(keep, i)) for i, p in enumerate(params)]
+        out = {"rank": rank, "backend": backend, "launches": [], "plans": [], "same": [],
+               "init": [p.detach().cpu().numpy().copy() for p in params]}
+
+        def on_step(step, plan):
+            out["launches"].append({k: LAUNCHES.get(k, 0) for k in KERNELS})
+            if step == 0:
+                for h in hooks:
+                    h.remove()
+                flat = torch.cat([share[i].reshape(-1) for i in range(len(params))])
+                dist.all_reduce(flat)
+                out["grad"] = [g.view_as(p).cpu().numpy()
+                                for g, p in zip(flat.split([p.numel() for p in params]),
+                                                params)]
+            stacked = host_leaves(runner.stack_plan(plan))
+            out["plans"].append(stacked if rank == 0 else None)
+            w = torch.cat([p.detach().reshape(-1) for p in params])
+            every = [torch.empty_like(w) for _ in range(world)]
+            dist.all_gather(every, w)
+            out["same"].append(all(torch.equal(x, every[0]) for x in every))
+
+        reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        laps.append(time.perf_counter())
+        res = train_gnn(tds, gnn_cfg, tc, model=model, device=dev, stage_times=True,
+                        on_step=on_step)
+        laps.append(time.perf_counter())
+        prev = {k: 0 for k in KERNELS}
+        for i, cum in enumerate(out["launches"]):
+            out["launches"][i] = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
+            prev = cum
+        out.update(laps=[b - a for a, b in zip(laps, laps[1:])],
+                   losses=res.losses, stage_ms=res.stage_ms, exchanges=res.exchanges,
+                   total={k: v for k, v in prev.items() if v},
+                   peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def host_tensors(ds, back: bool = False):
+    """A shallow copy of dataset ``ds`` with its numpy arrays as CPU tensors
+    (``back``: its CPU tensors as numpy arrays).  A spawned rank gets
+    tensors through shared memory; numpy arrays go into the pipe, which the
+    child reads only once it has imported torch, so each start would wait
+    for the previous rank to boot."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    out = copy.copy(ds)
+    for k, v in vars(ds).items():
+        if back and isinstance(v, torch.Tensor):
+            setattr(out, k, v.numpy())
+        elif not back and isinstance(v, np.ndarray):
+            setattr(out, k, torch.from_numpy(v).clone())
+    return out
+
+
+def run_ranks(backend: str, world: int, run_dir: Path, tds, gnn_cfg, tc,
+              device: str = "cuda") -> list:
+    """``world`` processes of :func:`shard_rank` (``spawn``), one FileStore;
+    fails as soon as one rank fails, and at ``SHARD_DEADLINE_S`` kills them
+    all.  Returns each rank's results."""
+    import multiprocessing.connection
+
+    import torch
+    import torch.multiprocessing
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    store = run_dir / f"store-{backend}-{world}"
+    shared = host_tensors(tds)
+    procs = [ctx.Process(target=shard_rank, args=(r, world, backend, str(store), str(run_dir),
+                                                  device, shared, gnn_cfg, tc))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_DEADLINE_S
+    try:
+        while any(p.exitcode is None for p in procs) and time.monotonic() < deadline:
+            multiprocessing.connection.wait([p.sentinel for p in procs if p.exitcode is None],
+                                            timeout=max(deadline - time.monotonic(), 0.1))
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"{backend} ranks exited {codes} (None: still running, "
+              f"killed at the {SHARD_DEADLINE_S} s deadline or after another rank failed)")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    return [torch.load(run_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def phase_shard(tds, gnn_cfg, tc, p3: dict, device: str = "cuda") -> dict:
+    """Phase 3's configuration with ``executor="shard"``: 9a, ``num_pes``
+    ranks on the one card over gloo (CUDA tensors, staged through host
+    memory by gloo); 9b, one rank over NCCL (P = 1), so NCCL's all-to-all
+    and all-reduce run on the card.  Checked against phase 3's card
+    SimExecutor run (``p3``): every step's stacked plan bit for bit, the
+    losses, the step-0 gradients; the ranks' weights equal bit for bit
+    after every step, each rank's launches per step; 9b's plans equal a
+    P = 1 SimExecutor's on the card.  Returns the launches (all ranks).
+    ``device="cpu"`` rehearses it on the CPU at a small size (gloo both
+    times, CPU tensors)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.train import train_gnn
+
+    t_phase = time.perf_counter()
+    L = gnn_cfg.num_layers
+    want = {"frontier_gather": L, "unique_compact": 2 * L + 1, "gather": 1, "spmm": L,
+            "spmm_backward": L - 1}
+    run_dir = ROOT / "build" / "phase9"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    card = device == "cuda"
+    if card:
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    else:
+        want = {}  # the plain versions launch nothing
+    total = {k: 0 for k in KERNELS}
+    try:
+        for tag, backend, P in (("phase9a", "gloo", tc.num_pes),
+                                ("phase9b", "nccl" if card else "gloo", 1)):
+            run_tc = dataclasses.replace(tc, num_pes=P)
+            t0 = time.perf_counter()
+            ranks = run_ranks(backend, P, run_dir, tds, gnn_cfg, run_tc, device)
+            where = f"one card ({torch.cuda.get_device_name(0)})" if card else "the CPU"
+            print(f"{tag}: backend {backend}, {P} rank(s) on {where}, {run_tc.num_steps} "
+                  f"steps in {time.perf_counter() - t0:.1f} s (process start included)")
+            if backend == "gloo":
+                print(f"{tag} caveat: the ranks share one card and gloo stages every exchange "
+                      "through host memory between processes; these exchange times say "
+                      "nothing about an NVLink all-to-all between cards")
+            for r in ranks:
+                check(r["backend"] == backend, f"rank {r['rank']} ran {r['backend']}")
+                check(all(r["same"]), f"{tag} rank {r['rank']}: weights differ between ranks "
+                      f"after steps {[i for i, s in enumerate(r['same']) if not s]}")
+                for step, got in enumerate(r["launches"]):
+                    check(got == want, f"{tag} rank {r['rank']} step {step}: launches {got}, "
+                          f"want {want}")
+                check(r["losses"] == ranks[0]["losses"], f"{tag}: losses differ between ranks")
+                for k, v in r["total"].items():
+                    total[k] += v
+                report_rank(tag, r, P)
+            if P == tc.num_pes:
+                ref_plans, ref_losses = p3["plans"], p3["losses"]
+            else:
+                engine = MinibatchEngine.from_config(tds.graph, run_tc.engine_config(L),
+                                                     dataset=tds, device=device)
+                ref_plans = [host_leaves(engine.plan_at(s)) for s in range(run_tc.num_steps)]
+                ref_losses = train_gnn(tds, gnn_cfg, run_tc, device=device).losses
+            check(len(ref_plans) == len(ranks[0]["plans"]) == run_tc.num_steps,
+                  f"{tag}: {len(ranks[0]['plans'])} plans")
+            entries = 0
+            for step, (got, ref) in enumerate(zip(ranks[0]["plans"], ref_plans)):
+                check(set(got) == set(ref), f"{tag} step {step}: leaves {sorted(got)} vs "
+                      f"{sorted(ref)}")
+                for name, v in got.items():
+                    w = ref[name]
+                    check(v.dtype == w.dtype and np.array_equal(v, w),
+                          f"{tag} step {step}: plan leaf {name} differs from the SimExecutor's")
+                    entries += v.size
+            losses = ranks[0]["losses"]
+            rel = float(np.max(np.abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)))
+            print(f"{tag}: stacked plans equal the card SimExecutor's (P = {P}): {entries} "
+                  f"entries over {len(ref_plans)} steps; losses {losses} vs {list(ref_losses)}: "
+                  f"max rel diff {rel:.3e} (rtol {TRAIN_RTOL}); weights equal on every rank "
+                  f"after every step; launches per rank step {want}")
+            check(rel <= TRAIN_RTOL, f"{tag}: losses differ from the SimExecutor's by {rel}")
+            if P == tc.num_pes:
+                check_gradients(tag, ranks[0], p3["first"], "shard vs card SimExecutor")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    print(f"phase9: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def report_rank(tag: str, r: dict, P: int) -> None:
+    """One rank's steps: wall ms split into the stages, the exchanges' count,
+    bytes (the buffer handed to ``all_to_all_single``, and the part that
+    leaves the rank) and event ms; its peak device memory, and where its
+    seconds went after the process started."""
+    for step, (st, ex) in enumerate(zip(r["stage_ms"], r["exchanges"])):
+        parts = "; ".join(
+            f"{kind} x{n} {b} B ({b * (P - 1) // P} B to other ranks) {ms:.3f} ms"
+            for kind, (n, b, ms) in ex.items())
+        print(f"{tag} rank {r['rank']} step {step}: wall {sum(st.values()):.3f} ms = "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+              + f"; exchanges (ids in plan, forward and backward in forward_backward): {parts}")
+    group, setup, train = r["laps"]
+    print(f"{tag} rank {r['rank']}: peak device memory {r['peak'] / 2**30:.3f} GiB; s in the "
+          f"rank: group {group:.2f}, engine and model {setup:.2f}, train_gnn {train:.2f} "
+          "(its engine and the per-step checks included)")
+
+
 # kernels of the redesigned wrappers, by name in a profile (the spmm
 # backward's scan kernel comes from scan.cuh), every torch.sort of a step
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
@@ -1993,8 +2283,8 @@ def main(argv: list) -> int:
         serve = phase2(ds, gnn_cfg, serve_cfg, trace)
         k["spmm"].append(serve["spmm"])
         launches = {"serve": serve["launches"]}
-        launches["train"] = phase_train("phase3", "train", tds, train_cfg, tc,
-                                        check_seeds=True)["launches"]
+        p3 = phase_train("phase3", "train", tds, train_cfg, tc, check_seeds=True)
+        launches["train"] = p3["launches"]
         gat = phase_train("phase4", "train_gat", tds, gat_cfg, tc)
         launches["train_gat"] = gat["launches"]
         launches["coo"] = phase_coo(gat["plan0"])["launches"]
@@ -2007,6 +2297,7 @@ def main(argv: list) -> int:
         launches["curves"] = phase_curves(tg)
         launches["dependent"] = phase_dependent(rds, tc)
         del rds
+        launches["train_shard"] = phase_shard(tds, train_cfg, tc, p3)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

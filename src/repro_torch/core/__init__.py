@@ -11,6 +11,7 @@ from repro_torch.core.cooperative import (
     CoopLayer,
     CoopMinibatch,
     Executor,
+    ShardExecutor,
     SimExecutor,
     build_cooperative_minibatch,
     plan_stats,
@@ -55,9 +56,9 @@ __all__ = [
     "FeatureStore", "FullSampler", "Graph", "GraphValidationError", "INVALID",
     "LRUCache", "LaborSampler", "LayerSample", "Minibatch", "MinibatchLayer",
     "NeighborSampler", "NestedSchedule", "Partition", "RNGState", "RandomWalkSampler",
-    "SimExecutor", "build_cooperative_minibatch", "build_minibatch", "cross_edge_ratio",
-    "epoch_stats", "layer_to_coo", "make_partition", "make_sampler", "ownership_balance",
-    "plan_stats", "redistribute", *sorted(_ENGINE_EXPORTS),
+    "ShardExecutor", "SimExecutor", "build_cooperative_minibatch", "build_minibatch",
+    "cross_edge_ratio", "epoch_stats", "layer_to_coo", "make_partition", "make_sampler",
+    "ownership_balance", "plan_stats", "redistribute", *sorted(_ENGINE_EXPORTS),
 ]
 
 

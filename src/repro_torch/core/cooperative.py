@@ -6,14 +6,21 @@ owned by one PE).  Every sampling hop and every forward/backward layer
 redistributes vertex ids, embeddings and gradients to owner PEs with an
 all-to-all.
 
-Executor: :class:`SimExecutor` stacks the PEs on a leading axis
-``(P, ...)`` on one device.  Its ``pe`` runs the per-PE body in a Python
-loop over the PEs and stacks the results: the bodies call ``torch.unique``,
-data-dependent sorts and the ctypes kernels, which ``torch.func.vmap``
-cannot batch, and the loop gives the same integers as JAX's ``vmap``.
-The all-to-all is an axis transpose; autograd through it and through
-:func:`redistribute`'s gather and scatter gives the backward all-to-alls
-of Alg. 1.  The multi-device executor is not ported yet.
+Executors: the same per-PE code runs under two.
+
+* :class:`SimExecutor` stacks the PEs on a leading axis ``(P, ...)`` on
+  one device.  Its ``pe`` runs the per-PE body in a Python loop over the
+  PEs and stacks the results: the bodies call ``torch.unique``,
+  data-dependent sorts and the ctypes kernels, which ``torch.func.vmap``
+  cannot batch, and the loop gives the same integers as JAX's ``vmap``.
+  The all-to-all is an axis transpose.
+* :class:`ShardExecutor` is one process per PE in a ``torch.distributed``
+  process group (the rank is the PE): ``pe`` calls the body on this
+  rank's own data, with no PE axis, and the all-to-all is
+  ``all_to_all_single`` (NCCL between cards, or gloo).
+
+Autograd through the exchange and through :func:`redistribute`'s gather
+and scatter gives the backward all-to-alls of Alg. 1.
 
 Exchange convention: each PE holds a buffer ``x`` of shape
 ``(P, cap, ...)`` whose slice ``x[q]`` is destined for PE ``q``;
@@ -25,10 +32,12 @@ dropped deterministically (counted in :func:`plan_stats`).
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
-from typing import Callable, Optional, Protocol
+from typing import Any, Callable, Optional, Protocol
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import frontier
 from repro_torch.core.graph import INVALID, Graph
@@ -80,6 +89,85 @@ class SimExecutor:
         return x.transpose(0, 1).contiguous()
 
 
+@dataclass(frozen=True)
+class ExchangeRecord:
+    """One all-to-all of a :class:`ShardExecutor`: its direction (``"ids"``,
+    ``"forward"`` embeddings, ``"backward"`` gradients), the bytes of the
+    buffer this rank hands over (its own slice included) and its start and
+    end: CUDA events on a card, ``time.perf_counter`` seconds on the CPU."""
+
+    kind: str
+    nbytes: int
+    start: Any
+    end: Any
+
+    def ms(self) -> float:
+        if isinstance(self.start, float):
+            return 1e3 * (self.end - self.start)
+        return self.start.elapsed_time(self.end)
+
+
+def _all_to_all(x: torch.Tensor, group, kind: str, log: Optional[list]) -> torch.Tensor:
+    """``y[q]`` = what rank ``q`` sent here, for ``x`` of shape ``(P, ...)``;
+    appended to ``log`` as an :class:`ExchangeRecord` when one is given."""
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if log is None:
+        dist.all_to_all_single(y, x, group=group)
+        return y
+    if x.is_cuda:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_to_all_single(y, x, group=group)
+        end.record()
+    else:
+        start = time.perf_counter()
+        dist.all_to_all_single(y, x, group=group)
+        end = time.perf_counter()
+    log.append(ExchangeRecord(kind, x.numel() * x.element_size(), start, end))
+    return y
+
+
+class _Exchange(torch.autograd.Function):
+    """The embedding all-to-all; its backward is the same all-to-all of the
+    gradients (the exchange is its own transpose: rank q's slice p comes
+    back to rank p as slice q), the last loop of Alg. 1."""
+
+    @staticmethod
+    def forward(ctx, x, group, log):
+        ctx.group, ctx.log = group, log
+        return _all_to_all(x, group, "forward", log)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group, "backward", ctx.log), None, None
+
+
+@dataclass(frozen=True)
+class ShardExecutor:
+    """One PE per rank of a ``torch.distributed`` process group of
+    ``num_pes`` ranks: ``pe`` runs the body on this rank's data (no
+    leading PE axis, as JAX's ``ShardExecutor`` inside ``shard_map``),
+    ``exchange`` is ``all_to_all_single`` over ``group`` and carries
+    autograd.  With ``log`` a list, every exchange appends an
+    :class:`ExchangeRecord` to it."""
+
+    num_pes: int
+    group: Any = None  # None: the default process group
+    log: Optional[list] = None
+
+    def pe(self, fn, *args):
+        return fn(*args)
+
+    def exchange(self, x):
+        if x.shape[0] != self.num_pes:
+            raise ValueError(f"exchange buffer has {x.shape[0]} slices, want {self.num_pes}")
+        if x.requires_grad:
+            return _Exchange.apply(x, self.group, self.log)
+        return _all_to_all(x, self.group, "forward" if x.is_floating_point() else "ids",
+                           self.log)
+
+
 # --------------------------------------------------------------------------
 # Plan structures
 # --------------------------------------------------------------------------
@@ -119,7 +207,10 @@ class CoopMinibatch:
     def stats(self) -> dict:
         """Per-PE max counts (Table 7).  Requires the stacked Sim layout."""
         if self.seed_ids.ndim != 2 or self.layers[0].slot_to_tilde.ndim != 3:
-            raise ValueError("CoopMinibatch.stats() needs the stacked SimExecutor layout")
+            raise ValueError(
+                "CoopMinibatch.stats() needs the stacked SimExecutor layout; plans "
+                "built per rank under ShardExecutor have no global view"
+            )
         return plan_stats(self, SimExecutor(self.seed_ids.shape[0]))
 
 
@@ -284,7 +375,10 @@ def plan_stats(mb: CoopMinibatch, ex: Executor) -> dict:
     transfer for all counts.
     """
     if not isinstance(ex, SimExecutor):
-        raise TypeError("plan_stats needs the SimExecutor's stacked layout")
+        raise TypeError(
+            "plan_stats needs the SimExecutor's stacked layout; a ShardExecutor "
+            "rank holds only its own plan (ShardRunner.stack_plan gathers them)"
+        )
     P = ex.num_pes
     off_diag = ~torch.eye(P, dtype=torch.bool, device=mb.seed_ids.device)
     names, vals = [], []

@@ -4,8 +4,9 @@ One :class:`EngineConfig` pins a minibatching pipeline: mode, sampler,
 layer/fanout budget, capacity policy, dependency schedule, partition,
 executor, plan-construction backend and the tiered feature cache.
 Configurations are interchangeable between the two packages; the port
-runs both modes on the stacked-PE ``executor="sim"`` (``"shard"`` raises
-in ``MinibatchEngine.from_config`` until it is ported).
+runs both modes on the stacked-PE ``executor="sim"``, and cooperative mode
+also on ``executor="shard"``, one PE per rank of a ``torch.distributed``
+process group.
 """
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ class EngineConfig:
     kappa: Optional[int] = 1             # dependency window (None = infinite)
     partition: str = "hash"              # hash | block | bfs (cooperative only)
     executor: str = "sim"                # sim | shard (cooperative only)
-    axis_name: str = "data"              # mesh axis for the shard executor
+    axis_name: str = "data"              # mesh axis in the JAX package (unused here)
     seed: int = 0
     partition_seed: Optional[int] = None  # defaults to ``seed``
     capacity: CapacityPolicy = field(default_factory=CapacityPolicy)

@@ -16,8 +16,9 @@ carved from one group batch under a frozen group RNG).
 The JAX package compiles ``plan_at`` into one program; here it runs
 eagerly with the step's RNG state as python scalars.  Seed draws and
 plans are bit-equal to the JAX package's on the CPU, and to the CPU run
-on a card.  ``executor="shard"`` (a real multi-device mesh) is not
-ported yet.
+on a card.  ``executor="shard"`` runs one PE per rank of a
+``torch.distributed`` process group (:attr:`MinibatchEngine.shard_runner`,
+:mod:`repro_torch.engine.shard`).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from repro_torch.core.cooperative import (
     CoopCapacityPlan,
     CoopMinibatch,
     Executor,
+    ShardExecutor,
     SimExecutor,
     build_cooperative_minibatch,
 )
@@ -46,6 +48,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.plan import Plan
 from repro_torch.engine.stream import MinibatchStream
+from repro_torch.launch.mesh import make_coop_group
 from repro_torch.store.tiers import TieredFeatureStore
 
 _GOLDEN = 0x9E3779B9
@@ -97,20 +100,23 @@ class MinibatchEngine:
     ) -> "MinibatchEngine":
         """Derive sampler, capacities, partition, executor and stores.
 
-        Runs on CUDA unless ``device="cpu"``; the graph moves there.
+        Runs on CUDA unless ``device="cpu"``; the graph moves there.  A
+        cooperative ``executor="shard"`` engine needs a running process
+        group of ``num_pes`` ranks (:func:`repro_torch.launch.make_coop_group`)
+        and runs on this rank's card (``cuda:{LOCAL_RANK % device_count}``)
+        or the CPU.
         """
         cfg, cap = config, config.capacity
-        dev = resolve_device(device)
+        shard = cfg.mode == "cooperative" and cfg.executor == "shard"
+        if shard:  # one PE per rank; the rank's device comes with its group
+            group, dev = make_coop_group(cfg.num_pes, device=device)
+        else:
+            dev = resolve_device(device)
         graph = graph.to(dev).validate()  # malformed CSR fails here
         V = graph.num_vertices
         sampler = make_sampler(cfg.sampler, fanout=cfg.fanout, backend=cfg.plan_backend)
         part, ex = None, None
         if cfg.mode == "cooperative":
-            if cfg.executor != "sim":
-                raise NotImplementedError(
-                    "executor='shard' (multi-device cooperative execution) is "
-                    "not ported to repro_torch yet (ROADMAP.md queue A, item A11)"
-                )
             caps = CoopCapacityPlan.geometric(
                 cfg.local_batch, cfg.num_layers, cfg.fanout, V, cfg.num_pes,
                 safety=cap.coop_safety, bucket_safety=cap.bucket_safety,
@@ -118,7 +124,7 @@ class MinibatchEngine:
             )
             pseed = cfg.seed if cfg.partition_seed is None else cfg.partition_seed
             part = make_partition(cfg.partition, graph, cfg.num_pes, seed=pseed)
-            ex = SimExecutor(cfg.num_pes)
+            ex = ShardExecutor(cfg.num_pes, group) if shard else SimExecutor(cfg.num_pes)
         else:
             caps = CapacityPlan.geometric(
                 cfg.local_batch, cfg.num_layers, cfg.fanout, V,
@@ -256,6 +262,12 @@ class MinibatchEngine:
         cfg = self.config
         backend = cfg.plan_backend
         if cfg.mode == "cooperative":
+            if isinstance(self.ex, ShardExecutor):
+                raise ValueError(
+                    "build_plan builds every PE's stacked plan in this process and "
+                    "cannot host the shard executor's one-PE-per-rank exchange; use "
+                    "plan_at (routed through shard_runner) or executor='sim'"
+                )
             return build_cooperative_minibatch(
                 self.graph, self.sampler, self.part, seeds, rng,
                 cfg.num_layers, self.caps, self.ex, backend=backend,
@@ -271,8 +283,24 @@ class MinibatchEngine:
     def plan_at(self, step: int) -> Plan:
         """The plan for ``step``: the seed draw, the schedule's RNG state and
         sampling, always in the stacked ``(P, b)`` layout -- identical to
-        ``build_plan(seed_batch(step), rng=rng_state(step))``."""
+        ``build_plan(seed_batch(step), rng=rng_state(step))``.
+
+        With ``executor="shard"`` each rank builds its own PE's plan (id
+        all-to-alls between the ranks) and gets that unstacked plan, equal
+        bit for bit to its row of the SimExecutor plan.
+        """
+        if isinstance(self.ex, ShardExecutor):
+            return self.shard_runner.plan_at(step)
         return self.build_plan(self._seed_batch(step), rng=self.rng_state(step))
+
+    @cached_property
+    def shard_runner(self):
+        """Multi-process runner (``executor="shard"`` only): binds this
+        engine to its process group and runs the per-rank plan build and
+        the train-step loss and gradient sync."""
+        from repro_torch.engine.shard import ShardRunner
+
+        return ShardRunner.for_engine(self)
 
     # ------------------------------------------------------------------
     # Feature loading -- through the tiered store when configured

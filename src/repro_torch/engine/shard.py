@@ -1,0 +1,182 @@
+"""Multi-process cooperative execution (port of ``repro.engine.shard``).
+
+The JAX package runs one controller over a 1-D device mesh and the
+per-PE bodies inside ``shard_map``.  Here every PE is a process, a rank
+of a ``torch.distributed`` process group of ``num_pes`` ranks
+(:func:`repro_torch.launch.make_coop_group`), and every rank runs the
+per-PE code that :class:`SimExecutor` loops over, with a
+:class:`ShardExecutor` whose exchange is ``all_to_all_single``: the
+paper's Algorithm 1 on separate devices.
+
+Layout contract
+---------------
+:meth:`ShardRunner.plan_at` returns this rank's own, unstacked
+:class:`CoopMinibatch`: the shard that JAX keeps on each device.  Because
+each rank draws the same ``(P, b)`` seed batch and RNG state and runs the
+same per-PE code on its row, integer plan state is bit-identical to row
+``p`` of the :class:`SimExecutor` plan; :meth:`ShardRunner.stack_plan`
+all-gathers the leaves into the stacked ``(P, ...)`` layout to show it.
+Floating-point loss and gradients agree to reduction order: each rank
+sums its own seeds' cross-entropy and the shares are all-reduced, where
+the simulation reduces one flat array.
+
+Gradient sync is explicit in :meth:`ShardRunner.loss_and_grad`: each rank
+differentiates its share of the global masked mean (its CE sum over the
+all-reduced valid count), then the loss shares and every gradient are
+all-reduced (SUM) in one buffer.  The backward all-to-alls of Alg. 1
+come from autograd through the exchange.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Callable, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.cooperative import (
+    CoopMinibatch,
+    ShardExecutor,
+    build_cooperative_minibatch,
+)
+from repro_torch.core.feature_loader import FeatureStore
+from repro_torch.core.graph import INVALID
+from repro_torch.train.metrics import masked_softmax_xent_parts
+
+if TYPE_CHECKING:  # pragma: no cover - import cycle guard, typing only
+    from repro_torch.engine.engine import MinibatchEngine
+
+
+def _nop() -> None:
+    pass
+
+
+@dataclass
+class ShardRunner:
+    """Cooperative engine bound to a process group; one PE per rank."""
+
+    engine: "MinibatchEngine"
+    ex: ShardExecutor
+
+    @classmethod
+    def for_engine(cls, engine: "MinibatchEngine", group=None) -> "ShardRunner":
+        cfg = engine.config
+        if cfg.mode != "cooperative":
+            raise ValueError(
+                "ShardRunner needs a cooperative engine; independent mode is plain "
+                "data parallelism (no all-to-all)"
+            )
+        if not isinstance(engine.ex, ShardExecutor):
+            raise ValueError(
+                f"engine was built with executor={cfg.executor!r}; construct it with "
+                "executor='shard'"
+            )
+        ex = engine.ex if group is None else dataclasses.replace(engine.ex, group=group)
+        size = dist.get_world_size(ex.group)
+        if size != cfg.num_pes:
+            raise ValueError(f"process group has {size} ranks, engine expects {cfg.num_pes}")
+        return cls(engine=engine, ex=ex)
+
+    @property
+    def rank(self) -> int:
+        """This process's PE."""
+        return dist.get_rank(self.ex.group)
+
+    # ------------------------------------------------------------------
+    # Per-PE plan construction
+    # ------------------------------------------------------------------
+    def plan_at(self, step: int) -> CoopMinibatch:
+        """This rank's cooperative plan for ``step``: row ``rank`` of the
+        step's seed batch under the shared RNG state, built with id
+        all-to-alls between the ranks.  Bit-identical to row ``rank`` of
+        the SimExecutor ``plan_at``."""
+        eng, cfg = self.engine, self.engine.config
+        seeds = eng._seed_batch(step)[self.rank]
+        return build_cooperative_minibatch(
+            eng.graph, eng.sampler, eng.part, seeds, eng.rng_state(step),
+            cfg.num_layers, eng.caps, self.ex, backend=cfg.plan_backend,
+        )
+
+    def stack_plan(self, plan: CoopMinibatch) -> CoopMinibatch:
+        """Every rank's plan in the stacked ``(P, ...)`` layout (an
+        all-gather per leaf, on every rank), for checks and ``plan_stats``."""
+        P = self.engine.config.num_pes
+
+        def gather(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+            if t is None:
+                return None
+            flat = t.contiguous()
+            flat = flat.view(torch.uint8) if t.dtype == torch.bool else flat
+            out = [torch.empty_like(flat) for _ in range(P)]
+            dist.all_gather(out, flat, group=self.ex.group)
+            out = torch.stack(out)
+            return out.view(torch.bool) if t.dtype == torch.bool else out
+
+        layers = tuple(
+            dataclasses.replace(layer, **{
+                f.name: gather(getattr(layer, f.name)) for f in dataclasses.fields(layer)
+            })
+            for layer in plan.layers
+        )
+        return CoopMinibatch(layers=layers, input_ids=gather(plan.input_ids),
+                             seed_ids=gather(plan.seed_ids))
+
+    # ------------------------------------------------------------------
+    # Training-step pieces (loss + explicitly all-reduced gradients)
+    # ------------------------------------------------------------------
+    def loss_and_grad(self, model, gnn_cfg, store, labels: torch.Tensor, step: int,
+                      mark: Callable = _nop):
+        """``(loss, grads, plan)`` of one step on this rank.
+
+        Builds the local plan, gathers the *owned* input rows from
+        ``store`` (the ``gather`` kernel on a card), runs the cooperative
+        forward (all-to-all redistribution between layers), differentiates
+        this rank's share of the global masked-mean CE, then all-reduces
+        the loss shares and gradients.  ``loss`` is the global loss and
+        ``grads`` the global gradients, equal on every rank; the loss
+        semantics are the SimExecutor's (the same masked mean over the
+        same B = b·P seed rows).  ``mark()`` ends each of the plan, gather,
+        forward+backward and all-reduce stages.
+        """
+        from repro_torch.models.gnn import gnn_apply_cooperative
+
+        eng = self.engine
+        V = eng.graph.num_vertices
+        plan = self.plan_at(step)
+        mark()
+        H = plan.gather_inputs(store)
+        mark()
+        logits = gnn_apply_cooperative(model, gnn_cfg, self.ex, plan.layers, H,
+                                       eng.caps.tilde_caps)
+        y = labels[plan.seed_ids.clamp(0, V - 1).long()]
+        s, n = masked_softmax_xent_parts(logits, y, plan.seed_ids != INVALID)
+        dist.all_reduce(n, group=self.ex.group)
+        # this rank's share of the global masked mean: CE sum over the
+        # *global* valid count; the sum of the shares is the global mean
+        share = s / n.clamp(min=1).to(s.dtype)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(share, params)
+        mark()
+        flat = torch.cat([share.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.ex.group)  # loss and gradient sync
+        mark()
+        sizes = [p.numel() for p in params]
+        grads = [g.view_as(p) for g, p in zip(flat[1:].split(sizes), params)]
+        return flat[0], grads, plan
+
+    def make_loss_and_grad(self, gnn_cfg, features, labels) -> Callable:
+        """``(model, step) -> (loss, grads)`` with the shard executor, as
+        the JAX package's ``ShardRunner.make_loss_and_grad``: features and
+        labels move to the engine's device once."""
+        dev = self.engine.device
+        as_tensor = lambda x: x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        store = FeatureStore(as_tensor(features).to(dev))
+        labels = as_tensor(labels).to(dev)
+
+        def loss_and_grad(model, step: int):
+            loss, grads, _ = self.loss_and_grad(model, gnn_cfg, store, labels, step)
+            return loss, grads
+
+        return loss_and_grad

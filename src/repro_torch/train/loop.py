@@ -15,9 +15,17 @@ forward and backward kernels on a card) or the GAT (``seg_softmax``
 forward and backward kernels), masked cross-entropy, backward and Adam.
 ``train_gnn`` can end each of these stages with a device sync and record
 its wall time (``stage_times=True``).
+
+With ``TrainConfig(executor="shard")`` (cooperative) every rank of a
+``torch.distributed`` process group runs this loop for its own PE: the
+plan, gather and forward+backward come from
+``engine.shard_runner.loss_and_grad``, whose exchanges cross the ranks,
+and an all-reduce of the loss shares and gradients comes before Adam, so
+every rank's weights stay equal bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import frontier
+from repro_torch.core.cooperative import ShardExecutor
 from repro_torch.core.graph import INVALID
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import EngineConfig, MinibatchEngine
@@ -34,6 +43,7 @@ from repro_torch.train.metrics import masked_softmax_xent, micro_f1
 from repro_torch.train.optim import AdamState, adam_init, adam_update
 
 STAGES = ("plan", "gather", "forward_backward", "adam")
+SHARD_STAGES = ("plan", "gather", "forward_backward", "all_reduce", "adam")
 
 
 @dataclass
@@ -51,7 +61,7 @@ class TrainConfig:
     seed: int = 0
     eval_every: int = 25
     plan_backend: str = "reference"  # reference | fused (the CUDA kernels on a card)
-    executor: str = "sim"            # sim (shard is not ported)
+    executor: str = "sim"            # sim | shard (one PE per rank, cooperative only)
 
     def engine_config(self, num_layers: int) -> EngineConfig:
         return EngineConfig(
@@ -69,6 +79,9 @@ class TrainResult:
     losses: list = field(default_factory=list)
     val_f1: list = field(default_factory=list)
     stage_ms: list = field(default_factory=list)  # per step {stage: ms}, if timed
+    # shard executor, if timed: per step {kind: (exchanges, bytes, ms)} of
+    # this rank's all-to-alls ("ids", "forward", "backward")
+    exchanges: list = field(default_factory=list)
 
     @property
     def params(self) -> dict:
@@ -115,11 +128,16 @@ def make_loss_fn(engine: MinibatchEngine, gnn_cfg: GNNConfig, store, labels):
 def train_step(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: AdamState,
                labels: torch.Tensor, step: int, lr: float, mark: Callable = lambda: None):
     """One training step: the plan, the input gather, loss and gradients,
-    Adam; ``(loss, opt, plan)``.  ``mark()`` ends each of ``STAGES``."""
+    Adam; ``(loss, opt, plan)``.  ``mark()`` ends each of ``STAGES``, or of
+    ``SHARD_STAGES`` under the shard executor (its plan is this rank's)."""
     params = list(model.parameters())
-    loss, plan = step_loss(engine, gnn_cfg, engine.store, labels, model, step, mark)
-    grads = torch.autograd.grad(loss, params)
-    mark()
+    if isinstance(engine.ex, ShardExecutor):
+        loss, grads, plan = engine.shard_runner.loss_and_grad(
+            model, gnn_cfg, engine.store, labels, step, mark)
+    else:
+        loss, plan = step_loss(engine, gnn_cfg, engine.store, labels, model, step, mark)
+        grads = torch.autograd.grad(loss, params)
+        mark()
     opt = adam_update(params, grads, opt, lr=lr)
     mark()
     return loss, opt, plan
@@ -139,14 +157,24 @@ def train_gnn(
     ``model`` (e.g. from :func:`repro_torch.models.gnn.params_from_jax`)
     moves to the device and is trained in place; by default the weights
     are drawn from ``tc.seed``.  ``stage_times`` ends every stage with a
-    sync and records its wall ms in ``TrainResult.stage_ms``;
-    ``on_step(step, plan)`` sees each step's plan.
+    sync and records its wall ms in ``TrainResult.stage_ms`` (and, under
+    the shard executor, each step's all-to-alls in
+    ``TrainResult.exchanges``); ``on_step(step, plan)`` sees each step's
+    plan.  Under ``executor="shard"`` every rank of the process group calls
+    this; the device is then the rank's own (``cuda:{LOCAL_RANK %
+    device_count}`` unless ``"cpu"``) and ``losses`` the global losses.
     """
-    dev = resolve_device(device)
     engine = MinibatchEngine.from_config(
         dataset.graph, tc.engine_config(gnn_cfg.num_layers), dataset=dataset,
-        device=dev,
+        device=device,
     )
+    dev = engine.device
+    shard = isinstance(engine.ex, ShardExecutor)
+    stages = SHARD_STAGES if shard else STAGES
+    log = None
+    if shard and stage_times:
+        log = []
+        engine.ex = dataclasses.replace(engine.ex, log=log)
     if model is None:
         model = init_gnn(gnn_cfg, tc.seed, device=dev)
     model = model.to(dev)
@@ -167,8 +195,15 @@ def train_gnn(
         result.losses.append(float(loss.detach()))
         if stage_times:
             result.stage_ms.append({
-                s: 1e3 * (b - a) for s, a, b in zip(STAGES, marks, marks[1:])
+                s: 1e3 * (b - a) for s, a, b in zip(stages, marks, marks[1:])
             })
+        if log is not None:
+            result.exchanges.append({
+                kind: (len(recs), sum(r.nbytes for r in recs), sum(r.ms() for r in recs))
+                for kind in ("ids", "forward", "backward")
+                for recs in [[r for r in log if r.kind == kind]]
+            })
+            log.clear()
         if on_step is not None:
             on_step(step, plan)
         if tc.eval_every and (step + 1) % tc.eval_every == 0:

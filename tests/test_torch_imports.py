@@ -67,7 +67,9 @@ def test_port_has_modules_and_chip_smoke():
                  "src/repro_torch/kernels/expand_indptr/ops.py",
                  "src/repro_torch/kernels/errors.py", "src/repro_torch/core/cache.py",
                  "src/repro_torch/engine/stream.py", "src/repro_torch/train/checkpoint.py",
-                 "src/repro_torch/utils/timing.py", "src/repro_torch/utils/logging.py"):
+                 "src/repro_torch/utils/timing.py", "src/repro_torch/utils/logging.py",
+                 "src/repro_torch/engine/shard.py", "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/train.py"):
         assert want in rel
 
 
@@ -233,18 +235,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The multi-device executor still raises; every sampler and model the
-    JAX package has now builds (they raised here until they were ported)."""
+    """The LM pool's launcher still raises; every sampler and model the JAX
+    package has now builds, and the shard executor (ported) asks for its
+    process group instead of raising NotImplementedError."""
     from repro_torch.core.samplers import make_sampler
     from repro_torch.data import make_recsys
     from repro_torch.engine import EngineConfig, MinibatchEngine
+    from repro_torch.launch.train import main as launch_main
     from repro_torch.models.gnn import GNN, GNNConfig
 
     for name in ("ns", "labor0", "labor*", "rw", "full"):
         assert make_sampler(name, fanout=3).name == name
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch_main(["lm", "--arch", "granite-3-8b", "--reduced"])
     ds = make_recsys(num_users=64, num_items=32, edges_per_user=3,
                      feature_dim=8, max_degree=16, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node=2"):
         MinibatchEngine.from_config(
             ds.graph, EngineConfig(mode="cooperative", num_pes=2, executor="shard"),
             device="cpu",
