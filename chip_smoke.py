@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, dependent-minibatching and
-multi-process cooperative paths once on one NVIDIA GPU.
+multi-process cooperative paths, its examples and its analyzer once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 0-1 only (a kernel edit's check)
@@ -161,6 +162,19 @@ Phases:
    forward, gradients backward) with their bytes and event ms; peak
    memory per rank.  On one card the exchange crosses host memory between
    processes: its time says nothing about an NVLink all-to-all.
+10. The examples and the analyzer.  10a: the four ``examples/*_torch.py``
+   at their own widths on the card, then on the CPU;
+   ``train_cooperative_gnn_torch`` at 20 steps (its default is 300) and
+   on the card also with ``plan_backend="fused"``.  Checked card against
+   CPU: feature rows fetched, LRU miss rates per κ, serve accounting and
+   ``compiles`` (1 a bucket) equal; losses within ``rtol=1e-4``, logits
+   within ``atol=1e-4``.  10b: ``run_analysis`` over ``src/repro_torch``
+   on the card (lint, contracts on the seven CUDA wrappers, trace); prints
+   the RA001/RA002/RA004 sites, each wrapper's RA100, and each trace
+   entry's host syncs per call (dispatched ops and sync-debug warnings)
+   and whether its op sequence stayed the same; then the syncs of one
+   served batch and of ``GNNServer.hot_path`` at each of phase 2's
+   buckets.  Fails on RA005, RA107, RA199 or RA299.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, at its largest shape on a path; the last line is ``{"ok": true,
@@ -246,6 +260,9 @@ PATH_KERNELS = {
     "curves": ("frontier_gather",),
     "dependent": ("frontier_gather", "unique_compact", "tag_probe"),
     "train_shard": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "examples": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "analysis": ("frontier_gather", "unique_compact", "tag_probe", "gather", "spmm",
+                 "seg_softmax", "expand_indptr"),
 }
 # the R-GCN of phase 6: the JAX package's mag240M widths
 # (src/repro/launch/gnn_dryrun.py, SCALE_MAG)
@@ -279,6 +296,8 @@ DEP_PREFETCH_ITEMS, DEP_CPU_ITEMS = 4, 2
 # phase 9: how long a collective waits for the other ranks, and how long a
 # run of the ranks may take, process start included, before it is killed
 SHARD_COLLECTIVE_S, SHARD_DEADLINE_S = 120, 300
+# phase 10: the training example's steps (its default is 300)
+EXAMPLE_TRAIN_STEPS = 20
 
 
 class PhaseError(RuntimeError):
@@ -2097,6 +2116,167 @@ def report_rank(tag: str, r: dict, P: int) -> None:
           "(its engine and the per-step checks included)")
 
 
+# --------------------------------------------------------------------------
+# phase 10
+# --------------------------------------------------------------------------
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(device: str = "cuda") -> dict:
+    """10a: the four examples of the port at their own widths on the card,
+    then on the CPU, ``train_cooperative_gnn_torch`` at
+    ``EXAMPLE_TRAIN_STEPS`` steps (cut from 300) and on the card also with
+    ``plan_backend="fused"`` (its plans equal the plain build's, so both
+    card runs are held to the one CPU run).  Integer outputs must be equal,
+    losses within ``TRAIN_RTOL``, logits within ``ATOL``; returns the card
+    runs' launches.  ``device="cpu"`` rehearses the phase with no card."""
+    import numpy as np
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    quick = load_example("quickstart_torch").quickstart
+    dep = load_example("dependent_minibatching_torch").dependent_minibatching
+    train = load_example("train_cooperative_gnn_torch").train_cooperative_gnn
+    serve = load_example("serve_gnn_torch").serve_gnn
+    out_dir = ROOT / "build" / "phase10"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def run_all(device: str, backends: tuple) -> dict:
+        runs, secs = {}, {}
+        for name, fn in (("quickstart", lambda: quick(device=device)),
+                         ("dependent", lambda: dep(device=device)),
+                         *((f"train[{b}]", functools.partial(
+                             train, steps=EXAMPLE_TRAIN_STEPS, plan_backend=b,
+                             out=str(out_dir / f"ckpt_{device}_{b}"), device=device))
+                           for b in backends),
+                         ("serve", lambda: serve(device=device))):
+            print(f"phase10a {name} on {device}:")
+            t0 = time.perf_counter()
+            runs[name] = fn()
+            secs[name] = time.perf_counter() - t0
+        print(f"phase10a {device} seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+        return runs
+
+    reset_launches()
+    card = run_all(device, ("reference", "fused"))
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    print(f"phase10a card launches {launches}")
+    for k in PATH_KERNELS["examples"] if device == "cuda" else ():
+        check(launches[k] > 0, f"kernel {k} was not launched by the examples")
+    cpu = run_all("cpu", ("reference",))
+
+    a, b = card["quickstart"], cpu["quickstart"]
+    keys = ("num_vertices", "num_edges", "indep_inputs", "coop_inputs")
+    check([a[k] for k in keys] == [b[k] for k in keys],
+          f"quickstart counts card {[a[k] for k in keys]} cpu {[b[k] for k in keys]}")
+    check(np.allclose(a["losses"], b["losses"], rtol=TRAIN_RTOL, atol=0),
+          f"quickstart losses card {a['losses']} cpu {b['losses']}")
+    a, b = card["dependent"], cpu["dependent"]
+    check(a["miss_rate"] == b["miss_rate"],
+          f"LRU miss rates card {a['miss_rate']} cpu {b['miss_rate']}")
+    corr_err = max(abs(a["corr"][s] - b["corr"][s]) for s in a["corr"])
+    print(f"phase10a dependent: miss rates by kappa {a['miss_rate']} equal; correlations "
+          f"card vs cpu max abs diff {corr_err:.3e}")
+    want = cpu["train[reference]"]["losses"]
+    for backend in ("reference", "fused"):
+        got = card[f"train[{backend}]"]
+        err = float(np.max(np.abs(np.asarray(got["losses"]) - want) / np.abs(want)))
+        print(f"phase10a train[{backend}]: loss rel err card vs cpu {err:.3e} (rtol "
+              f"{TRAIN_RTOL}); val F1 card {got['val_f1']} cpu {cpu['train[reference]']['val_f1']}")
+        check(err <= TRAIN_RTOL, f"train[{backend}] losses differ from the CPU run by {err}")
+    a, b = card["serve"]["reports"], cpu["serve"]["reports"]
+    for policy, rep in a.items():
+        ref = b[policy]
+        check(rep.summary() == ref.summary(),
+              f"serve {policy}: card {rep.summary()} cpu {ref.summary()}")
+        check([r.bucket for r in rep.batches] == [r.bucket for r in ref.batches],
+              f"serve {policy}: buckets differ from the CPU run")
+        check(rep.compiles == ref.compiles and all(
+            n == 1 for per in rep.compiles.values() for n in per.values()),
+            f"serve {policy}: compiles card {rep.compiles} cpu {ref.compiles}")
+        by_rid = {s.request.rid: s.pred for s in ref.served}
+        err = max(float(np.abs(s.pred - by_rid[s.request.rid]).max()) for s in rep.served)
+        check(err <= ATOL, f"serve {policy}: logits differ from the CPU run by {err}")
+        print(f"phase10a serve {policy}: accounting equal to the cpu's, compiles "
+              f"{rep.compiles}, logits card vs cpu max abs diff {err:.3e}")
+    gap = card["serve"]["max_abs_diff"]
+    print(f"phase10a serve coalesced vs per-request (card): max abs diff {gap:.3e} (atol {ATOL})")
+    check(gap <= ATOL, f"coalesced and per-request logits differ by {gap} on the card")
+    check(cpu["serve"]["bit_identical"], "coalesced != per-request predictions on the CPU")
+    return launches
+
+
+def rel(path: str) -> str:
+    p = Path(path)
+    return str(p.resolve().relative_to(ROOT)) if p.is_absolute() else path
+
+
+def phase_analysis(ds, serve_cfg, gnn_cfg, device: str = "cuda") -> dict:
+    """10b: ``run_analysis`` over the port on the card (lint, contracts on
+    the seven CUDA wrappers, trace); then the host syncs of one served batch
+    and of ``hot_path`` at each of phase 2's buckets, by both counts.  Fails
+    on RA005, RA107, RA199, RA299 or a wrapper without RA100; returns the
+    run's launches.  ``device="cpu"`` rehearses the phase with no card."""
+    import torch
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.trace import record_call
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.serve import GNNServer, poisson_trace
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = run_analysis([str(ROOT / "src" / "repro_torch")], passes=["lint", "contracts", "trace"],
+                       device=device)
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    print(f"phase10b run_analysis: {time.perf_counter() - t0:.1f} s, rule counts "
+          f"{rep.rule_counts()}, launches {launches}")
+    for f in sorted(rep.findings, key=lambda f: (f.rule, f.file, f.line)):
+        if f.rule in ("RA001", "RA002", "RA004"):
+            print(f"phase10b {f.rule} {rel(f.file)}:{f.line} {f.extra}")
+    for f in rep.findings:
+        if f.rule[:3] == "RA1":
+            print(f"phase10b {f.rule} {rel(f.file)}:{f.line} {f.message}")
+    bad = [f.render() for f in rep.findings if f.rule in ("RA005", "RA107", "RA199", "RA299")]
+    check(not bad, "analysis: " + "; ".join(bad))
+    check(sum(f.rule == "RA100" for f in rep.findings) == 7, "not every wrapper verified")
+    for f in rep.findings:
+        if f.rule in ("RA200", "RA201", "RA202"):
+            per_call = ", ".join(
+                f"{c['syncs']}/{c['sync_warnings']}" for c in f.extra["calls"])
+            print(f"phase10b trace {f.extra['entry']} [{f.rule}]: syncs per call "
+                  f"(dispatched/sync-debug warnings) {per_call}; same signature "
+                  f"{f.extra['same_signature']}; sites {f.extra['calls'][0]['sites']}")
+    for k in PATH_KERNELS["analysis"] if device == "cuda" else ():
+        check(launches[k] > 0, f"kernel {k} was not launched by the analysis")
+
+    dev = torch.device(device)
+    server = GNNServer(ds.graph, ds.features, gnn_cfg,
+                       init_gnn(gnn_cfg, seed=SEED, device=device), serve_cfg, device=device)
+    trace = poisson_trace(500, 4000.0, ds.user_ids, seed=SEED)
+    for bucket in server.ladder.buckets:
+        batch = server.coalescer.coalesce(trace[:bucket], 0.0)
+        check(batch.bucket == bucket, f"{bucket} requests coalesced into bucket {batch.bucket}")
+        seeds = torch.from_numpy(batch.seeds).to(dev)
+        server._execute(batch, 0)  # warm-up: the bucket's engine and cuBLAS
+        _, served = record_call(dev, server._execute, batch, 0)
+        _, hot = record_call(dev, server.hot_path, seeds)
+        print(f"phase10b served batch at bucket {bucket}: syncs {served.syncs} dispatched / "
+              f"{served.sync_warnings} sync-debug warnings ({len(served.ops)} ops; sites "
+              f"{served.sites}); hot_path {hot.syncs} / {hot.sync_warnings} "
+              f"({len(hot.ops)} ops)")
+    print(f"phase10b: compiles {server._plan_guard.compiles} (plan), "
+          f"{server._forward_guard.compiles} (forward)")
+    return launches
+
+
 # kernels of the redesigned wrappers, by name in a profile (the spmm
 # backward's scan kernel comes from scan.cuh), every torch.sort of a step
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
@@ -2298,6 +2478,10 @@ def main(argv: list) -> int:
         launches["dependent"] = phase_dependent(rds, tc)
         del rds
         launches["train_shard"] = phase_shard(tds, train_cfg, tc, p3)
+        t0 = time.perf_counter()
+        launches["examples"] = phase_examples()
+        launches["analysis"] = phase_analysis(ds, serve_cfg, gnn_cfg)
+        print(f"phase10: {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -37,6 +37,9 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES: dict[str, int] = {}
+#: the device type every kernel input must lie on (the contract checker's
+#: recording run on a host without a card sets it to "cpu")
+KERNEL_DEVICE = "cuda"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -160,7 +163,7 @@ def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> No
     """Raise :class:`KernelContractError` unless every tensor is a
     contiguous CUDA tensor of ``dtype``."""
     for key, t in tensors.items():
-        if t.device.type != "cuda":
+        if t.device.type != KERNEL_DEVICE:
             raise KernelContractError(kernel, f"{key} is on {t.device}, not CUDA")
         if t.dtype != dtype:
             raise KernelContractError(kernel, f"{key} has dtype {t.dtype}, not {dtype}")

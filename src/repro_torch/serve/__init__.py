@@ -19,12 +19,14 @@ plan/gather/forward loop with latency + fetch accounting).
 """
 from repro_torch.serve.coalesce import (
     POLICIES,
+    BucketGuard,
     BucketLadder,
     CoalescedBatch,
     Coalescer,
     HybridPolicy,
     MaxBatchPolicy,
     MaxWaitPolicy,
+    RetraceError,
     make_policy,
 )
 from repro_torch.serve.queue import (
@@ -43,8 +45,8 @@ from repro_torch.serve.server import (
 )
 
 __all__ = [
-    "BatchRecord", "BucketLadder", "CoalescedBatch", "Coalescer", "GNNServer",
+    "BatchRecord", "BucketGuard", "BucketLadder", "CoalescedBatch", "Coalescer", "GNNServer",
     "HybridPolicy", "MaxBatchPolicy", "MaxWaitPolicy", "POLICIES", "Request",
-    "RequestQueue", "ServeConfig", "ServeReport", "ServedRequest",
+    "RequestQueue", "RetraceError", "ServeConfig", "ServeReport", "ServedRequest",
     "bursty_trace", "make_policy", "make_trace", "poisson_trace",
 ]

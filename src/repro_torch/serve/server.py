@@ -14,7 +14,8 @@ deterministic; ``"measured"`` uses the wall clock of the executed batch,
 which ends in ``torch.cuda.synchronize()`` on a card.  Real compute runs
 either way.  Every batch record splits its wall time into plan build,
 feature gather and forward, each stage ended by a device sync, so the
-three add up to it.
+three add up to it.  ``GNNServer.hot_path`` is the same plan -> gather
+-> forward step with no sync of its own.
 
 On one device, samplers draw per-vertex hash randomness and the forward
 is row-wise, so a seed's prediction does not depend on which batch served
@@ -23,8 +24,11 @@ algorithm for another batch size, so there predictions agree within a
 float32 tolerance.  ``serve_independent`` replays a trace one request at
 a time as the baseline.
 
-The JAX package's per-bucket retrace guard and ``ServeReport.compiles``
-are dropped: eager PyTorch compiles nothing per bucket.
+Each bucket's plan and forward inputs are held to one shape signature
+(:class:`repro_torch.serve.coalesce.BucketGuard`, the JAX package's
+per-bucket retrace guard): a second one raises ``RetraceError``, and
+``ServeReport.compiles`` counts the signatures per bucket under the JAX
+package's keys, ``"serve.plan"`` and ``"serve.forward"``.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import EngineConfig
 from repro_torch.models.gnn import GNN, GNNConfig, gnn_apply
 from repro_torch.serve.coalesce import (
+    BucketGuard,
     BucketLadder,
     CoalescedBatch,
     Coalescer,
@@ -133,6 +138,7 @@ class ServeReport:
     fetched_rows: int = 0
     requested_rows: int = 0
     cache_hits: int = 0
+    compiles: dict = field(default_factory=dict)  # signatures per bucket
 
     def latencies_ms(self) -> np.ndarray:
         return np.asarray([s.latency_ms for s in self.served])
@@ -213,10 +219,42 @@ class GNNServer:
             )
         else:  # uncached: the whole table on the device
             self.store = FeatureStore(torch.from_numpy(features).to(self.device))
+        self._plan_guard = BucketGuard("serve.plan")
+        self._forward_guard = BucketGuard("serve.forward")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- the serving step's pieces, each bucket held to one shape signature
+    def _plan(self, seeds):
+        bucket = seeds.shape[0]
+        eng = self.coalescer.engine_for(bucket)
+        plan = eng.build_plan(seeds, rng=eng.rng_at(0))
+        self._plan_guard.check(bucket, plan)
+        return plan
+
+    def _gather(self, plan) -> torch.Tensor:
+        store = self.tiered if self.tiered is not None else self.store
+        return store.gather(plan.input_ids)
+
+    def _forward(self, plan, H: torch.Tensor) -> torch.Tensor:
+        self._forward_guard.check(plan.seed_ids.shape[0], plan.layers, H)
+        with torch.no_grad():
+            return gnn_apply(self.model, self.gnn_cfg, plan.layers, H)
+
+    def hot_path(self, seeds):
+        """The full serving step for one bucket of seeds (plan -> gather ->
+        forward), with no device sync of its own; returns ``(seed_ids,
+        logits)`` on the device.
+
+        Registered as a ``repro_torch.analysis`` trace entry: every
+        same-bucket call must dispatch one op sequence.  The gather goes
+        through the server's feature tier (the CLOCK cache when
+        ``use_cache``); the batch loop times the same three pieces.
+        """
+        plan = self._plan(seeds)
+        return plan.seed_ids, self._forward(plan, self._gather(plan))
 
     # -- one batch ----------------------------------------------------------
     def _execute(self, batch: CoalescedBatch, index: int):
@@ -224,17 +262,13 @@ class GNNServer:
         fetched_before = self.tiered.fetched_rows if self.tiered else 0
         self._sync()
         t0 = time.perf_counter()
-        plan = self.coalescer.build_plan(batch)
+        plan = self._plan(batch.seeds)
         self._sync()
         t1 = time.perf_counter()
-        if self.tiered is not None:
-            H = self.tiered.gather(plan.input_ids)
-        else:
-            H = self.store.gather(plan.input_ids)
+        H = self._gather(plan)
         self._sync()
         t2 = time.perf_counter()
-        with torch.no_grad():
-            logits = gnn_apply(self.model, self.gnn_cfg, plan.layers, H)
+        logits = self._forward(plan, H)
         self._sync()
         t3 = time.perf_counter()
         wall_ms = 1e3 * (t3 - t0)
@@ -325,9 +359,15 @@ class GNNServer:
         else:
             report.fetched_rows = sum(b.fetched_rows for b in report.batches)
             report.requested_rows = report.fetched_rows
+        report.compiles = {
+            "serve.plan": dict(self._plan_guard.compiles),
+            "serve.forward": dict(self._forward_guard.compiles),
+        }
+        self._plan_guard.assert_compiled_once_per_bucket()
+        self._forward_guard.assert_compiled_once_per_bucket()
 
     def reset(self) -> None:
-        """Fresh cache + counters."""
+        """Fresh cache + counters (keeps the per-bucket signatures)."""
         if self.tiered is not None:
             self.tiered = TieredFeatureStore(
                 self.tiered.host, capacity=self.tiered.capacity,

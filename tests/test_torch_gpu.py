@@ -28,6 +28,7 @@ losses, and the NS, RW, full and LABOR-* samplers the same samples.  The
 stateful ``ClockCache`` must keep the CPU's CLOCK state over a κ trace
 (one ``tag_probe`` launch per access), and ``engine.stream`` with
 features through the tiered cache give the CPU's items and counters.
+The analyzer's contracts and trace passes run on the card.
 """
 import numpy as np
 import pytest
@@ -851,3 +852,25 @@ def test_stream_with_features_on_card_matches_cpu(cuda):
     assert (ta.hits, ta.misses, ta.requested, ta.fetched_rows) == (
         tb.hits, tb.misses, tb.requested, tb.fetched_rows)
     assert ta.requested > 0
+
+
+def test_analysis_contracts_and_trace_on_card(cuda):
+    """The analyzer's contracts pass launches every CUDA wrapper on the
+    card (RA100 for all seven, no RA107/RA199), and its trace pass runs
+    every entry point there (no RA299) with sync-debug warnings counted."""
+    from pathlib import Path
+
+    from repro_torch.analysis import run_analysis
+
+    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    reset_launches()
+    rep = run_analysis([str(src)], passes=["contracts", "trace"], device=cuda)
+    rules = [f.rule for f in rep.findings]
+    assert rules.count("RA100") == 7
+    assert not {"RA107", "RA199", "RA299"} & set(rules)
+    assert all(LAUNCHES.get(k, 0) > 0 for k in (
+        "frontier_gather", "unique_compact", "tag_probe", "gather", "spmm", "seg_softmax",
+        "expand_indptr"))
+    traced = [f for f in rep.findings if f.rule in ("RA200", "RA201", "RA202")]
+    assert traced and all(
+        c["sync_warnings"] is not None for f in traced for c in f.extra["calls"])

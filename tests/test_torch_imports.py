@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port (``src/repro_torch``).
 
-* No module of the port, and nothing in ``chip_smoke.py``, imports JAX or
-  the JAX package ``repro``: the port keeps its own copies.
+* No module of the port, nothing in ``chip_smoke.py`` and no example of
+  the port (``examples/*_torch.py``) imports JAX or the JAX package
+  ``repro``: the port keeps its own copies.
 * Kernel wrappers take their plain torch version for CPU tensors and
   never reach the CUDA launch path there.
 * Entry points default to CUDA and raise, rather than fall back to the
@@ -42,7 +43,8 @@ from repro_torch.store import probe_ref, tag_probe
 torch.set_num_threads(1)  # the suite runs files in parallel workers
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 INVALID = 2**31 - 1
 
 
@@ -69,7 +71,9 @@ def test_port_has_modules_and_chip_smoke():
                  "src/repro_torch/engine/stream.py", "src/repro_torch/train/checkpoint.py",
                  "src/repro_torch/utils/timing.py", "src/repro_torch/utils/logging.py",
                  "src/repro_torch/engine/shard.py", "src/repro_torch/launch/mesh.py",
-                 "src/repro_torch/launch/train.py"):
+                 "src/repro_torch/launch/train.py", "src/repro_torch/analysis/cli.py",
+                 "src/repro_torch/analysis/trace.py", "examples/quickstart_torch.py",
+                 "examples/serve_gnn_torch.py"):
         assert want in rel
 
 

@@ -4,9 +4,12 @@ The same small user-item graph, ``init_gnn`` weights moved over with
 ``params_from_jax``, and the same trace through ``repro.serve.GNNServer``
 and ``repro_torch.serve.GNNServer(device="cpu")``: every integer count
 and per-batch record equal, per-request logits within
-``rtol=atol=1e-5`` (float32 sums taken in another order).  Inside the
-port on the CPU, coalesced logits are bit-identical to per-request ones
-(mirrors ``tests/test_serve.py``).
+``rtol=atol=1e-5`` (float32 sums taken in another order), and
+``ServeReport.compiles`` equal to the JAX server's compiles per bucket.
+``GNNServer.hot_path`` against the JAX ``hot_path``: ``seed_ids`` bit-equal,
+logits within ``atol=1e-5``.  A bucket fed a second shape signature
+raises ``RetraceError``.  Inside the port on the CPU, coalesced logits
+are bit-identical to per-request ones (mirrors ``tests/test_serve.py``).
 """
 import dataclasses
 
@@ -24,7 +27,15 @@ from repro.serve import bursty_trace as j_bursty_trace
 from repro.serve import poisson_trace as j_poisson_trace
 from repro_torch.data import make_recsys
 from repro_torch.models.gnn import GNNConfig, params_from_jax
-from repro_torch.serve import POLICIES, GNNServer, ServeConfig, bursty_trace, poisson_trace
+from repro_torch.serve import (
+    POLICIES,
+    BucketGuard,
+    GNNServer,
+    RetraceError,
+    ServeConfig,
+    bursty_trace,
+    poisson_trace,
+)
 
 torch.set_num_threads(1)  # the suite runs files in parallel workers
 
@@ -81,6 +92,46 @@ def test_serve_trace_matches_jax_server(setup, use_cache):
     for a, b in zip(got.served, want.served):
         np.testing.assert_allclose(a.pred, np.asarray(b.pred), rtol=1e-5, atol=1e-5)
     assert got.summary() == want.summary()
+    assert got.compiles == want.compiles
+    assert set(got.compiles) == {"serve.plan", "serve.forward"}
+    assert all(n == 1 for per in got.compiles.values() for n in per.values())
+
+
+@pytest.mark.parametrize("use_cache", [False, True])
+def test_hot_path_matches_jax(setup, use_cache):
+    jd, td, params, model = setup
+    jcfg = JServeConfig(plan_backend="fused", max_batch=16, use_cache=False)
+    jserver = JServer(jd.graph, jd.features, JGNNConfig(**GNN_KW), params, jcfg)
+    server = _port_server(td, model, max_batch=16, use_cache=use_cache)
+    for lo, bucket in ((0, 8), (8, 16), (30, 8)):
+        seeds = np.asarray(jd.user_ids[lo: lo + bucket], np.int32)
+        want_ids, want = jserver.hot_path(jax.numpy.asarray(seeds))
+        got_ids, got = server.hot_path(torch.from_numpy(seeds))
+        np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    assert server._plan_guard.compiles == server._forward_guard.compiles == {8: 1, 16: 1}
+
+
+def test_bucket_guard_raises_on_a_second_shape(setup):
+    _, td, _, model = setup
+    server = _port_server(td, model, max_batch=16)
+    seeds = torch.as_tensor(td.user_ids[:8], dtype=torch.int32)
+    plan = server._plan(seeds)
+    H = server._gather(plan)
+    server._forward(plan, H)
+    server._forward(plan, H.clone())  # same shapes: the same program
+    with pytest.raises(RetraceError, match="bucket 8"):
+        server._forward(plan, H[:, :-1])  # bucket 8 fed a second shape
+    assert server._forward_guard.compiles == {8: 2}
+    server._forward(plan, H)  # the first signature again: no new program
+    with pytest.raises(RetraceError, match="retraced buckets"):
+        server.serve_trace(_trace(td, n=10))
+    guard = BucketGuard("step")
+    guard.check(8, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(RetraceError):
+        guard.check(8, torch.zeros(4, dtype=torch.int64))  # dtype is part of the shape
+    guard.check(16, torch.zeros(5))
+    assert guard.compiles == {8: 2, 16: 1}
 
 
 @pytest.fixture(scope="module")
