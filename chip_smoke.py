@@ -175,6 +175,28 @@ Phases:
    and whether its op sequence stayed the same; then the syncs of one
    served batch and of ``GNNServer.hot_path`` at each of phase 2's
    buckets.  Fails on RA005, RA107, RA199 or RA299.
+11. The LM pool (``repro_torch.models.transformer``, no CUDA kernel of
+   its own: its products are cuBLAS calls, the rest plain torch ops).
+   11a: each of the ten architectures at its reduced size, ``init_lm`` on
+   the card (bit for bit the CPU's draw) and the same weights copied to
+   the CPU: ``forward_train``
+   logits within ``atol=1e-4``; ``prefill_decode`` at batch 4, prompt 16:
+   logits and every cache within ``atol=1e-4``, ``pos`` equal; 8 greedy
+   tokens equal; for MoE, layer 0's routes (experts and expert tables)
+   equal on a seeded input.  11b: gemma2-2b at its published widths and
+   depth (26 layers, d 2304, 8/4 heads of 256, d_ff 9216, vocab 256,000,
+   float32, TF32 off): ``init_lm`` on the card; ``prefill_decode`` (batch
+   4, prompt 16) bit for bit equal to stepping ``make_serve_step`` over
+   the prompt (logits, every cache, 24 greedy tokens); ``forward_train``
+   at S 64 within ``3e-3 * max|logits|`` of stepped decode;
+   ``make_prefill_step`` at batch 4, S 2,048; at 2 layers, card against
+   CPU (weights copied from the card): logits within ``atol=1e-4``, 8
+   greedy tokens equal.  Printed beside the card's name and power limit:
+   decode ms a step (median of 24, each ended by a sync), tokens/s, the
+   step's memory bound (parameter bytes over 3.35 TB/s), ``prefill_decode``
+   and ``make_prefill_step`` ms, peak memory, one decode step's CUDA
+   launches and idle share under the profiler, and its host syncs (the
+   analyzer's trace pass).
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, at its largest shape on a path; the last line is ``{"ok": true,
@@ -263,6 +285,7 @@ PATH_KERNELS = {
     "examples": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
     "analysis": ("frontier_gather", "unique_compact", "tag_probe", "gather", "spmm",
                  "seg_softmax", "expand_indptr"),
+    "lm": (),  # the LM pool runs cuBLAS and plain torch ops, none of the seven
 }
 # the R-GCN of phase 6: the JAX package's mag240M widths
 # (src/repro/launch/gnn_dryrun.py, SCALE_MAG)
@@ -298,6 +321,12 @@ DEP_PREFETCH_ITEMS, DEP_CPU_ITEMS = 4, 2
 SHARD_COLLECTIVE_S, SHARD_DEADLINE_S = 120, 300
 # phase 10: the training example's steps (its default is 300)
 EXAMPLE_TRAIN_STEPS = 20
+# phase 11: batch, prompt and new tokens (examples/serve_lm.py's), greedy
+# tokens held card against CPU, the teacher-forced length, the prefill
+# length (two of the flash path's 1,024-key blocks) and the reference's
+# train/decode bound, relative to the largest |logit|
+LM_BATCH, LM_PROMPT, LM_NEW, LM_GREEDY = 4, 16, 24, 8
+LM_TRAIN_S, LM_PREFILL_S, LM_CONSISTENCY = 64, 2048, 3e-3
 
 
 class PhaseError(RuntimeError):
@@ -463,6 +492,7 @@ def syncs(fn) -> bool:
     import warnings
 
     import torch
+    from repro_torch.analysis.trace import SYNC_WARNING
 
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -472,7 +502,7 @@ def syncs(fn) -> bool:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return any("synchroniz" in str(w.message) for w in caught)
+    return any(SYNC_WARNING in str(w.message) for w in caught)
 
 
 GRAPH, PROFILER = "graph replay", "profiler sum (syncs)"
@@ -2277,6 +2307,289 @@ def phase_analysis(ds, serve_cfg, gnn_cfg, device: str = "cuda") -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 11
+# --------------------------------------------------------------------------
+def lm_leaves(state: dict) -> list:
+    """A decode state's tensors: ``pos``, then each layer's caches."""
+    out = [state["pos"]]
+    for layer in state["layers"]:
+        for part in sorted(layer):
+            out += [layer[part][k] for k in sorted(layer[part])]
+    return out
+
+
+def lm_greedy(serve, model, logits, state, n: int, step_ms: list = None):
+    """``n`` greedy tokens (B, n) after ``logits``; with ``step_ms`` each
+    serve step is timed on the host clock, ended by a device sync."""
+    import numpy as np
+    import torch
+
+    out = []
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for _ in range(n):
+        out.append(tok[:, 0].cpu().numpy())
+        if step_ms is not None:
+            sync(tok.device)
+            t0 = time.perf_counter()
+        logits, state = serve(model, state, tok)
+        if step_ms is not None:
+            sync(tok.device)
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    return np.stack(out, 1), state
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_inputs(cfg, rng, seq: int) -> tuple:
+    """Seeded numpy tokens (B, seq - prefix), prefix embeddings and, for
+    whisper, encoder frames."""
+    import numpy as np
+
+    toks = rng.integers(0, cfg.vocab_size, (LM_BATCH, seq - cfg.num_prefix_tokens))
+    prefix = (rng.standard_normal((LM_BATCH, cfg.num_prefix_tokens, cfg.d_model))
+              .astype(np.float32) if cfg.num_prefix_tokens else None)
+    enc = (rng.standard_normal((LM_BATCH, cfg.enc_len, cfg.d_model)).astype(np.float32)
+           if cfg.enc_dec else None)
+    return toks.astype(np.int32), prefix, enc
+
+
+def lm_run(model, cfg, dev, toks, prefix, enc) -> dict:
+    """``forward_train`` and ``prefill_decode`` plus ``LM_GREEDY`` tokens on
+    ``dev``, results on the CPU."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import forward_train, init_decode_state, prefill_decode
+
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev)  # noqa: E731
+    with torch.inference_mode():
+        logits, _ = forward_train(model, cfg, t(toks), t(prefix), t(enc))
+    state = init_decode_state(cfg, LM_BATCH, LM_PROMPT + LM_GREEDY, device=dev)
+    if cfg.enc_dec:
+        state["enc_out"] = t(enc)
+    last, state = prefill_decode(model, cfg, state, t(toks[:, :LM_PROMPT]))
+    leaves = [x.to("cpu", copy=True) for x in lm_leaves(state)]  # decoding updates in place
+    tokens, _ = lm_greedy(make_serve_step(cfg), model, last, state, LM_GREEDY)
+    return {"train": logits.cpu(), "last": last.cpu(), "leaves": leaves, "tokens": tokens}
+
+
+def lm_compare(tag: str, card: dict, cpu: dict) -> str:
+    """Card against CPU: logits and caches within ``ATOL``, ``pos`` and the
+    greedy tokens equal."""
+    import numpy as np
+
+    errs = {k: float((card[k] - cpu[k]).abs().max()) for k in ("train", "last")}
+    errs["caches"] = max(float((a.double() - b.double()).abs().max())
+                         for a, b in zip(card["leaves"][1:], cpu["leaves"][1:]))
+    check(all(v <= ATOL for v in errs.values()), f"{tag}: card vs cpu {errs} (atol {ATOL})")
+    check(int(card["leaves"][0]) == int(cpu["leaves"][0]) == LM_PROMPT, f"{tag}: pos differs")
+    check(np.array_equal(card["tokens"], cpu["tokens"]),
+          f"{tag}: greedy tokens card {card['tokens'].tolist()} cpu {cpu['tokens'].tolist()}")
+    return (f"forward_train {errs['train']:.3e}, prefill_decode logits {errs['last']:.3e}, "
+            f"caches {errs['caches']:.3e}; pos {LM_PROMPT} and {LM_GREEDY} greedy tokens equal")
+
+
+def phase_lm_archs(dev) -> None:
+    """11a: the ten architectures, reduced, card against CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.transformer.moe import route
+
+    for arch in ALL_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        model = init_lm(cfg, seed=SEED, device=dev)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        drawn = dict(init_lm(cfg, seed=SEED, device="cpu").named_parameters())
+        check(all(torch.equal(p.detach().cpu().view(torch.int32), drawn[n].detach().view(
+            torch.int32)) for n, p in model.named_parameters()),
+            f"phase11a {arch}: init_lm on the card differs from the CPU's draw")
+        rng = np.random.default_rng(SEED)
+        inputs = lm_inputs(cfg, rng, LM_PROMPT + 16)
+        line = lm_compare(f"phase11a {arch}", lm_run(model, cfg, dev, *inputs),
+                          lm_run(cpu_model, cfg, torch.device("cpu"), *inputs))
+        if cfg.num_experts:
+            x = rng.standard_normal((LM_BATCH * LM_PROMPT, cfg.d_model)).astype(np.float32)
+            a = route(model.layers[0]["moe"], cfg, torch.as_tensor(x, device=dev))
+            b = route(cpu_model.layers[0]["moe"], cfg, torch.from_numpy(x))
+            check(torch.equal(a.expert.cpu(), b.expert) and torch.equal(a.table_tok.cpu(),
+                                                                        b.table_tok),
+                  f"phase11a {arch}: MoE routes differ card vs cpu")
+            line += f"; routes equal ({int((b.table_tok >= 0).sum())} of {b.table_tok.numel()} " \
+                    "expert slots filled)"
+        print(f"phase11a {arch}: init_lm bits equal to the CPU's; {line} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_lm(card: str, device: str = "cuda", cfg=None, prefill_s: int = LM_PREFILL_S) -> dict:
+    """Phase 11: 11a, then 11b on ``cfg`` (gemma2-2b at its published
+    size unless given); returns the kernel launches of the run (the LM
+    path launches none of the seven).  ``device="cpu"`` with a small
+    ``cfg`` rehearses the phase with no card."""
+    import copy
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.trace import record_call
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import (
+        forward_train,
+        init_decode_state,
+        init_lm,
+        prefill_decode,
+    )
+
+    dev = torch.device(device)
+    reset_launches()
+    t_start = time.perf_counter()
+    phase_lm_archs(dev)
+    print(f"phase11a: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 11b: the published widths and depth
+    cfg = cfg or get_config("gemma2-2b")
+    B, S0 = LM_BATCH, LM_PROMPT
+    base_mb = torch.cuda.memory_allocated(dev) / 2**20 if dev.type == "cuda" else 0.0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=SEED, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    print(f"phase11b {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, {n_bytes} bytes; init_lm "
+          f"on {device} {init_s:.1f} s; [{card}]", flush=True)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S0)), dtype=torch.int32,
+                              device=dev)
+    serve = make_serve_step(cfg)
+    max_len = S0 + LM_NEW
+    prefill_decode(model, cfg, init_decode_state(cfg, B, max_len, device=dev), prompts)
+    sync(dev)  # warm-up: cuBLAS handles and algorithms
+    state_a = init_decode_state(cfg, B, max_len, device=dev)
+    t0 = time.perf_counter()
+    logits_a, state_a = prefill_decode(model, cfg, state_a, prompts)
+    sync(dev)
+    prefill_decode_ms = 1e3 * (time.perf_counter() - t0)
+    state_b = init_decode_state(cfg, B, max_len, device=dev)
+    for t in range(S0):
+        logits_b, state_b = serve(model, state_b, prompts[:, t:t + 1])
+    check(torch.equal(logits_a, logits_b), "phase11b: prefill_decode logits != stepped logits")
+    leaves_a, leaves_b = lm_leaves(state_a), lm_leaves(state_b)
+    check(all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b, strict=True)),
+          "phase11b: prefill_decode caches != stepped caches")
+    step_ms: list = []
+    gen_a, state_a = lm_greedy(serve, model, logits_a, state_a, LM_NEW, step_ms)
+    gen_b, _ = lm_greedy(serve, model, logits_b, state_b, LM_NEW)
+    check(np.array_equal(gen_a, gen_b), "phase11b: greedy tokens after prefill != stepped")
+    decode_ms = float(np.median(step_ms))
+    print(f"phase11b prefill_decode (B {B}, prompt {S0}) bit for bit equal to {S0} "
+          f"make_serve_step steps: logits, {len(leaves_a)} state tensors, {LM_NEW} greedy "
+          f"tokens (row 0: {gen_a[0][:8].tolist()} ...); [{card}]", flush=True)
+    print(f"phase11b decode ms a step (median of {LM_NEW}, each ended by a sync) "
+          f"{decode_ms:.3f} [min {min(step_ms):.3f}, max {max(step_ms):.3f}], "
+          f"{B / decode_ms * 1e3:.1f} tokens/s; memory bound {bound_ms:.3f} ms "
+          f"({n_bytes} bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"{bound_ms / decode_ms:.4f} of it; prefill_decode {prefill_decode_ms:.1f} ms "
+          f"({prefill_decode_ms / S0:.3f} a token step); [{card}]", flush=True)
+
+    # teacher-forced logits against stepped decode
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, LM_TRAIN_S)), device=dev)
+    with torch.inference_mode():
+        logits, _ = forward_train(model, cfg, toks)
+    state = init_decode_state(cfg, B, LM_TRAIN_S, device=dev)
+    err = 0.0
+    for t in range(LM_TRAIN_S):
+        lg, state = serve(model, state, toks[:, t:t + 1])
+        err = max(err, float((logits[:, t] - lg).abs().max()))
+    scale = float(logits.abs().max())
+    print(f"phase11b forward_train (S {LM_TRAIN_S}) vs stepped decode: max abs diff "
+          f"{err:.3e}, max |logit| {scale:.3f}, bound {LM_CONSISTENCY * scale:.3e}", flush=True)
+    check(err <= LM_CONSISTENCY * scale, f"phase11b: train/decode differ by {err}")
+    del logits, state
+
+    # the full-sequence prefill step (flash path)
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, prefill_s)),
+                                       device=dev)}
+    out = prefill(model, batch)
+    sync(dev)
+    check(out.shape == (B, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+          "phase11b: make_prefill_step gave non-finite or misshaped logits")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(model, batch)
+        sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    del batch, out
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else 0.0
+    print(f"phase11b make_prefill_step (B {B}, S {prefill_s}) ms {min(times):.1f} (3 calls: "
+          + ", ".join(f"{v:.1f}" for v in times) + f"); peak memory {peak / 1024:.3f} GiB "
+          f"allocated ({base_mb / 1024:.3f} GiB of it held by earlier phases); [{card}]",
+          flush=True)
+
+    # one decode step under the profiler and the trace pass
+    tok = torch.argmax(logits_b, -1)[:, None].to(torch.int32)
+    if dev.type == "cuda":
+        steps = 5
+        for _ in range(2):  # the first trace pays the tracer's start-up
+            sync(dev)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    serve(model, state_b, tok)
+                sync(dev)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        stats = cuda_kernel_us(prof)
+        busy_ms = sum(us for us, _, _ in stats) / 1e3 / steps
+        launches = sum(c for _, c, _ in stats) / steps
+        print(f"phase11b profile, {steps} decode steps (CUDA tracing on): wall "
+              f"{wall_ms / steps:.3f} ms a step, device busy {busy_ms:.3f} ms, idle share "
+              f"{1 - busy_ms * steps / wall_ms:.4f} ({1 - busy_ms / decode_ms:.4f} against the "
+              f"untraced median step), {launches:.0f} CUDA kernels a step; [{card}]")
+        for us, count, key in stats[:8]:
+            print(f"  device {us / 1e3 / steps:9.4f} ms a step  calls {count / steps:6.1f}  "
+                  f"{key[:90]}")
+    _, rec = record_call(dev, serve, model, state_b, tok)
+    print(f"phase11b one decode step, trace pass: {rec.syncs} syncs dispatched / "
+          f"{rec.sync_warnings} sync-debug warnings, {len(rec.ops)} ops; sites {rec.sites}",
+          flush=True)
+    del model, state_a, state_b, logits_a, logits_b
+
+    # card against CPU at the published widths, 2 layers
+    small = dc.replace(cfg, num_layers=2)
+    model = init_lm(small, seed=SEED, device=dev)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    inputs = lm_inputs(small, rng, S0 + 16)
+    line = lm_compare(f"phase11b {small.name} at 2 layers",
+                      lm_run(model, small, dev, *inputs),
+                      lm_run(cpu_model, small, torch.device("cpu"), *inputs))
+    print(f"phase11b {small.name} at 2 layers, card vs cpu: {line}", flush=True)
+    del model, cpu_model
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    print(f"phase11: {time.perf_counter() - t_start:.1f} s; launches of the seven kernels "
+          f"{launches}", flush=True)
+    return launches
+
+
 # kernels of the redesigned wrappers, by name in a profile (the spmm
 # backward's scan kernel comes from scan.cuh), every torch.sort of a step
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
@@ -2482,6 +2795,7 @@ def main(argv: list) -> int:
         launches["examples"] = phase_examples()
         launches["analysis"] = phase_analysis(ds, serve_cfg, gnn_cfg)
         print(f"phase10: {time.perf_counter() - t0:.1f} s")
+        launches["lm"] = phase_lm(info["card"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -86,6 +86,10 @@ class CallRecord:
 
 
 _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__)) + os.sep
+#: The text of the warning ``set_sync_debug_mode("warn")`` gives for each
+#: synchronizing CUDA call (the mode's one-time "Synchronization debug mode
+#: is a prototype feature" notice is no sync).
+SYNC_WARNING = "called a synchronizing CUDA operation"
 _ANALYSIS_DIR = os.path.dirname(os.path.abspath(__file__)) + os.sep
 
 
@@ -174,7 +178,7 @@ def record_call(device: torch.device, fn: Callable, *args, **kwargs) -> tuple:
                 out = fn(*args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode(before)
-    warned = [w for w in caught if "synchroniz" in str(w.message)]
+    warned = [w for w in caught if SYNC_WARNING in str(w.message)]
     rec.sync_warnings = len(warned)
     for w in warned:
         site = f"sync-debug warning @ {_short(w.filename)}:{w.lineno}"

@@ -1,4 +1,5 @@
-"""The pieces of ``jax.random`` that ``init_gnn`` draws weights with.
+"""The pieces of ``jax.random`` that ``init_gnn`` and ``init_lm`` draw
+weights with.
 
 A port of JAX's default generator, ``threefry2x32`` in its partitionable
 form (``jax_threefry_partitionable``, the default since JAX 0.5): a key
@@ -26,11 +27,12 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core.rng import _fma
+from repro_torch.core.rng import _f, _fma, _horner, _log, _sqrt
 
 _MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+CHUNK = 1 << 26  # counters a chunk of :func:`normal`
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -53,9 +55,11 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def _counters(shape) -> tuple[torch.Tensor, torch.Tensor]:
-    """The flat index of every element of ``shape`` as (high, low) words."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64).reshape(shape)
+def _counters(shape, start: int = 0, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flat index (from ``start``) of every element of ``shape`` as
+    (high, low) words."""
+    idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
+                       device=device).reshape(shape)
     return idx >> 32, idx & _MASK32
 
 
@@ -78,11 +82,63 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return b0 ^ b1
 
 
+def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, _fma(u, hi - lo, lo))
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    u = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32)
-    hi = torch.tensor(maxval, dtype=torch.float32)
-    return torch.maximum(lo, _fma(u, hi - lo, lo))
+    return _uniform_from_bits(random_bits(key, shape), minval, maxval)
+
+
+_LOG1P_NUM = [4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1]
+_LOG1P_DEN = [1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1]
+_ERFINV_LT5 = [2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941]
+_ERFINV_GE5 = [-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682]
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` as XLA's CPU backend emits it: ``log(1 + x)``,
+    except a Cephes rational approximation for ``|x| < sqrt(2) - 1``."""
+    x2 = x * x
+    ratio = _horner(_LOG1P_NUM, x) / _horner(_LOG1P_DEN, x)
+    small = x + _fma(x2, -0.5, (x * x2) * ratio)
+    return torch.where(x.abs() < _f(0.41421356237309504880), small, _log(x + 1.0))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function as XLA computes it (M. Giles'
+    single-precision polynomial); ``+-inf`` at ``+-1``."""
+    w = -_log1p(-(x * x))
+    lt = w < 5.0
+    ww = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
+    p = torch.where(lt, _f(_ERFINV_LT5[0]), _f(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, ww, torch.where(lt, _f(a), _f(b)))
+    return x * torch.where(x.abs() == 1.0, math.inf, p)
+
+
+def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``, drawn on ``device`` in
+    chunks of at most :data:`CHUNK` elements."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    sqrt2 = _f(math.sqrt(2.0))
+    for start in range(0, n, CHUNK):
+        count = min(CHUNK, n - start)
+        b0, b1 = threefry2x32(key, *_counters((count,), start, device=out.device))
+        out[start:start + count] = erf_inv(_uniform_from_bits(b0 ^ b1, lo, 1.0)) * sqrt2
+    return out.reshape(shape)

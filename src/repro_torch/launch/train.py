@@ -12,7 +12,7 @@ gloo with ``--device cpu``::
         -m repro_torch.launch.train gnn --executor shard --pes 4 --steps 100
 
 Rank 0 prints each step's global loss and the micro-F1s.  The ``lm``
-subcommand (the LM pool) is not ported.
+subcommand (LM training) is not ported yet: the LM pool only serves.
 """
 from __future__ import annotations
 
@@ -72,8 +72,9 @@ def run_gnn(args) -> None:
 
 def run_lm(args) -> None:
     raise NotImplementedError(
-        "the LM pool (models/transformer, configs, data/tokens) is not ported to "
-        "repro_torch yet (ROADMAP.md queue A, item A12)"
+        "LM training (lm_loss, make_train_step) is not ported to repro_torch yet; "
+        "the LM pool serves (repro_torch.launch.steps.make_serve_step) "
+        "(ROADMAP.md queue A, item A14)"
     )
 
 

@@ -1,1 +1,2 @@
-"""Models of the port (the GCN so far)."""
+"""Models of the port: the GNNs (``models.gnn``) and the LM pool's decoder
+(``models.transformer``, imported from there)."""

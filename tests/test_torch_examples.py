@@ -1,12 +1,13 @@
-"""The four GNN examples of the port (``examples/*_torch.py``) vs the same
-calls made through the JAX package's API at the same configuration.
+"""The examples of the port (``examples/*_torch.py``: the four GNN examples
+and ``serve_lm_torch``) vs the same calls made through the JAX package's
+API at the same configuration.
 
 Each example's body is a function whose keyword defaults are its JAX
 twin's constants; here it runs smaller (``rmat_graph`` scale 10, a few
 steps or requests) on the CPU and is held to the JAX calls: integer
 counts equal (feature rows fetched, LRU miss rates, serve accounting and
 ``compiles``), losses within ``rtol=1e-4``, RNG correlations within
-``atol=1e-6``, micro-F1 equal.
+``atol=1e-6``, micro-F1 equal; the served LM's greedy tokens equal.
 """
 import importlib.util
 from pathlib import Path
@@ -129,3 +130,35 @@ def test_serve_gnn_matches_jax():
         assert [b.bucket for b in rep.batches] == [b.bucket for b in want.batches]
         assert rep.compiles == want.compiles, policy
         assert all(n == 1 for per in rep.compiles.values() for n in per.values())
+
+
+def test_serve_lm_matches_jax():
+    """The reduced gemma2-2b with the reference's weights carried across:
+    the example's prompts and greedy tokens are the JAX calls'."""
+    from repro.configs import get_config as j_get_config
+    from repro.launch.steps import make_serve_step as j_make_serve_step
+    from repro.models.transformer import init_decode_state as j_init_decode_state
+    from repro.models.transformer import init_lm as j_init_lm
+    from repro.models.transformer import prefill_decode as j_prefill_decode
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import lm_params_from_jax
+
+    jcfg = j_get_config("gemma2-2b").reduced()
+    params = j_init_lm(jax.random.PRNGKey(0), jcfg)
+    model = lm_params_from_jax(jax.tree.map(np.asarray, params),
+                               get_config("gemma2-2b").reduced(), device="cpu")
+    got = _example("serve_lm_torch").serve_lm(device="cpu", model=model)
+    B, S0, new = 4, 16, 24
+    prompts = jnp.asarray(np.random.default_rng(0).integers(0, jcfg.vocab_size, (B, S0)),
+                          jnp.int32)
+    np.testing.assert_array_equal(got["prompts"], np.asarray(prompts))
+    serve = jax.jit(j_make_serve_step(jcfg))
+    logits, state = jax.jit(lambda p, st, t: j_prefill_decode(p, jcfg, st, t))(
+        params, j_init_decode_state(jcfg, B, S0 + new), prompts)
+    out = []
+    tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    for _ in range(new):
+        out.append(np.asarray(tok)[:, 0])
+        logits, state = serve(params, state, tok)
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    np.testing.assert_array_equal(got["tokens"], np.stack(out, 1))

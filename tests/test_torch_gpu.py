@@ -28,12 +28,15 @@ losses, and the NS, RW, full and LABOR-* samplers the same samples.  The
 stateful ``ClockCache`` must keep the CPU's CLOCK state over a κ trace
 (one ``tag_probe`` launch per access), and ``engine.stream`` with
 features through the tiered cache give the CPU's items and counters.
-The analyzer's contracts and trace passes run on the card.
+The analyzer's contracts and trace passes run on the card.  Each of the
+LM pool's ten architectures (reduced) gives the CPU's logits, caches,
+greedy tokens and MoE routes on the card.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core import MinibatchLayer, layer_to_coo
 from repro_torch.data import SyntheticGraphDataset, make_recsys, rmat_graph
 from repro_torch.kernels import LAUNCHES, reset_launches
@@ -874,3 +877,58 @@ def test_analysis_contracts_and_trace_on_card(cuda):
     traced = [f for f in rep.findings if f.rule in ("RA200", "RA201", "RA202")]
     assert traced and all(
         c["sync_warnings"] is not None for f in traced for c in f.extra["calls"])
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_lm_on_card_matches_cpu(cuda, arch):
+    """``chip_smoke.py`` phase 11a: the reduced architecture with the same
+    weights on the card and the CPU, ``forward_train`` logits and the
+    ``prefill_decode`` logits and caches within ``atol=1e-4``, ``pos`` and 8
+    greedy tokens equal; for MoE, layer 0's routes equal."""
+    import copy
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import (
+        forward_train,
+        init_decode_state,
+        init_lm,
+        prefill_decode,
+    )
+    from repro_torch.models.transformer.moe import route
+
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 32 - cfg.num_prefix_tokens))
+    prefix = (rng.standard_normal((4, cfg.num_prefix_tokens, cfg.d_model)).astype(np.float32)
+              if cfg.num_prefix_tokens else None)
+    enc = (rng.standard_normal((4, cfg.enc_len, cfg.d_model)).astype(np.float32)
+           if cfg.enc_dec else None)
+    x = rng.standard_normal((64, cfg.d_model)).astype(np.float32)
+    card = init_lm(cfg, seed=0, device=cuda)
+    runs = {}
+    for dev, model in ((cuda, card), (torch.device("cpu"), copy.deepcopy(card).to("cpu"))):
+        t = lambda a: None if a is None else torch.as_tensor(a, device=dev)  # noqa: E731
+        with torch.inference_mode():
+            logits, _ = forward_train(model, cfg, t(toks), t(prefix), t(enc))
+        state = init_decode_state(cfg, 4, 24, device=dev)
+        if cfg.enc_dec:
+            state["enc_out"] = t(enc)
+        last, state = prefill_decode(model, cfg, state, t(toks[:, :16]))
+        leaves = [state["pos"]] + [layer[part][k] for layer in state["layers"]
+                                   for part in sorted(layer) for k in sorted(layer[part])]
+        serve, lg, gen = make_serve_step(cfg), last, []
+        for _ in range(8):
+            tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+            gen.append(tok.cpu())
+            lg, state = serve(model, state, tok)
+        r = route(model.layers[0]["moe"], cfg, t(x)) if cfg.num_experts else None
+        runs[dev.type] = ([logits.cpu(), last.cpu()] + [v.cpu() for v in leaves],
+                          torch.cat(gen, 1), r)
+    (a, gen_a, ra), (b, gen_b, rb) = runs["cuda"], runs["cpu"]
+    assert int(a[2]) == int(b[2]) == 16
+    for u, v in zip(a[:2] + a[3:], b[:2] + b[3:], strict=True):
+        assert float((u - v).abs().max()) <= 1e-4
+    assert torch.equal(gen_a, gen_b)
+    if ra is not None:
+        assert torch.equal(ra.expert.cpu(), rb.expert)
+        assert torch.equal(ra.table_tok.cpu(), rb.table_tok)

@@ -9,6 +9,7 @@
   CPU, when no GPU is present.
 """
 import ast
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -73,7 +74,15 @@ def test_port_has_modules_and_chip_smoke():
                  "src/repro_torch/engine/shard.py", "src/repro_torch/launch/mesh.py",
                  "src/repro_torch/launch/train.py", "src/repro_torch/analysis/cli.py",
                  "src/repro_torch/analysis/trace.py", "examples/quickstart_torch.py",
-                 "examples/serve_gnn_torch.py"):
+                 "examples/serve_gnn_torch.py", "examples/serve_lm_torch.py",
+                 "src/repro_torch/models/transformer/config.py",
+                 "src/repro_torch/models/transformer/modules.py",
+                 "src/repro_torch/models/transformer/attention.py",
+                 "src/repro_torch/models/transformer/ssm.py",
+                 "src/repro_torch/models/transformer/moe.py",
+                 "src/repro_torch/models/transformer/model.py",
+                 "src/repro_torch/configs/registry.py", "src/repro_torch/data/tokens.py",
+                 "src/repro_torch/launch/steps.py"):
         assert want in rel
 
 
@@ -233,13 +242,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     tc = TrainConfig(num_pes=2, local_batch=4, fanout=2, num_steps=1, eval_every=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_gnn(syn, cfg, tc)
+    # the LM pool: weights, decode caches and the serving example
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_decode_state, init_lm
+
+    lm_cfg = get_config("gemma2-2b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lm(lm_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_decode_state(lm_cfg, 2, 8)
+    spec = importlib.util.spec_from_file_location("_serve_lm", ROOT / "examples" /
+                                                  "serve_lm_torch.py")
+    serve_lm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lm.serve_lm()
     # the same calls run when the CPU is asked for
     GNNServer(ds.graph, ds.features, cfg, model, ServeConfig(), device="cpu")
     assert len(train_gnn(syn, cfg, tc, device="cpu").losses) == 1
+    assert serve_lm.serve_lm(new_tokens=2, device="cpu")["tokens"].shape == (4, 2)
 
 
 def test_unported_paths_raise_not_implemented():
-    """The LM pool's launcher still raises; every sampler and model the JAX
+    """LM training (the launcher's ``lm`` subcommand) still raises; every
+    sampler and model the JAX
     package has now builds, and the shard executor (ported) asks for its
     process group instead of raising NotImplementedError."""
     from repro_torch.core.samplers import make_sampler
