@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, dependent-minibatching and
-multi-process cooperative paths, its examples and its analyzer once on
-one NVIDIA GPU.
+multi-process cooperative paths, its examples, its analyzer and the LM
+pool's serving and training once on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 0-1 only (a kernel edit's check)
@@ -197,6 +197,34 @@ Phases:
    and ``make_prefill_step`` ms, peak memory, one decode step's CUDA
    launches and idle share under the profiler, and its host syncs (the
    analyzer's trace pass).
+12. LM training (``repro_torch.launch.steps.make_train_step``: chunked CE,
+   remat, autograd, ``adam_update``).  12a: each of the ten
+   architectures at its reduced size, the same ``init_lm`` weights on the
+   card and the CPU: ``lm_loss`` within ``rtol=1e-5``, each parameter's
+   step-0 gradient within 1e-5 of its largest ``|g|`` (the SSD's ``A_log``
+   5e-5), 3 steps' losses within ``rtol=1e-4`` and falling; then a reduced
+   gemma2 with ``cooperative_embed`` (B·S > V): the card's kernel route
+   (``unique_compact``, then ``gather`` twice) and the CPU's plain route
+   give ``embed[tokens]`` bit for bit, the gradients held as above, and
+   the route's host syncs by the trace pass (0 expected, where
+   ``torch.unique`` on the same ids syncs).  12b: gemma2-2b at its
+   published widths and depth, float32, TF32 off, remat on:
+   ``make_train_step`` at batch 4, S 2,048, one warm step and 3 timed (each
+   ended by a sync): step ms, tokens/s, ``model_flops`` (6·N·D) over the
+   step time against 67 TFLOP/s, peak memory, one step split into forward,
+   backward and Adam, one under the profiler (CUDA kernels, float32 GEMMs,
+   idle share) and one under the trace pass (host syncs); then at 2
+   layers of the same widths, card against CPU at S 64.  12c: whisper-tiny
+   at its published widths with ``cooperative_embed``, batch 32 x S 2,048
+   (65,536 Zipf token slots over 51,865 ids): the kernel route's rows bit
+   for bit equal to the plain versions' on the card and to
+   ``embed[tokens]``; loss and gradients against the plain
+   ``embed[tokens]`` route (1e-5 as above); one train step; the distinct
+   ids against the slots; phase-1 rows for ``unique_compact`` and both
+   ``gather`` calls at these shapes.  The launch counts are zeroed right
+   before 12c's train step and read right after it: on a card the step
+   must launch ``unique_compact`` once and ``gather`` twice, and no other
+   kernel.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, at its largest shape on a path; the last line is ``{"ok": true,
@@ -285,7 +313,9 @@ PATH_KERNELS = {
     "examples": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
     "analysis": ("frontier_gather", "unique_compact", "tag_probe", "gather", "spmm",
                  "seg_softmax", "expand_indptr"),
-    "lm": (),  # the LM pool runs cuBLAS and plain torch ops, none of the seven
+    "lm": (),  # the LM pool serves on cuBLAS and plain torch ops, none of the seven
+    # LM training: the cooperative embedding's dedup and row reads (12c's step)
+    "lm_train": ("unique_compact", "gather"),
 }
 # the R-GCN of phase 6: the JAX package's mag240M widths
 # (src/repro/launch/gnn_dryrun.py, SCALE_MAG)
@@ -327,6 +357,22 @@ EXAMPLE_TRAIN_STEPS = 20
 # train/decode bound, relative to the largest |logit|
 LM_BATCH, LM_PROMPT, LM_NEW, LM_GREEDY = 4, 16, 24, 8
 LM_TRAIN_S, LM_PREFILL_S, LM_CONSISTENCY = 64, 2048, 3e-3
+# phase 12: make_train_step steps held card against CPU (12a), the loss's
+# bound, the SSD's A_log gradient bound (a float32 sum with heavy
+# cancellation: the JAX package's own float32 gradient is 1.19e-5 of its
+# largest |g| from a float64 evaluation, tests/test_torch_lm_train.py),
+# the card-against-CPU sequence length (12a, 12b at 2 layers) and the
+# cooperative embedding's check length there; 12b's batch, sequence and
+# timed steps; 12c's batch and sequence (65,536 token slots over
+# whisper-tiny's 51,865 ids)
+LM_TRAIN_STEPS, LM_LOSS_RTOL, SSD_DECAY_RTOL = 3, 1e-5, 5e-5
+LM_TRAIN_CHECK_S, COOP_CHECK_S = 64, 256
+LM_TRAIN_B, LM_TRAIN_SEQ, LM_TRAIN_TIMED = 4, 2048, 3
+COOP_B, COOP_S = 32, 2048
+# one train step with the cooperative embedding on a card: the dedup once,
+# then the distinct rows' read and the slots' expansion (the backward is
+# plain torch)
+COOP_STEP_LAUNCHES = {"unique_compact": 1, "gather": 2}
 
 
 class PhaseError(RuntimeError):
@@ -2590,6 +2636,361 @@ def phase_lm(card: str, device: str = "cuda", cfg=None, prefill_s: int = LM_PREF
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12
+# --------------------------------------------------------------------------
+def lm_train_batch(cfg, rng, batch: int, seq: int) -> dict:
+    """Seeded numpy inputs of a train step: tokens and labels (batch, seq -
+    prefix), prefix embeddings and, for whisper, encoder frames."""
+    import numpy as np
+
+    s_text = seq - cfg.num_prefix_tokens
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, s_text)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (batch, s_text)).astype(np.int32)}
+    if cfg.num_prefix_tokens:
+        out["prefix_embeds"] = rng.standard_normal(
+            (batch, cfg.num_prefix_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        out["enc_out"] = rng.standard_normal((batch, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def on(batch: dict, dev) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def lm_grads(cfg, model, batch: dict) -> tuple:
+    """``lm_loss`` and every parameter's gradient, on the model's device;
+    results on the CPU."""
+    import torch
+    from repro_torch.launch.steps import lm_loss
+
+    params = list(model.parameters())
+    loss = lm_loss(cfg, model, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    return float(loss.detach()), [g.cpu() for g in grads]
+
+
+def lm_grads_close(tag: str, model, got: list, want: list) -> str:
+    """Each parameter's gradient ``got`` within ``GRAD_RTOL`` of its
+    largest ``|g|`` in ``want`` (the SSD's ``A_log``: ``SSD_DECAY_RTOL``)."""
+    worst, where = 0.0, ""
+    for (name, _), a, b in zip(model.named_parameters(), got, want, strict=True):
+        rtol = SSD_DECAY_RTOL if name.endswith("ssm.A_log") else GRAD_RTOL
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max())
+        check(gap <= rtol * scale, f"{tag}: step-0 gradient {name}: max abs diff {gap:.3e} > "
+              f"{rtol} x its largest |g| {scale:.3e}")
+        if scale and gap / scale >= worst:
+            worst, where = gap / scale, name
+    return (f"gradients within {worst:.3e} of each parameter's largest |g| (worst {where}; "
+            f"bound {GRAD_RTOL}, A_log {SSD_DECAY_RTOL}) over {len(want)} parameters")
+
+
+def lm_grads_compare(tag: str, cfg, card, cpu, batch: dict) -> str:
+    """``lm_loss`` card against CPU within ``LM_LOSS_RTOL``, and the
+    gradients by :func:`lm_grads_close`."""
+    dev = next(card.parameters()).device
+    l_card, g_card = lm_grads(cfg, card, on(batch, dev))
+    l_cpu, g_cpu = lm_grads(cfg, cpu, on(batch, "cpu"))
+    check(abs(l_card - l_cpu) <= LM_LOSS_RTOL * abs(l_cpu),
+          f"{tag}: lm_loss card {l_card!r} cpu {l_cpu!r} (rtol {LM_LOSS_RTOL})")
+    return (f"lm_loss card {l_card:.6f} cpu {l_cpu:.6f}; "
+            + lm_grads_close(tag, cpu, g_card, g_cpu))
+
+
+def lm_steps(cfg, model, batch: dict, steps: int) -> list:
+    """The losses of ``steps`` ``make_train_step`` steps on one batch."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import adam_init
+
+    step, opt, out = make_train_step(cfg, lr=1e-3), adam_init(model), []
+    for _ in range(steps):
+        model, opt, m = step(model, opt, batch)
+        out.append(float(m["loss"]))
+    return out
+
+
+def coop_route_syncs(dev, model, cfg, tokens) -> tuple:
+    """Host syncs (dispatched, sync-debug warnings) of the cooperative
+    embedding's forward and backward, and of ``torch.unique`` on the same
+    ids (the dedup the route replaced), by the analyzer's trace pass."""
+    import torch
+    from repro_torch.analysis.trace import record_call
+    from repro_torch.models.transformer.model import _embed_tokens
+
+    def route():
+        h = _embed_tokens(model, cfg, tokens)
+        return torch.autograd.grad(h.sum(), [model.embed])[0]
+
+    _, rec = record_call(dev, route)
+    _, old = record_call(dev, lambda: torch.unique(tokens.reshape(-1)))
+    return rec, old
+
+
+def phase_lm_train_archs(dev) -> None:
+    """12a: the ten architectures, reduced, card against CPU; then the
+    cooperative embedding on one of them."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.transformer.model import _embed_tokens
+
+    for arch in ALL_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        model = init_lm(cfg, seed=SEED, device=dev)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        batch = lm_train_batch(cfg, np.random.default_rng(SEED), LM_BATCH, LM_TRAIN_CHECK_S)
+        line = lm_grads_compare(f"phase12a {arch}", cfg, model, cpu_model, batch)
+        a = lm_steps(cfg, model, on(batch, dev), LM_TRAIN_STEPS)
+        b = lm_steps(cfg, cpu_model, on(batch, "cpu"), LM_TRAIN_STEPS)
+        err = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        check(err <= TRAIN_RTOL and a[-1] < a[0],
+              f"phase12a {arch}: losses card {a} cpu {b} (rtol {TRAIN_RTOL}, falling)")
+        print(f"phase12a {arch}: {line}; {LM_TRAIN_STEPS} steps' losses card "
+              f"{[round(v, 6) for v in a]} within {err:.3e} of the cpu's (rtol {TRAIN_RTOL}), "
+              f"falling ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), cooperative_embed=True)
+    toks = synthetic_token_batch(LM_BATCH, COOP_CHECK_S + 1, cfg.vocab_size, seed=SEED)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    check(batch["tokens"].size > cfg.vocab_size, "phase12a: B*S must exceed V")
+    model = init_lm(cfg, seed=SEED, device=dev)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    x = torch.as_tensor(batch["tokens"])
+    h_card = _embed_tokens(model, cfg, x.to(dev))
+    h_cpu = _embed_tokens(cpu_model, cfg, x)
+    check(torch.equal(h_card.cpu(), h_cpu) and torch.equal(h_cpu, cpu_model.embed[x]),
+          "phase12a cooperative embedding: h differs card vs cpu or from embed[tokens]")
+    line = lm_grads_compare("phase12a cooperative embedding", cfg, model, cpu_model, batch)
+    rec, old = coop_route_syncs(dev, model, cfg, x.to(dev))
+    check(rec.syncs == 0 and not rec.sync_warnings,
+          f"phase12a cooperative embedding: the route syncs: {rec.sites}")
+    print(f"phase12a cooperative embedding ({cfg.name}, B {LM_BATCH} x S {COOP_CHECK_S} = "
+          f"{x.numel()} token slots > V {cfg.vocab_size}): h card (kernels) equal bit for bit "
+          f"to the cpu's (plain versions) and to embed[tokens]; {line}; host syncs of the "
+          f"route (forward and backward) {rec.syncs} dispatched / {rec.sync_warnings} "
+          f"sync-debug warnings, of torch.unique on the same ids {old.syncs} / "
+          f"{old.sync_warnings}", flush=True)
+
+
+def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAIN_SEQ,
+                   coop_cfg=None, coop_shape: tuple = (COOP_B, COOP_S)) -> dict:
+    """Phase 12: 12a, 12b on ``cfg`` (gemma2-2b at its published size
+    unless given) at batch ``LM_TRAIN_B`` and ``seq``, 12c on ``coop_cfg``
+    (whisper-tiny at its published size unless given) at ``coop_shape``
+    (batch, sequence).  Returns 12c's train step's launches of the seven
+    kernels and, on a card, the phase-1 rows of the cooperative
+    embedding's kernels.  ``device="cpu"`` with small configs and shapes rehearses the
+    phase with no card."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.trace import record_call
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.launch.steps import lm_loss, make_train_step
+    from repro_torch.models.transformer import active_param_count, init_lm
+    from repro_torch.train import adam_init, adam_update
+
+    dev = torch.device(device)
+    card_run = dev.type == "cuda"
+    if card_run:
+        torch.cuda.empty_cache()  # what earlier phases cached, for 12b's ~55 GB
+    t_start = time.perf_counter()
+    phase_lm_train_archs(dev)
+    print(f"phase12a: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 12b: the published widths and depth
+    cfg = cfg or get_config("gemma2-2b")
+    B, S = LM_TRAIN_B, seq
+    spec = ShapeSpec("phase12", S, B, "train")
+    base = torch.cuda.memory_allocated(dev) / 2**30 if card_run else 0.0
+    if card_run:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=SEED, device=dev)
+    opt = adam_init(model)
+    sync(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase12b {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}: {n_params} parameters; init_lm "
+          f"and adam_init on {device} {time.perf_counter() - t0:.1f} s; [{card}]", flush=True)
+    toks = synthetic_token_batch(B, S + 1, cfg.vocab_size, seed=SEED)
+    batch = on({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, dev)
+    step = make_train_step(cfg, lr=1e-3)
+    t0 = time.perf_counter()
+    model, opt, m = step(model, opt, batch)  # warm-up: cuBLAS handles and algorithms
+    sync(dev)
+    losses, step_ms = [float(m["loss"])], []
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    for _ in range(LM_TRAIN_TIMED):
+        sync(dev)
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        sync(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"phase12b: losses {losses}")
+    step_s = float(np.median(step_ms)) / 1e3
+    flops = model_flops(cfg, spec, active_param_count(cfg))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if card_run else 0.0
+    print(f"phase12b make_train_step (B {B}, S {S}): step ms (each ended by a sync) "
+          + ", ".join(f"{v:.1f}" for v in step_ms) + f", median {1e3 * step_s:.1f} (warm-up "
+          f"{warm_ms:.1f}); {B * S / step_s:.1f} tokens/s; model_flops {flops:.4e} "
+          f"(6 N D, N = active_param_count {active_param_count(cfg)}), "
+          f"{flops / step_s / PEAK_FLOPS:.4f} of {PEAK_FLOPS / 1e12:.0f} TFLOP/s float32; "
+          f"losses {[round(v, 6) for v in losses]}; peak memory {peak:.3f} GiB allocated "
+          f"({base:.3f} GiB of it held by earlier phases); [{card}]", flush=True)
+    # one step split into its stages, each ended by a sync
+    params = list(model.parameters())
+    marks = [time.perf_counter()]
+    loss = lm_loss(cfg, model, batch)
+    sync(dev)
+    marks.append(time.perf_counter())
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    sync(dev)
+    marks.append(time.perf_counter())
+    opt = adam_update(params, grads, opt, lr=1e-3)
+    sync(dev)
+    marks.append(time.perf_counter())
+    del loss, grads, params
+    split = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    print(f"phase12b one step split (each stage ended by a sync): forward (lm_loss) "
+          f"{split[0]:.1f} ms, backward (remat recomputes included) {split[1]:.1f} ms, "
+          f"adam_update {split[2]:.1f} ms; [{card}]", flush=True)
+    if card_run:
+        for _ in range(2):  # the first trace pays the tracer's start-up
+            sync(dev)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model, opt, m = step(model, opt, batch)
+                sync(dev)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        stats = cuda_kernel_us(prof)
+        busy_ms = sum(us for us, _, _ in stats) / 1e3
+        gemm = [(us, c) for us, c, key in stats if "gemm" in key.lower()]
+        print(f"phase12b profile, one step (CUDA tracing on): wall {wall_ms:.1f} ms (the "
+              f"tracer's cost included), device busy {busy_ms:.1f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.4f}; the untraced median step {1e3 * step_s:.1f} ms, "
+              f"{sum(c for _, c, _ in stats)} CUDA kernels, of them float32 GEMMs "
+              f"{sum(us for us, _ in gemm) / 1e3:.1f} ms over {sum(c for _, c in gemm)}; "
+              f"[{card}]")
+        for us, count, key in stats[:10]:
+            print(f"  device {us / 1e3:10.3f} ms  calls {count:6d}  {key[:90]}")
+        _, rec = record_call(dev, step, model, opt, batch)
+        print(f"phase12b one train step, trace pass: {rec.syncs} syncs dispatched / "
+              f"{rec.sync_warnings} sync-debug warnings, {len(rec.ops)} ops; sites "
+              f"{rec.sites}", flush=True)
+    del model, opt, batch, m
+
+    # card against CPU at the published widths, 2 layers
+    small = dataclasses.replace(cfg, num_layers=2)
+    model = init_lm(small, seed=SEED, device=dev)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = lm_train_batch(small, np.random.default_rng(SEED), LM_BATCH, LM_TRAIN_CHECK_S)
+    line = lm_grads_compare(f"phase12b {small.name} at 2 layers", small, model, cpu_model,
+                            batch)
+    print(f"phase12b {small.name} at 2 layers, S {LM_TRAIN_CHECK_S}, card vs cpu: {line}",
+          flush=True)
+    del model, cpu_model
+    rows = phase_coop_embed(card, dev, coop_cfg or get_config("whisper-tiny"), *coop_shape)
+    launches = rows.pop("launches")
+    print(f"phase12: {time.perf_counter() - t_start:.1f} s; 12c's train step's launches of "
+          f"the seven kernels {launches}", flush=True)
+    return {"launches": launches, "rows": rows}
+
+
+def phase_coop_embed(card: str, dev, cfg, batch: int, seq: int) -> dict:
+    """12c: ``cfg`` (whisper-tiny) with the cooperative embedding,
+    ``batch`` x ``seq`` Zipf tokens: the kernel route's rows
+    bit for bit equal to the plain versions' (on the same device) and to
+    ``embed[tokens]``; loss and gradients against the plain
+    ``embed[tokens]`` route; one train step, with the launch counts zeroed
+    right before it and read right after (on a card exactly
+    ``COOP_STEP_LAUNCHES``).  Returns that step's launches and, on a card,
+    the phase-1 rows of ``unique_compact`` and both ``gather`` calls at
+    this path's shapes."""
+    import copy
+
+    import torch
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import gather, gather_ref
+    from repro_torch.kernels.unique_compact import unique_with_inverse, unique_with_inverse_ref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.transformer.model import _embed_tokens
+    from repro_torch.train import adam_init
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, cooperative_embed=True)
+    V = cfg.vocab_size
+    toks = synthetic_token_batch(batch, seq + 1, V, seed=SEED)
+    data = on({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, dev)
+    data["enc_out"] = torch.zeros((batch, cfg.enc_len, cfg.d_model), device=dev)
+    x = data["tokens"]
+    check(x.numel() > V, "phase12c: B*S must exceed V")
+    model = init_lm(cfg, seed=SEED, device=dev)
+    ids = x.reshape(-1).to(torch.int32).contiguous()
+    uniq_r, inv_r = unique_with_inverse_ref(ids, V)
+    h = _embed_tokens(model, cfg, x)
+    h_plain = gather_ref(gather_ref(model.embed.detach(), uniq_r), inv_r).reshape(h.shape)
+    check(torch.equal(h, h_plain) and torch.equal(h, model.embed[x]),
+          "phase12c: the kernel route's rows differ from the plain versions' or embed[tokens]")
+    distinct = int((uniq_r != 0x7FFFFFFF).sum())
+    # the same weights through the plain embed[tokens] route
+    l_coop, g_coop = lm_grads(cfg, model, data)
+    l_plain, g_plain = lm_grads(dataclasses.replace(cfg, cooperative_embed=False),
+                                copy.deepcopy(model), data)
+    check(abs(l_coop - l_plain) <= LM_LOSS_RTOL * abs(l_plain),
+          f"phase12c: lm_loss {l_coop!r}, plain route {l_plain!r}")
+    line = (f"lm_loss {l_coop:.6f} against the plain route's {l_plain:.6f}; "
+            + lm_grads_close("phase12c", model, g_coop, g_plain))
+    step, opt = make_train_step(cfg, lr=1e-3), adam_init(model)
+    reset_launches()
+    _, _, m = step(model, opt, data)
+    launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    check(bool(torch.isfinite(m["loss"])), "phase12c: non-finite loss")
+    if dev.type == "cuda":
+        want = {k: COOP_STEP_LAUNCHES.get(k, 0) for k in KERNELS}
+        check(launches == want, f"phase12c: the train step launched {launches}, not {want}")
+    print(f"phase12c {cfg.name} (d {cfg.d_model}, {cfg.num_layers} layers, V {V}, enc_len "
+          f"{cfg.enc_len}) cooperative embedding at B {batch} x S {seq}: {distinct} "
+          f"distinct ids of {x.numel()} token slots ({x.numel() / distinct:.2f} slots a row "
+          f"read); h equal bit for bit to the plain versions' and to embed[tokens]; {line}; "
+          f"one make_train_step loss {float(m['loss']):.6f} ({time.perf_counter() - t0:.1f} s)"
+          f"; [{card}]", flush=True)
+    out = {"launches": launches}
+    if dev.type == "cuda":
+        path, per = ["lm_train"], "1/step"
+        table = model.embed.detach()
+        uniq, inv = unique_with_inverse(ids, V)
+        rows = gather(table, uniq)
+        rows_out = {}
+        add_row(rows_out, "unique_compact", shared_row(
+            "unique_compact", (ids, V), path, per,
+            lambda: dedup_row(ids, V, path, per, "whisper cooperative embedding")))
+        add_row(rows_out, "gather", gather_row(table, uniq, path, per))
+        add_row(rows_out, "gather", gather_row(rows, inv, path, per))
+        report_bounds(rows_out)
+        out.update(rows_out)
+    return out
+
+
+
+
 # kernels of the redesigned wrappers, by name in a profile (the spmm
 # backward's scan kernel comes from scan.cuh), every torch.sort of a step
 # (CUB's radix sort, or PyTorch's in-place sort of small arrays), and every
@@ -2796,6 +3197,10 @@ def main(argv: list) -> int:
         launches["analysis"] = phase_analysis(ds, serve_cfg, gnn_cfg)
         print(f"phase10: {time.perf_counter() - t0:.1f} s")
         launches["lm"] = phase_lm(info["card"])
+        p12 = phase_lm_train(info["card"])
+        launches["lm_train"] = p12["launches"]
+        for name, rows in p12["rows"].items():
+            k[name] = k.get(name, []) + rows
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

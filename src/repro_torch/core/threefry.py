@@ -135,6 +135,8 @@ def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     shape = tuple(shape)
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.float32, device=device)
+    if out.is_meta:  # the shape only (launch.specs): nothing to draw
+        return out.reshape(shape)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     sqrt2 = _f(math.sqrt(2.0))
     for start in range(0, n, CHUNK):

@@ -1,19 +1,91 @@
-"""Step-function factories for the LM pool's serving path (port of the
-serving half of ``repro.launch.steps``).
+"""Step-function factories for the LM pool (port of ``repro.launch.steps``).
 
+``make_train_step``   — next-token CE + MoE aux loss + Adam update.
 ``make_prefill_step`` — inference forward over the full prompt.
 ``make_serve_step``   — ONE new token against a KV/SSM cache.
 
-Both are functions of (model, [state], batch) that run under
-``torch.inference_mode()``.  The training half (``lm_loss``,
-``_chunked_ce``, ``make_train_step``) is not ported yet (ROADMAP A14).
+Each is a function of (model, [opt_state | state], batch).  The train
+step runs autograd and then ``adam_update``, which updates the model
+and the moments in place; the serving steps run under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.models.transformer import forward_decode, forward_prefill
 from repro_torch.models.transformer.config import ArchConfig
+from repro_torch.models.transformer.model import LM, _unembed, forward_hidden
+from repro_torch.train.optim import adam_update
+
+
+def _chunked_ce(cfg: ArchConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
+                chunk: int = 512) -> torch.Tensor:
+    """Next-token CE computed in sequence chunks.
+
+    Materializing full (B, S, V) logits would take 8.4 GB at gemma2-2b's
+    vocabulary, batch 4 and S 2,048; chunking caps the live logits at
+    (B, chunk, V).  Each chunk is checkpointed (the port's
+    ``jax.checkpoint``), so the backward recomputes its logits too.  The
+    sum runs in the reference's order: the full chunks, each a float32
+    scalar added to the running total, then the remainder, then the
+    division by ``B*S``.
+    """
+    B, S, d = h.shape
+    c = min(chunk, S)
+    n = S // c
+    rem = S - n * c
+
+    def chunk_loss(h_c, y_c):
+        logits = _unembed(model, cfg, h_c).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        return torch.sum(logz - ll)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        total = total + checkpoint(chunk_loss, h[:, i * c:(i + 1) * c],
+                                   labels[:, i * c:(i + 1) * c], use_reentrant=False)
+    if rem:
+        total = total + checkpoint(chunk_loss, h[:, n * c:], labels[:, n * c:],
+                                   use_reentrant=False)
+    return total / (B * S)
+
+
+def lm_loss(cfg: ArchConfig, model: LM, batch, ce_chunk: int = 512) -> torch.Tensor:
+    """Mean next-token CE over text positions (+ MoE load-balance aux), a
+    0-d tensor on the model's device."""
+    h, aux = forward_hidden(
+        model,
+        cfg,
+        batch["tokens"],
+        batch.get("prefix_embeds"),
+        batch.get("enc_out"),
+    )
+    h = h[:, cfg.num_prefix_tokens:, :]
+    labels = torch.as_tensor(batch["labels"], device=h.device)
+    ce = _chunked_ce(cfg, model, h, labels, chunk=ce_chunk)
+    return ce + 0.01 * aux
+
+
+def make_train_step(cfg: ArchConfig, lr: float = 1e-3) -> Callable:
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    {"loss": loss})``: the loss and every parameter's gradient (zeros for
+    a parameter the loss does not reach, as ``jax.grad`` gives), then one
+    Adam step in place.  The loss is the 0-d device tensor of the
+    parameters before the step; nothing waits on the host."""
+
+    def train_step(model, opt_state, batch):
+        params = list(model.parameters())
+        loss = lm_loss(cfg, model, batch)
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        opt_state = adam_update(params, grads, opt_state, lr=lr)
+        return model, opt_state, {"loss": loss.detach()}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

@@ -11,8 +11,13 @@ gloo with ``--device cpu``::
     PYTHONPATH=src torchrun --standalone --nproc-per-node=4 \\
         -m repro_torch.launch.train gnn --executor shard --pes 4 --steps 100
 
-Rank 0 prints each step's global loss and the micro-F1s.  The ``lm``
-subcommand (LM training) is not ported yet: the LM pool only serves.
+Rank 0 prints each step's global loss and the micro-F1s.
+
+LM pool (the published config, or ``--reduced`` for the 2-layer smoke
+size; synthetic Zipf tokens, ``init_lm(seed=0)``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train lm --arch granite-3-8b \
+        --steps 3 --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -71,11 +76,40 @@ def run_gnn(args) -> None:
 
 
 def run_lm(args) -> None:
-    raise NotImplementedError(
-        "LM training (lm_loss, make_train_step) is not ported to repro_torch yet; "
-        "the LM pool serves (repro_torch.launch.steps.make_serve_step) "
-        "(ROADMAP.md queue A, item A14)"
-    )
+    """``args.steps`` train steps on one fixed synthetic batch, as the JAX
+    launcher runs them; prints each step's loss."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optim import adam_init
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = init_lm(cfg, seed=0, device=dev)
+    opt = adam_init(model)
+    step = make_train_step(cfg, lr=1e-3)
+    B, S = args.batch, args.seq
+    s_text = S - cfg.num_prefix_tokens
+    toks = torch.as_tensor(synthetic_token_batch(B, s_text + 1, cfg.vocab_size, seed=0),
+                           device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.num_prefix_tokens:
+        batch["prefix_embeds"] = torch.zeros((B, cfg.num_prefix_tokens, cfg.d_model),
+                                             dtype=cfg.torch_dtype, device=dev)
+    if cfg.enc_dec:
+        batch["enc_out"] = torch.zeros((B, cfg.enc_len, cfg.d_model), dtype=cfg.torch_dtype,
+                                       device=dev)
+    t0 = time.time()
+    for i in range(args.steps):
+        model, opt, metrics = step(model, opt, batch)
+        print(f"step {i}: loss={float(metrics['loss']):.4f}", flush=True)
+    print(f"{args.steps} steps in {time.time() - t0:.1f}s")
 
 
 def main(argv=None) -> None:
@@ -106,6 +140,7 @@ def main(argv=None) -> None:
     l.add_argument("--steps", type=int, default=3)
     l.add_argument("--batch", type=int, default=2)
     l.add_argument("--seq", type=int, default=64)
+    l.add_argument("--device", default=None, help="cpu, or a CUDA device (the default)")
 
     args = ap.parse_args(argv)
     if args.cmd == "gnn":

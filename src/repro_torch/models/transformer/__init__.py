@@ -10,6 +10,7 @@ from repro_torch.models.transformer.model import (
     init_decode_state,
     init_lm,
     lm_params_from_jax,
+    lm_params_to_jax,
     prefill_decode,
 )
 
@@ -25,6 +26,7 @@ __all__ = [
     "init_decode_state",
     "init_lm",
     "lm_params_from_jax",
+    "lm_params_to_jax",
     "param_count",
     "prefill_decode",
 ]

@@ -7,9 +7,12 @@ with the exact published hyperparameters (citations in each file).
 Three fields steered JAX's compiler or mesh in the reference; on one
 card they do this:
 
-* ``remat``: per-layer activation checkpointing for training.  Serving
-  runs under ``torch.inference_mode()`` and keeps no activations, so it
-  has no effect there (LM training is not ported yet).
+* ``remat``: activation checkpointing for training, at the reference's
+  granularity: ``forward_hidden`` recomputes each unit of
+  ``len(layer_pattern)`` layers, and each leftover layer, in the backward
+  (``torch.utils.checkpoint``, non-reentrant).  Gradients are the same
+  bits with it on or off.  Serving runs under ``torch.inference_mode()``
+  and keeps no activations, so it has no effect there.
 * ``seq_shard``: sequence-parallel residual stream over a mesh's model
   axis.  The port has no mesh, so it has no effect.
 * ``moe_groups``: routing groups.  The reference aligns them with the

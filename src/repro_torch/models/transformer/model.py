@@ -15,10 +15,14 @@ context (enc-dec).
 
 The reference stacks the layers of each pattern slot into a scan unit
 (``blocks[s]`` with a leading axis); :class:`LM` holds one :class:`Block`
-a layer and loops over them (:func:`layer_params` maps one layout to the
-other).  Serving (:func:`forward_prefill`, :func:`forward_decode`,
-:func:`prefill_decode`) runs under ``torch.inference_mode()``, which keeps
-no activations, so ``cfg.remat`` has no effect there.
+a layer and loops over them (:func:`layer_params` and
+:func:`lm_params_to_jax` map one layout to the other).  With
+``cfg.remat`` and autograd on, :func:`forward_hidden` checkpoints the
+reference's units (``torch.utils.checkpoint``, the port's
+``jax.checkpoint``).  Serving (:func:`forward_prefill`,
+:func:`forward_decode`, :func:`prefill_decode`) runs under
+``torch.inference_mode()``, which keeps no activations, so ``cfg.remat``
+has no effect there.
 """
 from __future__ import annotations
 
@@ -27,9 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import threefry
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.gather import gather
+from repro_torch.kernels.unique_compact import unique_with_inverse
 from repro_torch.models.transformer.attention import (
     attention_decode,
     attention_train,
@@ -141,7 +148,13 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
     (:mod:`repro_torch.core.threefry`), made on ``device`` (CUDA unless
     ``device="cpu"``).  A ``bfloat16`` config gets the float32 draws
     rounded, not JAX's bfloat16 draw."""
-    dev = resolve_device(device)
+    return LM(cfg, _init_params(cfg, seed, resolve_device(device)))
+
+
+def _init_params(cfg: ArchConfig, seed: int, dev: torch.device) -> dict:
+    """:func:`init_lm`'s parameter tree on ``dev``; on the meta device
+    (``launch.specs.params_specs``) the weights are not drawn
+    (``threefry.normal`` gives the shape only)."""
     d, V = cfg.d_model, cfg.vocab_size
     key, ke = threefry.split(threefry.prng_key(seed))
     params: dict = {
@@ -167,7 +180,7 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
     params["layers"] = layers
     if cfg.torch_dtype != torch.float32:
         params = _tree_map(lambda t: t.to(cfg.torch_dtype), params)
-    return LM(cfg, params)
+    return params
 
 
 def layer_params(params: dict, cfg: ArchConfig, l: int) -> dict:
@@ -196,6 +209,38 @@ def lm_params_from_jax(params_np: dict, cfg: ArchConfig, device: DeviceLike = No
     return LM(cfg, params)
 
 
+def lm_params_to_jax(model: LM, cfg: ArchConfig) -> dict:
+    """The inverse of :func:`lm_params_from_jax`: the reference's parameter
+    pytree (numpy arrays, on the host) of ``model``, each pattern slot's
+    layers stacked over the units into ``blocks[s]`` and the leftover
+    layers in ``tail``."""
+    def arrays(module: nn.Module) -> dict:
+        out: dict = {}
+        for name, p in module.named_parameters():
+            *path, leaf = name.split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = p.detach().cpu().numpy()
+        return out
+
+    layers = [arrays(lp) for lp in model.layers]
+    n_units, _ = _num_units(cfg)
+    p_len = len(cfg.layer_pattern)
+    params = {k: getattr(model, k).detach().cpu().numpy()
+              for k in ("embed", "final_norm", "unembed") if hasattr(model, k)}
+
+    def stack(units: list):
+        if isinstance(units[0], dict):
+            return {k: stack([u[k] for u in units]) for k in units[0]}
+        return np.stack(units)
+
+    params["blocks"] = [stack(layers[s:n_units * p_len:p_len])
+                        for s in range(p_len)] if n_units else []
+    params["tail"] = layers[n_units * p_len:]
+    return params
+
+
 def decode_state_from_jax(state_np: dict, device: DeviceLike = None) -> dict:
     """The reference's decode state (arrays as numpy) as the port's."""
     return _tree_map(_to_tensor(resolve_device(device)), state_np)
@@ -216,18 +261,43 @@ def _unembed(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # training / prefill forward (full sequence)
 # --------------------------------------------------------------------------
+class _CooperativeEmbed(torch.autograd.Function):
+    """``embed[tokens]`` read the cooperative way: each distinct id's row
+    once (``unique_compact`` for the dedup and its inverse, ``gather`` for
+    the rows), then expanded by the inverse (``gather`` again).  Rows are
+    copied, so the output equals ``embed[tokens]`` bit for bit.  The
+    backward is plain torch, as the reference's is XLA's AD of ``unique``
+    and a gather: the output gradient summed into the table by the tokens.
+    Nothing here sizes a tensor from the data, so neither direction waits
+    on the host.
+    """
+
+    @staticmethod
+    def forward(ctx, embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        V = embed.shape[0]
+        uniq, inv = unique_with_inverse(tokens.reshape(-1).to(torch.int32).contiguous(), cap=V)
+        rows = gather(embed, uniq)                       # (V, d), INVALID slots zero
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = embed.shape
+        return gather(rows, inv).reshape(*tokens.shape, embed.shape[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (tokens,) = ctx.saved_tensors
+        V, d = ctx.table_shape
+        g_embed = torch.zeros((V, d), dtype=g.dtype, device=g.device)
+        g_embed.index_add_(0, tokens.reshape(-1).long(), g.reshape(-1, d))
+        return g_embed, None
+
+
 def _embed_tokens(model: LM, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.cooperative_embed and tokens.numel() > cfg.vocab_size:
-        # Cooperative embedding gather: each *unique* token id's row is read
-        # once, then expanded.  Padded with the largest id, the unique vector
-        # stays sorted for the searchsorted.  ``torch.unique`` sizes its
-        # output by the data, so this branch waits on the device.
-        flat = tokens.reshape(-1)
-        uniq = torch.unique(flat)
-        uniq = torch.cat([uniq, uniq.new_full((cfg.vocab_size - uniq.numel(),),
-                                              cfg.vocab_size - 1)])
-        rows = model.embed[uniq]
-        return rows[torch.searchsorted(uniq, flat)].reshape(*tokens.shape, -1)
+        # Cooperative embedding gather (the paper's deduplicated feature
+        # loading on the vocabulary table), through the unique_compact and
+        # gather kernels (their plain versions on the CPU).  The reference
+        # pads the unique ids with V - 1, the port with INVALID; the rows
+        # the tokens read are the same.
+        return _CooperativeEmbed.apply(model.embed, tokens)
     return model.embed[tokens]
 
 
@@ -274,9 +344,25 @@ def forward_hidden(
         enc_out = torch.as_tensor(enc_out, device=dev)
     positions = torch.arange(h.shape[1], device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for lp in model.layers:
-        h, a2 = _block(lp, cfg, h, positions, enc_out)
-        aux = aux + a2
+    # the reference's scan units (one pattern period each), then the tail
+    # layers one by one: with remat each group is recomputed in the backward
+    n_units, _ = _num_units(cfg)
+    p_len = len(cfg.layer_pattern)
+    groups = [model.layers[u * p_len:(u + 1) * p_len] for u in range(n_units)]
+    groups += [[lp] for lp in model.layers[n_units * p_len:]]
+
+    def run(h, aux, *, group):
+        for lp in group:
+            h, a2 = _block(lp, cfg, h, positions, enc_out)
+            aux = aux + a2
+        return h, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for group in groups:
+        if remat:
+            h, aux = checkpoint(run, h, aux, group=group, use_reentrant=False)
+        else:
+            h, aux = run(h, aux, group=group)
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
     return h, aux / max(cfg.num_layers, 1)
 
@@ -316,7 +402,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     """Zero KV/SSM caches for a ``max_len`` decode session, on ``device``
     (CUDA unless ``device="cpu"``); local layers get ring caches of
     ``min(window, max_len)`` slots."""
-    dev = resolve_device(device)
+    return _decode_state(cfg, batch, max_len, resolve_device(device))
+
+
+def _decode_state(cfg: ArchConfig, batch: int, max_len: int, dev: torch.device) -> dict:
+    """:func:`init_decode_state` on ``dev`` (the meta device for
+    ``launch.specs.decode_state_specs``)."""
     KV, hd, dt = cfg.num_kv_heads, cfg.hd, cfg.torch_dtype
 
     def kv(length: int) -> dict:

@@ -30,7 +30,9 @@ stateful ``ClockCache`` must keep the CPU's CLOCK state over a κ trace
 features through the tiered cache give the CPU's items and counters.
 The analyzer's contracts and trace passes run on the card.  Each of the
 LM pool's ten architectures (reduced) gives the CPU's logits, caches,
-greedy tokens and MoE routes on the card.
+greedy tokens and MoE routes on the card; a reduced train step gives the
+CPU's loss, gradients and losses, and the cooperative embedding's kernel
+route gives ``embed[tokens]`` bit for bit.
 """
 import numpy as np
 import pytest
@@ -932,3 +934,73 @@ def test_lm_on_card_matches_cpu(cuda, arch):
     if ra is not None:
         assert torch.equal(ra.expert.cpu(), rb.expert)
         assert torch.equal(ra.table_tok.cpu(), rb.table_tok)
+
+
+def test_cooperative_embed_kernel_route_matches_plain(cuda):
+    """``chip_smoke.py`` phase 12a/12c: with ``cooperative_embed`` and B·S >
+    V, the card's route (``unique_compact`` once, ``gather`` twice a
+    forward) gives ``embed[tokens]`` bit for bit, as the plain versions do on
+    the card; its gradients match the plain ``embed[tokens]`` route's; a
+    bfloat16 table is refused, not rerouted."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.kernels import KernelContractError
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.transformer.model import _embed_tokens
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), cooperative_embed=True)
+    toks = torch.as_tensor(synthetic_token_batch(4, 257, cfg.vocab_size, seed=0), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    model = init_lm(cfg, seed=0, device=cuda)
+    reset_launches()
+    h = _embed_tokens(model, cfg, batch["tokens"])
+    assert (LAUNCHES.get("unique_compact", 0), LAUNCHES.get("gather", 0)) == (1, 2)
+    ids = batch["tokens"].reshape(-1).to(torch.int32)
+    uniq, inv = unique_with_inverse_ref(ids, cfg.vocab_size)
+    plain = gather_ref(gather_ref(model.embed.detach(), uniq), inv).reshape(h.shape)
+    assert torch.equal(h, plain) and torch.equal(h, model.embed[batch["tokens"]])
+    other = copy.deepcopy(model)
+    grads = []
+    for c, m in ((cfg, model), (dataclasses.replace(cfg, cooperative_embed=False), other)):
+        loss = lm_loss(c, m, batch)
+        grads.append(torch.autograd.grad(loss, list(m.parameters())))
+    for a, b in zip(*grads, strict=True):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    with pytest.raises(KernelContractError, match="gather"):
+        _embed_tokens(model.to(torch.bfloat16), cfg, batch["tokens"])
+
+
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """``chip_smoke.py`` phase 12a for one reduced architecture: the same
+    weights on the card and the CPU, ``lm_loss`` within ``rtol=1e-5``, each
+    parameter's step-0 gradient within 1e-5 of its largest ``|g|``, and 3
+    ``make_train_step`` losses within ``rtol=1e-4``, falling."""
+    import copy
+
+    from repro_torch.launch.steps import lm_loss, make_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import adam_init
+
+    cfg = get_config("gemma2-2b").reduced()
+    rng = np.random.default_rng(0)
+    arrays = {k: rng.integers(0, cfg.vocab_size, (4, 64)) for k in ("tokens", "labels")}
+    card = init_lm(cfg, seed=0, device=cuda)
+    runs = {}
+    for dev, model in ((cuda, card), (torch.device("cpu"), copy.deepcopy(card).to("cpu"))):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+        loss = lm_loss(cfg, model, batch)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+        step, opt, losses = make_train_step(cfg), adam_init(model), []
+        for _ in range(3):
+            model, opt, m = step(model, opt, batch)
+            losses.append(float(m["loss"]))
+        runs[dev.type] = (float(loss.detach()), grads, losses)
+    (la, ga, sa), (lb, gb, sb) = runs["cuda"], runs["cpu"]
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    for a, b in zip(ga, gb, strict=True):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    np.testing.assert_allclose(sa, sb, rtol=1e-4)
+    assert sa[-1] < sa[0]

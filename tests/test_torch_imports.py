@@ -264,10 +264,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    """LM training (the launcher's ``lm`` subcommand) still raises; every
-    sampler and model the JAX
-    package has now builds, and the shard executor (ported) asks for its
-    process group instead of raising NotImplementedError."""
+    """Nothing raises NotImplementedError any more: LM training (the
+    launcher's ``lm`` subcommand) runs, on the CPU when asked and raising
+    without a card otherwise; every sampler and model the JAX package has
+    builds, and the shard executor (ported) asks for its process group."""
     from repro_torch.core.samplers import make_sampler
     from repro_torch.data import make_recsys
     from repro_torch.engine import EngineConfig, MinibatchEngine
@@ -276,8 +276,10 @@ def test_unported_paths_raise_not_implemented():
 
     for name in ("ns", "labor0", "labor*", "rw", "full"):
         assert make_sampler(name, fanout=3).name == name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_main(["lm", "--arch", "granite-3-8b", "--reduced"])
+    launch_main(["lm", "--arch", "granite-3-8b", "--reduced", "--steps", "1", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch_main(["lm", "--arch", "granite-3-8b", "--reduced"])
     ds = make_recsys(num_users=64, num_items=32, edges_per_user=3,
                      feature_dim=8, max_degree=16, seed=0, device="cpu")
     with pytest.raises(ValueError, match="torchrun --nproc-per-node=2"):
