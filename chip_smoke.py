@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, dependent-minibatching and
-multi-process cooperative paths, its examples, its analyzer and the LM
-pool's serving and training once on one NVIDIA GPU.
+multi-process cooperative paths, its examples, its analyzer, the LM
+pool's serving and training and the dry-run once on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 0-1 only (a kernel edit's check)
@@ -225,6 +225,25 @@ Phases:
    before 12c's train step and read right after it: on a card the step
    must launch ``unique_compact`` once and ``gather`` twice, and no other
    kernel.
+13. The dry-run (``repro_torch.launch.dryrun``), each part in a child
+   process, so no process group enters this one.  13a: ``python -m
+   repro_torch.launch.dryrun`` for gemma2-2b ``train_4k`` and ``--gnn`` on
+   the single-pod mesh (256 fake ranks), on fake CUDA and on fake CPU
+   tensors: every record ``ok``, dot FLOPs and collective bytes equal
+   across the two, the GNN's fake-CUDA record listing the fused plan's
+   ``frontier_gather`` and ``unique_compact`` launches (recorded, not
+   run); each record's terms, bottleneck, peak and trace time printed.
+   13b: 12b's configuration (gemma2-2b, float32, remat, batch 4 x S
+   2,048) traced on a one-device mesh: its dot FLOPs within 1% of
+   ``FlopCounterMode`` over one real 12b step, its peak within 10% of
+   12b's ``max_memory_allocated`` (less what earlier phases held), its
+   roofline terms beside 12b's measured step.  13c: the dry-run's GNN
+   step (``make_coop_train_step``, P = 1) run for real on one NCCL rank
+   on phase 3's graph at papers100M widths: float32 under
+   ``FlopCounterMode`` (FLOPs and peak within 1% and 10% of its own trace
+   on fake CUDA tensors), float64 on the card against float64 on the CPU
+   (a gloo group): plans bit-equal, loss ``rtol=1e-4``, step-0 gradients
+   within 1e-5 of each parameter's largest ``|g|``.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, at its largest shape on a path; the last line is ``{"ok": true,
@@ -373,6 +392,9 @@ COOP_B, COOP_S = 32, 2048
 # then the distinct rows' read and the slots' expansion (the backward is
 # plain torch)
 COOP_STEP_LAUNCHES = {"unique_compact": 1, "gather": 2}
+# phase 13: how long a dry-run child may take; the traced FLOPs' and
+# peak's bounds against a measured step (relative)
+DRYRUN_TIMEOUT_S, DRYRUN_FLOP_RTOL, DRYRUN_PEAK_RTOL = 300, 0.01, 0.10
 
 
 class PhaseError(RuntimeError):
@@ -2853,6 +2875,14 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
           f"{flops / step_s / PEAK_FLOPS:.4f} of {PEAK_FLOPS / 1e12:.0f} TFLOP/s float32; "
           f"losses {[round(v, 6) for v in losses]}; peak memory {peak:.3f} GiB allocated "
           f"({base:.3f} GiB of it held by earlier phases); [{card}]", flush=True)
+    # one step under PyTorch's FLOP counter, for phase 13b's traced count
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        model, opt, m = step(model, opt, batch)
+        sync(dev)
+    counted_flops = fc.get_total_flops()
+    print(f"phase12b one step under FlopCounterMode: {counted_flops:.6e} FLOPs", flush=True)
     # one step split into its stages, each ended by a sync
     params = list(model.parameters())
     marks = [time.perf_counter()]
@@ -2909,7 +2939,9 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
     launches = rows.pop("launches")
     print(f"phase12: {time.perf_counter() - t_start:.1f} s; 12c's train step's launches of "
           f"the seven kernels {launches}", flush=True)
-    return {"launches": launches, "rows": rows}
+    return {"launches": launches, "rows": rows, "measured": {
+        "flops": counted_flops, "peak_gib": peak, "base_gib": base, "step_ms": 1e3 * step_s,
+        "batch": B, "seq": S}}
 
 
 def phase_coop_embed(card: str, dev, cfg, batch: int, seq: int) -> dict:
@@ -3074,6 +3106,316 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
           + "[" + ", ".join(f"{v:.3f}" for v in warm) + "]")
 
 
+# --------------------------------------------------------------------------
+# phase 13: the dry-run
+# --------------------------------------------------------------------------
+def child_env() -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def start_child(args: list) -> subprocess.Popen:
+    """A child process of this script's Python (a dry-run's fake process
+    group never enters the script's own process)."""
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=child_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def wait_child(proc: subprocess.Popen, what: str) -> str:
+    """Its output; fails on a non-zero exit or at ``DRYRUN_TIMEOUT_S``."""
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise PhaseError(f"{what}: killed at {DRYRUN_TIMEOUT_S} s\n{out[-4000:]}")
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n{out[-4000:]}")
+    return out
+
+
+def last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def dryrun_record(name: str) -> dict:
+    return json.loads((ROOT / "experiments" / "dryrun_torch" / f"{name}.json").read_text())
+
+
+def print_record(tag: str, r: dict, card: str) -> None:
+    roof = r["roofline"]
+    print(f"{tag} [{r['arch']} | {r['shape']} | {r['mesh']} | fake {r['overrides']['device']}]"
+          f" {r['status']}: trace {r['trace_s']} s; per device: dot FLOPs "
+          f"{roof['flops_per_dev']:.6e}, HBM bytes {roof['hbm_bytes_per_dev']:.6e}, "
+          f"collective bytes {roof['coll_bytes_per_dev']:.6e} "
+          f"{json.dumps(roof['coll_detail'])}; terms compute {roof['compute_s'] * 1e3:.3f} ms, "
+          f"memory {roof['memory_s'] * 1e3:.3f} ms, collective {roof['collective_s'] * 1e3:.3f} "
+          f"ms, bottleneck {roof['bottleneck']}; peak {r['memory']['peak_per_device_gb']:.3f} "
+          f"GiB, arguments {r['memory']['argument_bytes']} B; kernel launches "
+          f"{r.get('kernel_launches', {})}; H100 constants at 700 W; [{card}]", flush=True)
+
+
+def dryrun_lm_child() -> None:
+    """13b's trace: phase 12b's configuration on a one-device mesh, fake
+    CUDA tensors; prints the record as the last line."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_combo
+    from repro_torch.launch.specs import ShapeSpec
+
+    cfg = get_config("gemma2-2b")
+    rec = trace_combo("gemma2-2b", ShapeSpec("phase12", LM_TRAIN_SEQ, LM_TRAIN_B, "train"),
+                      False, verbose=False, device="cuda", mesh_shape=(1, 1),
+                      overrides={"dtype": cfg.dtype, "remat": cfg.remat})
+    print(json.dumps(rec))
+
+
+def gnn_scale() -> dict:
+    """13c's configuration: phase 3's graph (scale 18) at the papers100M
+    widths of the reference's dry-run (``SCALE``)."""
+    from repro_torch.launch.gnn_dryrun import SCALE
+
+    return dict(SCALE, log2_v=18)
+
+
+def gnn_inputs():
+    """Phase 3's graph with features, labels, seeds and weights at
+    ``gnn_scale()``'s widths, from ``SEED``, on the host."""
+    import numpy as np
+    import torch
+    from repro_torch.data import rmat_graph
+
+    scale = gnn_scale()
+    g = rmat_graph(scale=18, edge_factor=8, max_degree=32, seed=SEED, device="cpu")
+    V = g.num_vertices
+    rng = np.random.default_rng(SEED)
+    host = {
+        "indptr": g.indptr.to(torch.int32), "indices": g.indices.to(torch.int32),
+        "v_start": torch.tensor(0, dtype=torch.int32),
+        "feats": torch.from_numpy(rng.normal(size=(V, scale["feat_dim"])).astype(np.float32)),
+        "labels": torch.from_numpy(rng.integers(0, scale["classes"], V).astype(np.int32)),
+        "seeds": torch.from_numpy(rng.choice(V, scale["local_batch"],
+                                             replace=False).astype(np.int32)),
+    }
+    L = scale["layers"]
+    params = []
+    for l in range(L):
+        d_in = scale["feat_dim"] if l == L - 1 else scale["hidden"]
+        d_out = scale["classes"] if l == 0 else scale["hidden"]
+        params.append({"w": torch.from_numpy((rng.normal(size=(d_in, d_out)) / np.sqrt(d_in))
+                                             .astype(np.float32)),
+                       "b": torch.zeros(d_out)})
+    return g, host, params
+
+
+def dryrun_gnn_child(store: str) -> None:
+    """13c: ``make_coop_train_step`` for real with one NCCL rank (P = 1):
+    in float32 under ``FlopCounterMode`` (FLOPs, peak memory, time), and in
+    float64 on the card and, in a gloo group of the same rank, on the CPU
+    (plans, loss, step-0 gradients); prints the results as the last line.
+
+    The gradients are compared in float64: in float32 the card's and the
+    CPU's summation orders round a few of the 12.6M hidden units' inputs
+    to opposite sides of the ReLU's kink, and one such unit moves a
+    parameter's gradient by ~1e-3 of its largest entry."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core.cooperative import ShardExecutor, build_cooperative_minibatch
+    from repro_torch.core.rng import DependentRNG
+    from repro_torch.core.samplers import LaborSampler
+    from repro_torch.launch.gnn_dryrun import (
+        PLAN_BACKEND, BlockPartition, LocalGraph, _caps, make_coop_train_step)
+    from repro_torch.train.optim import adam_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    gloo = dist.new_group(backend="gloo")
+    scale = gnn_scale()
+    g, host, params0 = gnn_inputs()
+    caps = _caps(1, scale=scale)
+    out = {"edges": int(host["indices"].shape[0]), "vertices": g.num_vertices}
+    plans, runs = {}, {}
+    for dev, group, dt in (("cuda", None, torch.float32), ("cuda", None, torch.float64),
+                           ("cpu", gloo, torch.float64)):
+        a = {k: v.to(dev) for k, v in host.items()}
+        a["feats"] = a["feats"].to(dt)
+        if dev not in plans:
+            plan = build_cooperative_minibatch(
+                LocalGraph(a["indptr"], a["indices"], a["v_start"], scale["max_degree"]),
+                LaborSampler(fanout=scale["fanout"], backend=PLAN_BACKEND),
+                BlockPartition(g.num_vertices, 1), a["seeds"],
+                DependentRNG(base_seed=0, kappa=64).state_at(0), scale["layers"], caps,
+                ShardExecutor(1, group=group), backend=PLAN_BACKEND)
+            plans[dev] = [t.cpu() for t in [plan.input_ids, plan.seed_ids] + [
+                getattr(layer, f) for layer in plan.layers
+                for f in ("seeds", "self_idx", "nbr_idx", "mask", "slot_to_tilde", "req_idx",
+                          "tilde_ids")]]
+            del plan
+        params = [{k: v.to(dev, dt).requires_grad_() for k, v in lp.items()} for lp in params0]
+        opt = adam_init([p for lp in params for p in lp.values()])
+        grads = []
+        step = make_coop_train_step(1, group, caps, scale=scale,
+                                    on_grads=lambda gs: grads.extend(x.detach().cpu() for x in gs))
+        args = (a["indptr"], a["indices"], a["v_start"], a["feats"], a["labels"], a["seeds"], 0)
+        t0 = time.perf_counter()
+        if dev == "cuda" and dt == torch.float32:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as fc:
+                _, _, loss = step(params, opt, *args)
+                torch.cuda.synchronize()
+            out["flops"] = fc.get_total_flops()
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        else:
+            _, _, loss = step(params, opt, *args)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        out[f"{dev}_{str(dt)[6:]}_ms"] = 1e3 * (time.perf_counter() - t0)
+        runs[dev, dt] = (float(loss), grads)
+        del params, opt, a
+    out["plans_equal"] = all(torch.equal(x, y) for x, y in zip(plans["cuda"], plans["cpu"]))
+    out["plan_leaves"] = len(plans["cuda"])
+    card, cpu = runs["cuda", torch.float64], runs["cpu", torch.float64]
+
+    def rel(got, want):
+        return [float((x.double() - y.double()).abs().max() / max(float(y.abs().max()), 1e-300))
+                for x, y in zip(got, want)]
+
+    out["loss"] = [card[0], cpu[0], runs["cuda", torch.float32][0]]
+    out["grad_err"] = rel(card[1], cpu[1])
+    out["grad_err_float32_card"] = rel(runs["cuda", torch.float32][1], cpu[1])
+    dist.destroy_process_group()
+    print(json.dumps(out))
+
+
+def dryrun_gnn_trace_child() -> None:
+    """13c's trace: the same step on fake CUDA tensors, one PE."""
+    _, host, _ = gnn_inputs()
+    from repro_torch.launch.gnn_dryrun import trace_gnn_coop_step
+
+    rec = trace_gnn_coop_step(verbose=False, device="cuda", num_pes=1, scale=gnn_scale(),
+                              num_edges=int(host["indices"].shape[0]))
+    print(json.dumps(rec))
+
+
+def phase_dryrun(card: str, measured: dict) -> None:
+    """Phase 13: the dry-run family (``repro_torch.launch.dryrun``), each
+    part in a child process.  13a: the CLI on fake CUDA and fake CPU
+    tensors, gemma2-2b ``train_4k`` and the papers100M GNN on the
+    single-pod mesh; 13b: phase 12b's configuration traced on a
+    one-device mesh against 12b's measured step (``measured``); 13c: the
+    GNN step run for real (one NCCL rank, and on the CPU) against its
+    trace."""
+    import torch
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()  # the children need the card's memory
+    # every child starts at once (about 7 busy cores of the machine's 8)
+    lm13b = start_child(["-c", "import chip_smoke; chip_smoke.dryrun_lm_child()"])
+    store = ROOT / "build" / f"dryrun-store-{os.getpid()}"
+    store.unlink(missing_ok=True)
+    gnn13c = (start_child(["-c", f"import chip_smoke; chip_smoke.dryrun_gnn_child({str(store)!r})"]),
+              start_child(["-c", "import chip_smoke; chip_smoke.dryrun_gnn_trace_child()"]))
+    try:
+        phase13a(card)
+        phase13b(card, measured, wait_child(lm13b, "phase13b trace"))
+        phase13c(card, *(wait_child(p, f"phase13c {what}")
+                         for p, what in zip(gnn13c, ("real step", "trace"))))
+    finally:
+        for p in (lm13b, *gnn13c):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.unlink(missing_ok=True)
+    print(f"phase13: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def phase13a(card: str) -> None:
+    """13a: the CLI on fake CUDA and fake CPU tensors (four children in
+    parallel)."""
+    t_start = time.perf_counter()
+    cli = ["-m", "repro_torch.launch.dryrun"]
+    jobs = {
+        ("lm", "cuda"): cli + ["--arch", "gemma2-2b", "--shape", "train_4k", "--tag", "card"],
+        ("lm", "cpu"): cli + ["--arch", "gemma2-2b", "--shape", "train_4k", "--tag", "cpu",
+                              "--device", "cpu"],
+        ("gnn", "cuda"): cli + ["--gnn", "--tag", "card"],
+        ("gnn", "cpu"): cli + ["--gnn", "--tag", "cpu", "--device", "cpu"],
+    }
+    procs = {k: start_child(v) for k, v in jobs.items()}
+    for k, p in procs.items():
+        wait_child(p, f"phase13a {' '.join(jobs[k][2:])}")
+    t13a = time.perf_counter() - t_start
+    recs = {}
+    for kind, name in (("lm", "gemma2-2b__train_4k__pod16x16"),
+                       ("gnn", "gnn-coop-papers100M-gcn__b1024xP256__pod1x256")):
+        for dev, tag in (("cuda", "card"), ("cpu", "cpu")):
+            recs[kind, dev] = r = dryrun_record(f"{name}__{tag}")
+            check(r["status"] == "ok", f"phase13a {name} {dev}: {r}")
+            print_record("phase13a", r, card)
+        a, b = recs[kind, "cuda"]["roofline"], recs[kind, "cpu"]["roofline"]
+        check(a["flops_per_dev"] == b["flops_per_dev"]
+              and a["coll_bytes_per_dev"] == b["coll_bytes_per_dev"],
+              f"phase13a {name}: fake CUDA and fake CPU traces differ")
+    launches = recs["gnn", "cuda"]["kernel_launches"]
+    check(launches.get("frontier_gather", 0) > 0 and launches.get("unique_compact", 0) > 0
+          and not recs["gnn", "cpu"]["kernel_launches"],
+          f"phase13a: the fused plan's recorded launches {launches}")
+    print(f"phase13a: fake CUDA and fake CPU traces equal in dot FLOPs and collective bytes; "
+          f"the GNN trace recorded launches {launches}; {t13a:.1f} s (13b's trace beside it)",
+          flush=True)
+
+
+def phase13b(card: str, measured: dict, out: str) -> None:
+    """13b: the LM dry-run (the child's output ``out``) against 12b's
+    measured step."""
+    r = last_json(out)
+    print_record("phase13b", r, card)
+    flops = r["roofline"]["flops_per_dev"]
+    peak = r["memory"]["peak_per_device_gb"]
+    want_peak = measured["peak_gib"] - measured["base_gib"]
+    ratio = flops / measured["flops"]
+    print(f"phase13b gemma2-2b train (B {measured['batch']}, S {measured['seq']}, float32, "
+          f"remat) on a one-device mesh: traced dot FLOPs {flops:.6e} vs FlopCounterMode over "
+          f"12b's step {measured['flops']:.6e} (ratio {ratio:.6f}); traced peak {peak:.3f} GiB "
+          f"vs 12b's max_memory_allocated {measured['peak_gib']:.3f} GiB less "
+          f"{measured['base_gib']:.3f} GiB held before ({want_peak:.3f} GiB, ratio "
+          f"{peak / want_peak:.4f}); roofline terms compute {r['roofline']['compute_s'] * 1e3:.1f}"
+          f" ms (67 TFLOP/s float32), memory {r['roofline']['memory_s'] * 1e3:.1f} ms, beside "
+          f"12b's measured median step {measured['step_ms']:.1f} ms; [{card}]", flush=True)
+    check(abs(ratio - 1) <= DRYRUN_FLOP_RTOL, f"phase13b: FLOP ratio {ratio}")
+    check(abs(peak / want_peak - 1) <= DRYRUN_PEAK_RTOL,
+          f"phase13b: peak {peak} GiB against {want_peak} GiB")
+
+
+def phase13c(card: str, real: str, traced: str) -> None:
+    """13c: the GNN step for real (one NCCL rank; float64 also on the
+    CPU; :func:`dryrun_gnn_child`'s output ``real``) against its trace
+    (``traced``)."""
+    got, tr = last_json(real), last_json(traced)
+    print_record("phase13c", tr, card)
+    check(got["plans_equal"], "phase13c: card and CPU plans differ")
+    loss_card, loss_cpu, loss_f32 = got["loss"]
+    check(abs(loss_card - loss_cpu) <= TRAIN_RTOL * abs(loss_cpu),
+          f"phase13c: losses {got['loss']}")
+    check(max(got["grad_err"]) <= GRAD_RTOL, f"phase13c: gradients {got['grad_err']}")
+    fl = tr["roofline"]["flops_per_dev"] / got["flops"]
+    pk = tr["roofline"]["peak_mem_bytes"] / got["peak_bytes"]
+    print(f"phase13c make_coop_train_step, P = 1, phase 3's graph (V {got['vertices']}, E "
+          f"{got['edges']}) at papers100M widths (128/1024/172, caps of _caps(1)): the first card "
+          f"step {got['cuda_float32_ms']:.1f} ms float32 (FlopCounterMode on), "
+          f"{got['cuda_float64_ms']:.1f} ms float64; CPU step {got['cpu_float64_ms']:.1f} ms "
+          f"float64; {got['plan_leaves']} plan leaves equal card vs CPU; float64 loss "
+          f"{loss_card:.9f} vs {loss_cpu:.9f} (float32 card {loss_f32:.6f}); float64 step-0 "
+          f"gradients within {max(got['grad_err']):.2e} of each largest |g| (float32 card "
+          f"against them: {', '.join(f'{e:.1e}' for e in got['grad_err_float32_card'])}); "
+          f"traced dot FLOPs {tr['roofline']['flops_per_dev']:.6e} vs FlopCounterMode "
+          f"{got['flops']:.6e} (ratio {fl:.6f}); traced peak {tr['roofline']['peak_mem_bytes']}"
+          f" B vs max_memory_allocated {got['peak_bytes']} B (ratio {pk:.4f}); [{card}]",
+          flush=True)
+    check(abs(fl - 1) <= DRYRUN_FLOP_RTOL, f"phase13c: FLOP ratio {fl}")
+    check(abs(pk - 1) <= DRYRUN_PEAK_RTOL, f"phase13c: peak ratio {pk}")
+
+
 def main(argv: list) -> int:
     t_start = time.perf_counter()
     kernels_only = argv == ["--kernels-only"]
@@ -3201,6 +3543,7 @@ def main(argv: list) -> int:
         launches["lm_train"] = p12["launches"]
         for name, rows in p12["rows"].items():
             k[name] = k.get(name, []) + rows
+        phase_dryrun(info["card"], p12["measured"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -14,6 +14,11 @@ falls back: a failed build or a launch error raises.
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds
 one right where it launches its kernel and nowhere else, so a run can
 show that its main path went through the kernels.
+
+A launch given fake or meta tensors (a dry-run's trace,
+``repro_torch.launch.op_costs``) calls nothing: it charges the active
+``CostCounter`` with the launch and its tensors' bytes, and leaves
+``LAUNCHES`` as it was.
 """
 from __future__ import annotations
 
@@ -126,8 +131,19 @@ def launch(name: str, fn: str, *args, counter: str | None = None) -> None:
     Each argument is a tensor (passed as its device pointer), ``None`` (a
     null pointer) or a python int (passed as a 64-bit integer); the current
     CUDA stream is appended.  The C function returns ``cudaGetLastError()`` after its
-    launch; a non-zero code raises.
+    launch; a non-zero code raises.  Fake or meta tensors (a trace) are
+    recorded by the active ``CostCounter`` instead, and nothing is called.
     """
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if tensors:
+        from repro_torch.launch.op_costs import active_counter, is_traced
+
+        if any(is_traced(t) for t in tensors):
+            cc = active_counter()
+            if cc is None:
+                raise RuntimeError(f"{name}.{fn}: fake or meta tensors outside a CostCounter")
+            cc.record_kernel(counter or name, tensors)
+            return
     cfn = _entries.get((name, fn))
     if cfn is None:  # configured once per entry point, at its first call
         cfn = getattr(library(name), fn)

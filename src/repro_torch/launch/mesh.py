@@ -1,4 +1,6 @@
-"""The cooperative process group (port of ``repro.launch.mesh.make_coop_mesh``).
+"""Meshes and process groups; port of ``repro.launch.mesh``.
+
+The cooperative process group (``make_coop_mesh``'s counterpart):
 
 JAX runs the PEs as one controller over a 1-D device mesh; the port runs
 one process per PE in a ``torch.distributed`` process group, which the
@@ -7,9 +9,18 @@ with a rank and world size of its own).  The backend is the caller's
 choice, made when the group is started: ``"nccl"`` for one rank per
 card, ``"gloo"`` on the CPU (or for CUDA tensors staged through host
 memory).  Nothing here starts or picks one.
+
+The production meshes (:func:`make_production_mesh`,
+:func:`make_host_mesh`) are ``DeviceMesh``es over the default process
+group, which must hold one rank a mesh device.  The dry-run
+(``repro_torch.launch.dryrun``) sizes 256 and 512-device meshes with no
+such cluster: :func:`fake_process_group` starts PyTorch's fake backend,
+whose collectives move nothing, for its trace and tears it down after.
+A real run never uses it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -63,3 +74,52 @@ def make_coop_group(num_pes: int, backend: Optional[str] = None, device: DeviceL
     if have == "nccl" and dev.type != "cuda":
         raise ValueError("the nccl backend exchanges CUDA tensors; use gloo with device='cpu'")
     return dist.group.WORLD, dev
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """16x16 single-pod (256 devices) or 2x16x16 two-pod (512 devices) mesh.
+
+    Dims: ``data`` carries the batch (and is the PE axis for the paper's
+    cooperative minibatching), ``model`` carries tensor parallelism,
+    ``pod`` is the outer data-parallel dim across fast-interconnect
+    islands (the paper's cooperation domain is one such island).  The
+    default process group must have 256 (512) ranks.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_host_mesh(num_devices: Optional[int] = None, axis: str = "data",
+                   device_type: str = "cuda"):
+    """1-D mesh over the default process group's ranks (tests, one host)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = num_devices or dist.get_world_size()
+    return init_device_mesh(device_type, (n,), mesh_dim_names=(axis,))
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """Mesh dims that shard the batch dimension."""
+    names = mesh.mesh_dim_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int, rank: int = 0):
+    """Run the body as ``rank`` of a ``world_size``-rank process group on
+    PyTorch's fake backend (``FakeStore``): collectives return at once and
+    move nothing, which is all a trace of shapes needs.  Raises if a
+    process group is already running; destroys the fake one on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running; the fake group "
+                           "is for a dry-run in a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -19,7 +19,66 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.transformer import forward_decode, forward_prefill
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.model import LM, _unembed, forward_hidden
+from repro_torch.models.transformer.modules import model_dim
 from repro_torch.train.optim import adam_update
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Sum over rows of ``logsumexp(logits) - logits[y]`` for logits split
+    over the vocabulary across a process group (Megatron's vocab-parallel
+    cross-entropy), on this rank's local shard: ``amax``, the exp-sum and
+    the label's logit are each all-reduced over ``group``, one value a
+    row, and the backward is the local softmax minus the one-hot."""
+
+    @staticmethod
+    def forward(ctx, logits, y, v_off: int, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        Vl = logits.shape[-1]
+        m = funcol.all_reduce(torch.amax(logits, dim=-1), "max", group)
+        e = torch.exp(logits - m[..., None])
+        se = funcol.all_reduce(torch.sum(e, dim=-1), "sum", group)
+        hit = (y >= v_off) & (y < v_off + Vl)
+        idx = torch.clamp(y.long() - v_off, 0, Vl - 1)
+        ll = torch.where(hit, torch.gather(logits, -1, idx[..., None])[..., 0], 0.0)
+        ll = funcol.all_reduce(ll, "sum", group)
+        ctx.save_for_backward(e, se, idx, hit)
+        return torch.sum(torch.log(se) + m - ll)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, hit = ctx.saved_tensors
+        p = e / se[..., None]
+        p = p.scatter_add(-1, idx[..., None], -hit[..., None].to(p.dtype))
+        return g * p, None, None, None
+
+
+def _ce_sum(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sum(logsumexp(logits) - logits[y])`` over the rows.  Under a
+    registered mesh (the dry-run), logits split over the vocabulary on the
+    model dim would make DTensor all-gather them (``logsumexp``) and
+    allocate a replicated gradient (``gather``'s backward); there the sum
+    runs as :class:`_VocabParallelCE` on the local shards, and comes back
+    as a DTensor partial over the batch dims."""
+    md = model_dim()
+    if md is not None:
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh, mi = md
+        if isinstance(logits, DTensor) and logits.placements[mi] == Shard(logits.ndim - 1):
+            batch = [Replicate() if i == mi else pl for i, pl in enumerate(logits.placements)]
+            y = y.redistribute(mesh, [Shard(0) if isinstance(pl, Shard) else pl
+                                      for pl in batch])
+            v_off = mesh.get_local_rank("model") * logits.to_local().shape[-1]
+            local = _VocabParallelCE.apply(logits.to_local(), y.to_local(), v_off,
+                                           mesh.get_group("model"))
+            return DTensor.from_local(
+                local, mesh, [Replicate() if i == mi else
+                              Partial() if isinstance(pl, Shard) else pl
+                              for i, pl in enumerate(logits.placements)], run_check=False)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return torch.sum(logz - ll)
 
 
 def _chunked_ce(cfg: ArchConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
@@ -40,10 +99,7 @@ def _chunked_ce(cfg: ArchConfig, model: LM, h: torch.Tensor, labels: torch.Tenso
     rem = S - n * c
 
     def chunk_loss(h_c, y_c):
-        logits = _unembed(model, cfg, h_c).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
-        return torch.sum(logz - ll)
+        return _ce_sum(_unembed(model, cfg, h_c).float(), y_c)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n):

@@ -14,7 +14,8 @@ card they do this:
   bits with it on or off.  Serving runs under ``torch.inference_mode()``
   and keeps no activations, so it has no effect there.
 * ``seq_shard``: sequence-parallel residual stream over a mesh's model
-  axis.  The port has no mesh, so it has no effect.
+  axis: ``shard_hint`` splits it so under the dry-run's mesh; a real run
+  has no mesh, so there it has no effect.
 * ``moe_groups``: routing groups.  The reference aligns them with the
   data shards; here they still split the tokens into groups that route
   on their own (top-k, capacity and sort within each group), so they

@@ -30,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -43,12 +44,14 @@ from repro_torch.models.transformer.attention import (
     cross_attention,
     init_attention,
 )
+from repro_torch.models.transformer import modules
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.modules import (
     init_mlp,
     mlp_apply,
     rms_norm,
     scaled_normal,
+    shard_hint,
     softcap,
 )
 from repro_torch.models.transformer.moe import init_moe, moe_apply
@@ -298,12 +301,29 @@ def _embed_tokens(model: LM, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Ten
         # pads the unique ids with V - 1, the port with INVALID; the rows
         # the tokens read are the same.
         return _CooperativeEmbed.apply(model.embed, tokens)
+    return _embed_rows(model, tokens)
+
+
+def _embed_rows(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``.  Under a mesh (the dry-run) a vocabulary-sharded
+    table is read as DTensor's embedding does it, each shard's rows masked
+    and the rows summed over the model dim at once, as GSPMD lowers the
+    gather (DTensor's indexing would move the table instead)."""
+    if modules._LOGICAL_MESH is not None:
+        return shard_hint(F.embedding(tokens, model.embed), "batch", None, None)
     return model.embed[tokens]
 
 
 def _block(lp: Block, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
            enc_out: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
     kind = lp.kind
+    # keep the residual stream batch-sharded (and optionally sequence-sharded
+    # over the model dim) under a registered mesh; a no-op without one.  The
+    # port also hints after each mixer: a DTensor matmul cannot take an
+    # input split over both batch and sequence, which a small output
+    # projection's cheapest strategy (all-gather the weight) leaves behind.
+    hint = ("batch", "seq" if cfg.seq_shard else None, None)
+    h = shard_hint(h, *hint)
     a2 = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "ssm":
         h = h + ssm_train(lp["ssm"], cfg, rms_norm(h, lp["norm1"], cfg.norm_eps))
@@ -315,9 +335,11 @@ def _block(lp: Block, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
     else:
         h = h + attention_train(lp["attn"], cfg, rms_norm(h, lp["norm1"], cfg.norm_eps),
                                 positions, _attn_window(cfg, kind))
+    h = shard_hint(h, *hint)
     if cfg.enc_dec and enc_out is not None:
         h = h + cross_attention(lp["cross"], cfg, rms_norm(h, lp["norm_cross"], cfg.norm_eps),
                                 enc_out)
+        h = shard_hint(h, *hint)
     if cfg.d_ff:
         x2 = rms_norm(h, lp["norm2"], cfg.norm_eps)
         if cfg.num_experts:
@@ -444,7 +466,7 @@ def forward_decode(model: LM, cfg: ArchConfig, state: dict, token) -> tuple[torc
     (B, V), state).  The KV caches are updated in place (the returned
     state holds the same tensors; the one passed in is consumed); the
     position stays on the device, so the step never waits on the host."""
-    h = model.embed[torch.as_tensor(token, device=model.embed.device)]  # (B, 1, d)
+    h = _embed_rows(model, torch.as_tensor(token, device=model.embed.device))  # (B, 1, d)
     pos = state["pos"]
     new_layers = []
     for lp, old in zip(model.layers, state["layers"]):

@@ -1,10 +1,13 @@
 """Shared transformer building blocks (port of
 ``repro.models.transformer.modules``).
 
-The reference's ``shard_hint`` and ``set_logical_mesh`` have no
-counterpart: with no registered mesh ``shard_hint`` returns its input
-unchanged, and the port runs on one card, so the model code leaves those
-calls out.
+Logical sharding hints: model code never imports mesh objects; a
+launcher (the dry-run, ``repro_torch.launch.dryrun``) registers a
+``DeviceMesh`` with :func:`set_logical_mesh`, and the model calls
+``shard_hint(x, "batch", None, ...)`` where the reference constrains
+GSPMD, so a DTensor keeps its batch dim sharded through reshapes (MoE
+groups, the residual stream).  With no registered mesh (every real run
+of the port) the hints return their input.
 """
 from __future__ import annotations
 
@@ -16,6 +19,77 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import threefry
+
+
+_LOGICAL_MESH = None
+
+
+def set_logical_mesh(mesh) -> None:
+    """Register (or clear, with None) the mesh used by :func:`shard_hint`."""
+    global _LOGICAL_MESH
+    _LOGICAL_MESH = mesh
+
+
+def model_dim():
+    """``(mesh, index of its "model" dim)`` when a registered mesh has one,
+    else None (every real run of the port)."""
+    mesh = _LOGICAL_MESH
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    return mesh, mesh.mesh_dim_names.index("model")
+
+
+def on_mesh_dim(t, mesh, i: int, placement):
+    """DTensor ``t`` redistributed to ``placement`` on mesh dim ``i``."""
+    placements = list(t.placements)
+    placements[i] = placement
+    return t.redistribute(mesh, tuple(placements))
+
+
+def shard_hint(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Redistribute DTensor ``x`` to (batch|expert|model|seq|None, ...)
+    over the registered mesh: ``batch`` over (``pod``,) ``data``,
+    ``expert`` over ``data``, ``model`` and ``seq`` over ``model``, each
+    only where the dim divides; every other mesh dim replicated.  A plain
+    tensor, or any tensor with no mesh registered, comes back as it is."""
+    mesh = _LOGICAL_MESH
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    names = mesh.mesh_dim_names
+    size = dict(zip(names, mesh.shape))
+    batch = tuple(a for a in ("pod", "data") if a in names)
+    placements = [Replicate()] * len(names)
+
+    def shard(axis: str, dim: int) -> None:
+        if size[axis] > 1:  # one device's shard is the whole
+            placements[names.index(axis)] = Shard(dim)
+
+    for dim, (n, ax) in enumerate(zip(x.shape, logical)):
+        if ax == "batch" and batch:
+            if n % int(np.prod([size[a] for a in batch])) == 0 and n > 1:
+                for a in batch:
+                    shard(a, dim)
+        elif ax == "expert" and "data" in names:
+            # expert-parallel activations: the expert dim of dispatched
+            # token blocks lives on the data dim
+            if n % size["data"] == 0:
+                shard("data", dim)
+        elif ax in ("model", "seq") and "model" in names:
+            # "seq": sequence parallelism of the residual stream
+            if n % size["model"] == 0:
+                shard("model", dim)
+    placements = tuple(placements)
+    if tuple(x.placements) != placements:
+        x = x.redistribute(mesh, placements)
+    # the constraint holds for the gradient too, as a sharding constraint's
+    # transpose does in JAX: a partial gradient is reduced here, not carried
+    # into the products before it
+    return DTensor.from_local(x.to_local(grad_placements=placements), mesh, placements,
+                              run_check=False, shape=x.shape, stride=x.stride())
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -69,7 +143,15 @@ def mlp_apply(p: Mapping, x: torch.Tensor, activation: str, gated: bool) -> torc
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = act(x @ p["w_up"])
-    return h @ p["w_down"]
+    return _reduced(h @ p["w_down"])
+
+
+def _reduced(y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's output, summed over the model dim here
+    (Megatron's all-reduce) under a registered mesh, batch-sharded.  Left
+    partial, DTensor's cheapest backward all-gathers the weight instead
+    and repeats the gradient's product on every model rank."""
+    return shard_hint(y, "batch", *([None] * (y.ndim - 1)))
 
 
 def scaled_normal(key: torch.Tensor, shape, scale: float, device) -> torch.Tensor:

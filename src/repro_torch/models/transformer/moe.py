@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import threefry
 from repro_torch.models.transformer.config import ArchConfig
-from repro_torch.models.transformer.modules import _ACTS, scaled_normal
+from repro_torch.models.transformer.modules import _ACTS, scaled_normal, shard_hint
 
 
 def init_moe(key: torch.Tensor, cfg: ArchConfig, device: Optional[torch.device] = None) -> dict:
@@ -94,11 +94,56 @@ def moe_apply(p: Mapping, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tenso
     B, S, d = x.shape
     G = cfg.moe_groups if B % max(cfg.moe_groups, 1) == 0 else 1
     if G > 1:
-        parts = [_moe_group(p, cfg, xx) for xx in x.reshape(G, (B // G) * S, d)]
-        out = torch.stack([o for o, _ in parts])
-        return out.reshape(B, S, d), torch.stack([a for _, a in parts]).mean()
+        xg = shard_hint(x.reshape(G, (B // G) * S, d), "batch", None, None)
+        out, aux = _moe_groups(p, cfg, xg)
+        out = shard_hint(out, "batch", None, None)
+        return out.reshape(B, S, d), aux.mean()
     out, aux = _moe_group(p, cfg, x.reshape(B * S, d))
     return out.reshape(B, S, d), aux
+
+
+def _loop_groups(p: Mapping, cfg: ArchConfig, xg: torch.Tensor) -> tuple:
+    parts = [_moe_group(p, cfg, xx) for xx in xg]
+    return torch.stack([o for o, _ in parts]), torch.stack([a for _, a in parts])
+
+
+def _moe_groups(p: Mapping, cfg: ArchConfig, xg: torch.Tensor) -> tuple:
+    """(G, T, d) groups -> ((G, T, d), aux (G,)), one group after another.
+
+    Under a registered mesh (the dry-run) the groups are split over the
+    batch dims and each device routes its own (``local_map``), as the
+    reference's ``vmap`` over data-sharded groups does: the expert weights
+    are all-gathered over the batch dims (expert-parallel or FSDP shards,
+    written out here) and keep their ff split over the model dim, so each
+    device's expert products are partial sums over the model dim, reduced
+    by the hint after the groups."""
+    from repro_torch.models.transformer import modules
+
+    mesh = modules._LOGICAL_MESH
+    from torch.distributed.tensor import DTensor
+
+    if mesh is None or not isinstance(xg, DTensor):
+        return _loop_groups(p, cfg, xg)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    names = mesh.mesh_dim_names
+    keys = sorted(p)
+
+    def weights(w):
+        return tuple(pl if names[i] == "model" else Replicate()
+                     for i, pl in enumerate(w.placements))
+
+    x_pl = tuple(xg.placements)
+    out_pl = tuple(Partial() if n == "model" else pl for n, pl in zip(names, x_pl))
+    aux_pl = tuple(Replicate() if n == "model" else pl for n, pl in zip(names, x_pl))
+
+    def local(xg_l, *ws):
+        return _loop_groups(dict(zip(keys, ws)), cfg, xg_l)
+
+    return local_map(local, out_placements=(out_pl, aux_pl),
+                     in_placements=(x_pl, *(weights(p[k]) for k in keys)),
+                     device_mesh=mesh, redistribute_inputs=True)(xg, *(p[k] for k in keys))
 
 
 def _moe_group(p: Mapping, cfg: ArchConfig, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -116,12 +161,16 @@ def _moe_group(p: Mapping, cfg: ArchConfig, xf: torch.Tensor) -> tuple[torch.Ten
     valid = r.table_tok >= 0
     xg = xf[torch.clamp(r.table_tok, min=0).long()]      # (E, C, d)
     xg = torch.where(valid[..., None], xg, 0.0)
+    # the reference's expert-parallel hint (local tensors inside the
+    # dry-run's per-device groups, so the identity there too)
+    xg = shard_hint(xg, "expert", None, None)
     act = _ACTS[cfg.activation]
     if cfg.gated_mlp:
         h = act(torch.bmm(xg, p["w_gate"])) * torch.bmm(xg, p["w_up"])
     else:
         h = act(torch.bmm(xg, p["w_up"]))
     yg = torch.bmm(h, p["w_down"])                       # (E, C, d)
+    yg = shard_hint(yg, "expert", None, None)
     yg = yg * r.table_gate[..., None].to(yg.dtype)
 
     out = torch.zeros((T + 1, d), dtype=yg.dtype, device=xf.device)

@@ -11,6 +11,7 @@ y = C·h + D·x, with a rolling causal-conv state.
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 from repro_torch.core import threefry
 from repro_torch.core.rng import _log
 from repro_torch.models.transformer.config import ArchConfig
-from repro_torch.models.transformer.modules import scaled_normal
+from repro_torch.models.transformer.modules import model_dim, scaled_normal, shard_hint
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +51,10 @@ def init_ssm(key: torch.Tensor, cfg: ArchConfig, device: Optional[torch.device] 
 
 def _split_in(p: Mapping, cfg: ArchConfig, u: torch.Tensor):
     di, N = cfg.d_inner, cfg.ssm_state
-    zxbcdt = u @ p["w_in"]
+    # under a registered mesh the fused projection's columns come back whole
+    # on every model rank (its z | x | B | C | dt split does not follow the
+    # column shards); the identity otherwise
+    zxbcdt = shard_hint(u @ p["w_in"], "batch", None, None)
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:2 * di + 2 * N]
     dt_raw = zxbcdt[..., 2 * di + 2 * N:]
@@ -60,7 +64,9 @@ def _split_in(p: Mapping, cfg: ArchConfig, u: torch.Tensor):
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, C) depthwise causal conv, kernel (K, C)."""
     K = w.shape[0]
-    pad = F.pad(xbc, (0, 0, K - 1, 0))
+    # F.pad's values by concatenation (a DTensor's pad fails to redistribute
+    # in some torch releases)
+    pad = torch.cat([torch.zeros_like(xbc[:, :1]).repeat(1, K - 1, 1), xbc], dim=1)
     out = sum(pad[:, i:i + xbc.shape[1], :] * w[i] for i in range(K))
     return F.silu(out)
 
@@ -70,17 +76,33 @@ def ssm_train(p: Mapping, cfg: ArchConfig, u: torch.Tensor) -> torch.Tensor:
     B, S, _ = u.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     P = di // H
-    Q = min(cfg.ssm_chunk, S)
-    assert S % Q == 0, (S, Q)
-    nc = S // Q
 
     z, xbc, dt_raw = _split_in(p, cfg, u)
     xbc = _causal_conv(xbc, p["conv_w"])
+    # under a registered mesh (the dry-run) the conv's channels come back
+    # whole on every model rank (an all-gather), so x, B and C slice locally
+    xbc = shard_hint(xbc, "batch", None, None)
     x = xbc[..., :di].reshape(B, S, H, P)
     Bm = xbc[..., di:di + N]                       # (B,S,N)
     Cm = xbc[..., di + N:]                         # (B,S,N)
-    dt = softplus(dt_raw.float() + p["dt_bias"])   # (B,S,H)
-    A = -torch.exp(p["A_log"])                     # (H,) negative
+    scan = functools.partial(_ssd_scan, chunk=min(cfg.ssm_chunk, S))
+    y = _per_ssm_head(scan, x, dt_raw, Bm, Cm, p["dt_bias"], p["A_log"], p["D"])
+    # split over the model dim into the row-parallel out-projection (its
+    # gradient arrives so split; the identity without a mesh)
+    y = shard_hint(y.reshape(B, S, di), "batch", None, "model").to(u.dtype)
+    return (y * F.silu(z)) @ p["w_out"]
+
+
+def _ssd_scan(x, dt_raw, Bm, Cm, dt_bias, A_log, D, *, chunk: int) -> torch.Tensor:
+    """The chunked SSD of x (B, S, H, P) -> y (B, S, H, P) float32, each
+    head on its own (B and C shared across heads)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    assert S % Q == 0, (S, Q)
+    nc = S // Q
+    dt = softplus(dt_raw.float() + dt_bias)        # (B,S,H)
+    A = -torch.exp(A_log)                          # (H,) negative
 
     la = dt * A                                    # (B,S,H) log decay
     xb = x.float() * dt[..., None]                 # dt-scaled input
@@ -97,7 +119,7 @@ def ssm_train(p: Mapping, cfg: ArchConfig, u: torch.Tensor) -> torch.Tensor:
     # the exponent clamped at 0: exact on the causal (i >= j) region
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
     decay = torch.exp(torch.clamp(diff, max=0.0))
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     M = G[..., None] * torch.where(mask[None, None, :, :, None], decay, 0.0)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xb_c)
 
@@ -107,7 +129,7 @@ def ssm_train(p: Mapping, cfg: ArchConfig, u: torch.Tensor) -> torch.Tensor:
     chunk_decay = torch.exp(cum[:, :, -1, :])                  # (B,nc,H)
     in_decay = torch.exp(cum)                                  # decay start->i
 
-    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=u.device)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
     y_inter = []
     for c in range(nc):
         # contribution of the carried state to every position in the chunk
@@ -116,9 +138,39 @@ def ssm_train(p: Mapping, cfg: ArchConfig, u: torch.Tensor) -> torch.Tensor:
     y_inter = torch.stack(y_inter, dim=1)  # (B,nc,Q,H,P)
 
     y = (y_intra + y_inter).reshape(B, S, H, P)
-    y = y + p["D"][None, None, :, None] * x.float()
-    y = y.reshape(B, S, di).to(u.dtype)
-    return (y * F.silu(z)) @ p["w_out"]
+    return y + D[None, None, :, None] * x.float()
+
+
+def _per_ssm_head(scan, x, dt_raw, Bm, Cm, dt_bias, A_log, D) -> torch.Tensor:
+    """``scan(...)``.  Under a registered mesh with DTensors, each device
+    scans its own heads (``local_map``: x, dt and the per-head parameters
+    split over the model dim where the heads divide it, B and C whole);
+    DTensor's own ``einsum`` would flatten batch and heads into one dim
+    split over two mesh dims, which its batched product cannot take."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    md = model_dim()
+    if md is None or not isinstance(x, DTensor):
+        return scan(x, dt_raw, Bm, Cm, dt_bias, A_log, D)
+    mesh, mi = md
+    H = x.shape[2]
+    split = H % mesh.shape[mi] == 0
+
+    def on_model(t, pl):
+        pls = [Replicate() if i == mi else p for i, p in enumerate(t.placements)]
+        pls[mi] = pl
+        return tuple(pls)
+
+    head = lambda t, d: on_model(t, Shard(d) if split else Replicate())  # noqa: E731
+    rep = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    return local_map(scan, out_placements=(head(x, 2),),
+                     in_placements=(head(x, 2), head(dt_raw, 2), on_model(Bm, Replicate()),
+                                    on_model(Cm, Replicate()), head(dt_bias, 0) if split else rep,
+                                    head(A_log, 0) if split else rep,
+                                    head(D, 0) if split else rep),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, dt_raw, Bm, Cm, dt_bias, A_log, D)
 
 
 def init_ssm_state(cfg: ArchConfig, batch: int, device: Optional[torch.device] = None) -> dict:

@@ -82,7 +82,9 @@ def test_port_has_modules_and_chip_smoke():
                  "src/repro_torch/models/transformer/moe.py",
                  "src/repro_torch/models/transformer/model.py",
                  "src/repro_torch/configs/registry.py", "src/repro_torch/data/tokens.py",
-                 "src/repro_torch/launch/steps.py"):
+                 "src/repro_torch/launch/steps.py", "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/gnn_dryrun.py", "src/repro_torch/launch/shardings.py",
+                 "src/repro_torch/launch/op_costs.py", "src/repro_torch/launch/roofline.py"):
         assert want in rel
 
 
