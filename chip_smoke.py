@@ -63,12 +63,17 @@ Phases:
    layers) with ``init_gnn``'s weights for seed 0 (the JAX package's
    initial weights for that seed), and a 500-request Poisson
    trace at 4000 requests/s through ``repro_torch.serve.GNNServer``
-   with ``plan_backend="fused"`` and the device cache on.  The launch
+   with ``plan_backend="fused"`` and the device cache on: ``serve.plan``
+   and ``serve.forward`` run as one captured CUDA graph per bucket, each
+   captured once (``compiles`` 1 a bucket; capture ms, pool bytes and
+   launches a replay printed).  The launch
    counters are zeroed right before and read right after; every kernel
    of the path (the GCN's ``spmm`` forward too) must have launched.  The
    same trace through a ``device="cpu"`` server (the plain path) must give
    identical integer accounting, every batch's plan entries equal bit for
-   bit, and logits within ``atol=1e-4``; ``spmm`` must equal its plain
+   bit (the replayed ``serve.plan`` against the card's eager build of the
+   same seeds and the CPU's, with plan ms a batch replayed against eager),
+   and logits within ``atol=1e-4``; ``spmm`` must equal its plain
    version bit for bit on the largest layer of the largest served batch's
    plan; the first 32 requests served one at a time must
    agree with their coalesced logits.  Then, on the measured clock, the
@@ -96,7 +101,13 @@ Phases:
    ``spmm`` and ``seg_softmax`` forward and backward kernels, every sort
    and every memset, beside the plan ms per step; each
    ``Graph.neighbor_table`` call there must make one ``frontier_gather``
-   launch and one CUDA kernel.
+   launch and one CUDA kernel.  ``plan_at`` is one captured CUDA graph
+   replayed every step (the first call runs eagerly, then captures); on a
+   fresh engine of the same configuration the replays at steps 0, 1, 15,
+   16 and 17 (c = 0 and the κ = 16 window edge) must equal the eager
+   build of the same step state and the CPU's plan and seeds bit for bit,
+   with one capture; replayed and eager ms are printed beside the
+   capture's ms, pool bytes and launches a replay (``phase_compiled``).
 4. Train the GAT: phase 3 again with a 3-layer GAT at the same width and
    4 heads (``GNNConfig(model="gat", num_heads=4)``), same graph, plans
    and checks; its attention softmax runs through ``seg_softmax`` and its
@@ -120,7 +131,9 @@ Phases:
    its largest entry (``check_gradients``); the R-GCN's final weights are
    not compared (the CPU stops at step 2).
 7. Phase 3's graph again: GraphSAGE (phase 3's widths) sampled by NS,
-   trained and checked as in phase 3; one cooperative ``plan_at(0)`` each
+   trained and checked as in phase 3 (``phase_compiled`` against the
+   eager build only: the training holds its replays against the CPU's);
+   one cooperative ``plan_at(0)`` each
    with the ``rw`` and ``full`` samplers, every integer leaf equal to the
    CPU's; and the work curves of Thm 3.1/3.2 (``measure_work_curve``, 3
    layers, 2 trials at batch sizes 64, 256 and 1,024) for ``ns``,
@@ -138,7 +151,9 @@ Phases:
    tiered store's and the CPU replay's; at κ = 16 the first 4 items of a
    ``prefetch=0`` stream equal the ``prefetch=2`` stream's and the first
    2 equal a CPU stream's (integer plan leaves, seeds, features bit for
-   bit, and the tiered counters); the LRU miss rate at κ = ∞ is below the
+   bit, and the tiered counters), and those 4 items' plans (replays of the
+   engine's captured ``plan_at``, captured once) equal the eager build of
+   the same step; the LRU miss rate at κ = ∞ is below the
    one at κ = 1 in both modes.  Printed: miss rates, the CLOCK-LRU gap,
    the κ = 1/∞ ratio, rows fetched host->device, duplicates, wall ms per
    step (prefetch 0 against 2 at κ = 16), launches per step, peak memory.
@@ -365,6 +380,9 @@ PROFILE_TRIES = 3  # traces profiled_kernels takes while they hold no CUDA recor
 # the items held against prefetch 0 and against the CPU
 DEP_MODES, DEP_KAPPAS, DEP_STEPS = ("cooperative", "independent"), (1, 16, 256, None), 16
 DEP_PREFETCH_ITEMS, DEP_CPU_ITEMS = 4, 2
+# the steps at which a captured plan_at is held against its eager build and
+# the CPU's: c = 0, c > 0 and the kappa = 16 window edge (15 -> 16 -> 17)
+COMPILED_STEPS = (0, 1, 15, 16, 17)
 # phase 9: how long a collective waits for the other ranks, and how long a
 # run of the ranks may take, process start included, before it is killed
 SHARD_COLLECTIVE_S, SHARD_DEADLINE_S = 120, 300
@@ -1365,6 +1383,16 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
           f"launches {launches}")
     for k in PATH_KERNELS["serve"]:
         check(launches[k] > 0, f"kernel {k} was not launched on the serving path")
+    for guard in (server._plan_guard, server._forward_guard):
+        served = sorted({b.bucket for b in rep.batches})
+        check(guard.capture and all(guard.program(b) is not None for b in served),
+              f"{guard.name}: a served bucket has no captured program")
+        check(all(n == 1 for n in guard.compiles.values()),
+              f"{guard.name}: compiles {guard.compiles}, want one a bucket")
+        print(f"phase2 {guard.name}: compiles {guard.compiles}; per bucket capture ms, pool "
+              "bytes grown and launches a replay: " + "; ".join(
+                  f"{b}: {r['capture_ms']:.1f} ms, {r['pool_bytes']} B, {r['launches']}"
+                  for b, r in sorted(guard.report().items())))
 
     cpu = GNNServer(ds.graph, ds.features, gnn_cfg, init_gnn(gnn_cfg, seed=SEED, device="cpu"),
                     serve_cfg, device="cpu")
@@ -1379,10 +1407,13 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
     for a, b in zip(rep.batches, ref.batches):
         va, vb = [getattr(a, f) for f in fields], [getattr(b, f) for f in fields]
         check(va == vb, f"batch {a.index}: card {va} != cpu {vb} ({fields})")
-    plan_entries, plan_diff = compare_plans(server, cpu, rep)
-    print(f"phase2 plan leaves card vs cpu: {plan_entries} entries over "
-          f"{len(rep.batches)} batches, {plan_diff} differ")
-    check(plan_diff == 0, f"{plan_diff} plan entries differ from the CPU build")
+    plan_entries, plan_diff, times = compare_plans(server, cpu, rep)
+    print(f"phase2 plan leaves, the captured serve.plan replayed against the card's eager "
+          f"build and the CPU's: {plan_entries} entries over {len(rep.batches)} batches, "
+          f"{plan_diff} differ; plan ms a batch by bucket (replayed / eager, host clock to a "
+          "sync): " + "; ".join(f"{b}: {sum(r) / len(r):.3f} / {sum(e) / len(e):.3f} over "
+                                f"{len(r)}" for b, (r, e) in sorted(times.items())))
+    check(plan_diff == 0, f"{plan_diff} plan entries differ between replay, eager and CPU")
     spmm_row = serve_spmm_row(server, rep, gnn_cfg)
     by_rid = {s.request.rid: s.pred for s in ref.served}
     preds = np.stack([s.pred for s in rep.served])
@@ -1404,6 +1435,8 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
         dataclasses.replace(serve_cfg, service_model="measured"), device="cuda",
     )
     measured.serve_trace(trace[:64])  # warm-up: allocator, cuBLAS handles
+    for bucket in measured.ladder.buckets:  # and every bucket's captured programs
+        measured.hot_path(torch.from_numpy(ds.user_ids[:bucket].astype(np.int32)).cuda())
     measured.reset()
     report_measured("overload: 500 requests at 4000 rps", measured, trace)
     measured.reset()
@@ -1434,26 +1467,39 @@ def serve_spmm_row(server, report, gnn_cfg) -> dict:
     return row
 
 
-def compare_plans(card, cpu, report) -> tuple[int, int]:
-    """Rebuild every served batch's plan on the card and on the CPU and
-    count the integer plan entries that differ (seeds, self_idx, nbr_idx,
-    mask of every layer, and the input frontier)."""
+def compare_plans(card, cpu, report) -> tuple[int, int, dict]:
+    """Every served batch's plan three ways: the card server's captured
+    ``serve.plan`` (a replay), the card's eager build of the same seeds and
+    the CPU's; counts the integer plan entries (seeds, self_idx, nbr_idx,
+    mask of every layer, and the input frontier) and those that differ in
+    either comparison, and times replay and eager build by bucket."""
+    import torch
+
     groups: dict[int, list] = {}
     for s in report.served:
         groups.setdefault(s.batch_index, []).append(s.request)
     entries = differ = 0
+    times: dict[int, tuple[list, list]] = {}
+    leaves = lambda p: [t for layer in p.layers
+                        for t in (layer.seeds, layer.self_idx, layer.nbr_idx, layer.mask)
+                        ] + [p.input_ids]
     for _, reqs in sorted(groups.items()):
-        plans = []
-        for server in (card, cpu):
-            plans.append(server.coalescer.build_plan(server.coalescer.coalesce(reqs, 0.0)))
-        for a, b in zip(*(
-            [t for layer in p.layers
-             for t in (layer.seeds, layer.self_idx, layer.nbr_idx, layer.mask)]
-            + [p.input_ids] for p in plans
-        )):
+        batch = card.coalescer.coalesce(reqs, 0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replayed = card._plan(batch.seeds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager = card.coalescer.build_plan(batch)
+        torch.cuda.synchronize()
+        r, e = times.setdefault(batch.bucket, ([], []))
+        r.append(1e3 * (t1 - t0))
+        e.append(1e3 * (time.perf_counter() - t1))
+        want = cpu.coalescer.build_plan(cpu.coalescer.coalesce(reqs, 0.0))
+        for a, b, c in zip(leaves(replayed), leaves(eager), leaves(want)):
             entries += a.numel()
-            differ += int((a.cpu() != b).sum())
-    return entries, differ
+            differ += int(((a != b).cpu() | (a.cpu() != c)).sum())
+    return entries, differ, times
 
 
 def report_measured(label, server, trace) -> None:
@@ -1721,6 +1767,82 @@ def phase_coo(plan) -> dict:
     return {"launches": launches}
 
 
+def phase_compiled(tag: str, tds, cfg, cpu: bool = True) -> dict:
+    """``plan_at`` as one captured program on a fresh card engine of
+    ``cfg``: the first call (the eager warm-up, then the capture), then at
+    each of ``COMPILED_STEPS`` a replay and the eager build of the same
+    step state (``plan_program.fn``), both timed by the host clock to a
+    sync, equal bit for bit to each other and, with ``cpu``, to the CPU
+    engine's plan and seeds.  The program must be captured once.  Then 3
+    replays under the profiler: device ms and kernels a replay, and the
+    share of copy kernels, float64 arithmetic, the plan's hand-written
+    kernels and the sorts.  Returns the times, the capture's ms, pool
+    bytes and launches a replay."""
+    import torch
+    from repro_torch.engine import MinibatchEngine
+
+    card = MinibatchEngine.from_config(tds.graph, cfg, dataset=tds, device="cuda")
+    host = MinibatchEngine.from_config(tds.graph, cfg, dataset=tds, device="cpu") if cpu else None
+    prog, key = card.plan_program, cfg.local_batch
+    check(card.captures, f"{tag}: the card engine does not capture plan_at")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.plan_at(COMPILED_STEPS[0])
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    rec = prog.report()[key]
+    replay_ms, eager_ms, cpu_ms = [], [], []
+    for step in COMPILED_STEPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan, seeds = card.plan_and_seeds(step)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager, eager_seeds = prog.fn(card.step_state(step))
+        torch.cuda.synchronize()
+        replay_ms.append(1e3 * (t1 - t0))
+        eager_ms.append(1e3 * (time.perf_counter() - t1))
+        got = int_leaves(plan)
+        others = [("eager", int_leaves(eager), eager_seeds)]
+        if host is not None:
+            t0 = time.perf_counter()
+            want, want_seeds = host.plan_and_seeds(step)
+            cpu_ms.append(1e3 * (time.perf_counter() - t0))
+            others.append(("cpu", int_leaves(want), want_seeds))
+        for what, leaves, s in others:
+            check(torch.equal(seeds.cpu(), s.cpu()), f"{tag} step {step}: seeds differ ({what})")
+            check(set(got) == set(leaves), f"{tag} step {step}: plan leaves differ ({what})")
+            for name in got:
+                check(got[name].dtype == leaves[name].dtype
+                      and torch.equal(got[name].cpu(), leaves[name].cpu()),
+                      f"{tag} step {step}: replayed plan leaf {name} differs ({what})")
+    check(prog.compiles == {key: 1}, f"{tag}: plan_at compiles {prog.compiles}, want one")
+    # where a replay's device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for step in range(1, 1 + reps):
+            card.plan_at(step)
+        torch.cuda.synchronize()
+    stats = cuda_kernel_us(prof)
+    part = lambda keys: sum(us for us, _, k in stats if any(p in k for p in keys)) / 1e3 / reps
+    busy = sum(us for us, _, _ in stats) / 1e3 / reps
+    print(f"{tag} plan_at replay profile ({reps} replays): device busy {busy:.3f} ms and "
+          f"{sum(c for _, c, _ in stats) / reps:.0f} kernels a replay; of it copy kernels "
+          f"{part(REPLAY_COPIES):.3f} ms, float64 arithmetic {part(REPLAY_FLOAT64):.3f} ms, "
+          f"the hand-written kernels {part(PLAN_KERNELS):.3f} ms, every torch.sort "
+          f"{part(PROFILE_GROUPS['every torch.sort']):.3f} ms")
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    print(f"{tag} plan_at captured: first call (eager warm-up + capture) {first_ms:.1f} ms, of "
+          f"it capture {rec['capture_ms']:.1f} ms; pool grown {rec['pool_bytes']} B; launches a "
+          f"replay {rec['launches']}; steps {list(COMPILED_STEPS)}: replayed ms {fmt(replay_ms)}"
+          f"; eager ms {fmt(eager_ms)}; plans and seeds equal bit for bit replayed vs eager"
+          + (f" vs cpu (cpu ms {fmt(cpu_ms)})" if cpu else "") + f"; compiles {prog.compiles}")
+    return {"first_ms": first_ms, "replay_ms": replay_ms, "eager_ms": eager_ms, **rec}
+
+
 def phase_plans(tds, tc) -> dict:
     """One cooperative ``plan_at(0)`` with each of the ``rw`` and ``full``
     samplers on the card and on the CPU, counters zeroed right before the
@@ -1844,6 +1966,7 @@ def phase_dependent(ds, tc) -> dict:
     checks of the module docstring.  Counters are zeroed at the start and
     read at the end: every card run of the phase is the path.  Returns the
     launches."""
+    import numpy as np
     import torch
     from repro_torch.core import INVALID, CooperativeCacheArray
     from repro_torch.engine import MinibatchEngine
@@ -1932,6 +2055,22 @@ def phase_dependent(ds, tc) -> dict:
                 same_items(a, b, f"{tag} prefetch 2 vs 0")
                 if i == DEP_CPU_ITEMS - 1:
                     got = clock_counters(fresh.tiered.state) + (fresh.tiered.fetched_rows,)
+            check(engine.captures and engine.plan_program.compiles == {tc.local_batch: 1},
+                  f"{tag}: plan_at compiles {engine.plan_program.compiles}, want one capture")
+            eager_ms = []
+            for a in kept:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eager, eager_seeds = engine.plan_program.fn(engine.step_state(a.step))
+                torch.cuda.synchronize()
+                eager_ms.append(1e3 * (time.perf_counter() - t0))
+                la, lb = int_leaves(a.plan), int_leaves(eager)
+                check(np.array_equal(a.seeds, eager_seeds.cpu().numpy()) and set(la) == set(lb)
+                      and all(torch.equal(la[n], lb[n]) for n in la),
+                      f"{tag} step {a.step}: the stream's plan differs from the eager build")
+            print(f"{tag}: the first {len(kept)} items' plans (replayed) equal the eager build "
+                  f"bit for bit; eager plan ms {', '.join(f'{x:.3f}' for x in eager_ms)}; "
+                  f"capture {engine.plan_program.report()}")
             t0 = time.perf_counter()
             host = MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device="cpu")
             cpu_items = list(host.stream(DEP_CPU_ITEMS, prefetch=0, fetch_features=True))
@@ -1947,7 +2086,15 @@ def phase_dependent(ds, tc) -> dict:
                   f"{sum(p0_walls) / len(p0_walls):.3f} [{min(p0_walls):.3f}-{max(p0_walls):.3f}]"
                   f" over {DEP_PREFETCH_ITEMS} steps against prefetch 2 "
                   f"{sum(walls) / DEP_STEPS:.3f} over {DEP_STEPS} (the first next() builds 2 "
-                  "items)")
+                  "items); warm steps (a next() that builds one item, the capture's first "
+                  f"call excluded): prefetch 0 median {float(np.median(p0_walls[1:])):.3f} "
+                  f"[{min(p0_walls[1:]):.3f}-{max(p0_walls[1:]):.3f}] over "
+                  f"{len(p0_walls) - 1}, prefetch 2 median {float(np.median(walls[1:-1])):.3f} "
+                  f"[{min(walls[1:-1]):.3f}-{max(walls[1:-1]):.3f}] over {len(walls) - 2}; "
+                  "the same steps' builds (same cache state), steps 2.."
+                  f"{DEP_PREFETCH_ITEMS - 1}: prefetch 0 "
+                  f"{', '.join(f'{x:.3f}' for x in p0_walls[2:])}, prefetch 2 "
+                  f"{', '.join(f'{x:.3f}' for x in walls[1:DEP_PREFETCH_ITEMS - 1])}")
             del kept, a, b, it, cpu_items, fresh, host
         r1, rinf = lru_rate[mode, 1], lru_rate[mode, None]
         print(f"phase8 {mode}: LRU miss rate kappa=1 {r1:.6f}, kappa=inf {rinf:.6f}, ratio "
@@ -3038,6 +3185,11 @@ PROFILE_GROUPS = {
     "every torch.sort": ("RadixSort", "SortKVInPlace"),
     "every memset": ("Memset",),
 }
+# a plan replay's kernels by kind: copies (mostly the float32 <-> float64
+# conversions of rng._fma), float64 arithmetic, the plan's own kernels
+REPLAY_COPIES = ("direct_copy_kernel",)
+REPLAY_FLOAT64 = ("<double",)
+PLAN_KERNELS = PROFILE_GROUPS["frontier_gather"] + PROFILE_GROUPS["unique_compact"]
 # the serving path's plan and cache kernels, by name in a profile
 SERVE_PROFILE_GROUPS = {
     "frontier_gather": PROFILE_GROUPS["frontier_gather"],
@@ -3048,7 +3200,8 @@ SERVE_PROFILE_GROUPS = {
 def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     """Device busy and idle share over ``PROFILE_STEPS`` steps (steps 4 and
     5 of a fresh engine and model, through ``train_step``, the step
-    ``train_gnn`` runs) under torch.profiler, the kernels that take the
+    ``train_gnn`` runs; the engine's ``plan_at`` is captured before the
+    window, so both steps replay it) under torch.profiler, the kernels that take the
     device time, the device ms per step of ``PROFILE_GROUPS``, beside the
     card run's plan ms per step (``plan_ms``, its warm steps 1..), and the
     host time in the sampler's variates.  A step calls ``Graph.neighbor_table``
@@ -3067,6 +3220,7 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     model = init_gnn(gnn_cfg, seed=tc.seed, device="cuda")
     labels = torch.as_tensor(tds.labels).cuda()
     opt = adam_init(list(model.parameters()))
+    engine.plan_at(tc.num_steps)  # the plan program's first call and capture
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -3521,6 +3675,7 @@ def main(argv: list) -> int:
         launches = {"serve": serve["launches"]}
         p3 = phase_train("phase3", "train", tds, train_cfg, tc, check_seeds=True)
         launches["train"] = p3["launches"]
+        phase_compiled("phase3", tds, tc.engine_config(3))
         gat = phase_train("phase4", "train_gat", tds, gat_cfg, tc)
         launches["train_gat"] = gat["launches"]
         launches["coo"] = phase_coo(gat["plan0"])["launches"]
@@ -3529,6 +3684,9 @@ def main(argv: list) -> int:
                                              cpu_steps=RGCN_CPU_STEPS)["launches"]
         launches["train_sage"] = phase_train("phase7", "train_sage", tds, sage_cfg,
                                              ns_tc)["launches"]
+        # against the eager build only: the training run above held the
+        # replays of steps 1-3 against the CPU's plans
+        phase_compiled("phase7", tds, ns_tc.engine_config(3), cpu=False)
         launches.update(phase_plans(tds, tc))
         launches["curves"] = phase_curves(tg)
         launches["dependent"] = phase_dependent(rds, tc)

@@ -77,6 +77,8 @@ HOT_SCOPES = {
         "hash_u32", "hash_pair_u32", "uniform_from_u32", "uniform_from_ids",
         "normal_from_ids", "normal_from_pairs", "ndtr", "ndtri", "_smoothed",
         "RNGState.vertex_uniform", "RNGState.edge_uniform",
+        "DeviceRNGState.vertex_uniform", "DeviceRNGState.edge_uniform",
+        "DeviceRNGState.fold",
         "DependentRNG.vertex_uniform", "DependentRNG.edge_uniform",
     ),
     "core/samplers/labor.py": ("LaborSampler.sample_layer", "_row_sum", "_solve_cs"),

@@ -27,6 +27,14 @@ the form ``plan_at`` and the jitted train step compile, where the state
 and calls the C library's ``cosf``/``sinf`` on ``c * (pi/2)``, so this
 module does the same (``tests/test_torch_plan.py`` pins c = 0 and c > 0
 states, and every ``c = i/kappa`` for kappa up to 64).
+
+The state comes in two forms that give the same bits: :class:`RNGState`
+holds python scalars (the plain API), :class:`DeviceRNGState` one small
+tensor on the plan's device (``z1``, ``z2``, the seed draw's key, the
+nested sub-batch offset, and ``cos``/``sin`` of ``c pi/2``, worked out on
+the host), so a captured CUDA graph of the plan build reads the step from
+memory instead of baking it in.  Neither form branches on ``c``, and a
+python seed or salt is folded on the host, never uploaded.
 """
 from __future__ import annotations
 
@@ -68,13 +76,27 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def mix_int(x: int) -> int:
+    """:func:`_mix` of one uint32 python int, on the host."""
+    x &= _MASK32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _MASK32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & _MASK32
+    return x ^ (x >> 16)
+
+
+def _times(x, m: int):
+    """``(x mod 2**32) * m mod 2**32`` of a seed or salt: a python int stays
+    a python int (nothing is uploaded), a tensor stays on its device."""
+    if isinstance(x, torch.Tensor):
+        return _mul32(_u32(x), m)
+    return ((int(x) & _MASK32) * m) & _MASK32
+
+
 def hash_u32(ids, seed, salt=0) -> torch.Tensor:
-    """Deterministic uint32 hash (as int64) of integer ids under (seed, salt)."""
-    ids = _u32(ids)
-    seed = _u32(torch.as_tensor(seed, device=ids.device))
-    salt = _u32(torch.as_tensor(salt, device=ids.device))
-    h = _mix(ids ^ _mul32(seed, 0x9E3779B9))
-    return _mix(h ^ _mul32(salt, 0x85EBCA6B))
+    """Deterministic uint32 hash (as int64) of integer ids under (seed, salt);
+    ``seed`` and ``salt`` are python ints or int tensors that broadcast."""
+    h = _mix(_u32(ids) ^ _times(seed, 0x9E3779B9))
+    return _mix(h ^ _times(salt, 0x85EBCA6B))
 
 
 def hash_pair_u32(a, b, seed, salt=0) -> torch.Tensor:
@@ -290,16 +312,14 @@ def normal_from_pairs(a, b, seed, salt: int = 0) -> torch.Tensor:
     return ndtri(uniform_from_u32(hash_pair_u32(a, b, seed, salt)))
 
 
-def _smoothed(c: float, n1: torch.Tensor, u2) -> torch.Tensor:
-    """``ndtr(fma(cos(c pi/2), n1, sin(c pi/2) * ndtri(u2())))`` in float32, as
-    XLA compiles it for a traced ``c``; ``u2()`` gives the second seed's
-    uniforms.  At ``c == 0`` that is ``n1 + 0 * n2``: ``n1`` itself, except
-    NaN where ``n2`` is infinite (a hash at or above ``2**32 - 128`` rounds to
-    the uniform 1.0), so there only the uniform is computed, not ``ndtri``."""
-    if c == 0.0:
-        return ndtr(torch.where(u2() >= 1.0, math.nan, n1))
-    cos, sin = _cos_sin_half_pi(c)
-    return ndtr(_fma(n1, cos, ndtri(u2()) * sin))
+def _smoothed(cos, sin, n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor:
+    """``ndtr(fma(cos, n1, sin * n2))`` in float32, as XLA compiles the
+    smoothed variate for a traced ``c``; ``cos``/``sin`` of ``c pi/2`` are
+    python floats or float32 tensors that broadcast.  There is no branch on
+    ``c``: at ``c == 0`` (``cosf(0) = 1``, ``sinf(0) = 0``) this is ``n1``,
+    except NaN where ``n2`` is infinite (a hash at or above ``2**32 - 128``
+    rounds to the uniform 1.0), as XLA gives it."""
+    return ndtr(_fma(n1, cos, n2 * sin))
 
 
 @dataclass(frozen=True)
@@ -317,21 +337,86 @@ class RNGState:
         """r_t ~ U(0,1), smoothly drifting with step (LABOR variates); see
         :func:`_smoothed`.  Profiler span: ``rng.vertex_uniform``."""
         with record_function("rng.vertex_uniform"):
-            return _smoothed(self.c, normal_from_ids(ids, self.z1, salt),
-                             lambda: uniform_from_ids(ids, self.z2, salt))
+            return _smoothed(*_cos_sin_half_pi(self.c), normal_from_ids(ids, self.z1, salt),
+                             normal_from_ids(ids, self.z2, salt))
 
     def edge_uniform(self, t: torch.Tensor, s: torch.Tensor, salt: int = 0) -> torch.Tensor:
         """r_ts ~ U(0,1) per edge ``(t, s)`` (NS variates), smoothly drifting;
         the same float32 operations as :meth:`vertex_uniform`.  Profiler
         span: ``rng.edge_uniform``."""
         with record_function("rng.edge_uniform"):
-            return _smoothed(self.c, normal_from_pairs(t, s, self.z1, salt),
-                             lambda: uniform_from_u32(hash_pair_u32(t, s, self.z2, salt)))
+            return _smoothed(*_cos_sin_half_pi(self.c), normal_from_pairs(t, s, self.z1, salt),
+                             normal_from_pairs(t, s, self.z2, salt))
 
     def fold(self, salt: int) -> int:
         """A uint32 sub-seed (random-walk streams): ``z1 * 0x9E3779B9 +
         salt * 0x85EBCA6B``, wrapping."""
         return (self.z1 * 0x9E3779B9 + (salt & _MASK32) * 0x85EBCA6B) & _MASK32
+
+
+@dataclass(frozen=True)
+class DeviceRNGState:
+    """:class:`RNGState` as one int64 tensor ``(6,)`` on the plan's device:
+    ``z1``, ``z2``, the seed draw's hash key, the nested schedule's
+    sub-batch offset, and the float32 bits of ``cos(c pi/2)`` and
+    ``sin(c pi/2)`` (libm's ``cosf``/``sinf`` on the host, C1).
+
+    A captured plan build reads its step from this buffer, so one graph
+    serves every step; its methods give the bits of the scalar form.
+    """
+
+    buf: torch.Tensor
+
+    @classmethod
+    def pack(cls, state: RNGState, key: int = 0, offset: int = 0,
+             device: torch.device | str | None = None) -> "DeviceRNGState":
+        """The buffer of ``state`` with the seed draw's ``key`` and
+        ``offset``, on ``device``.  A CUDA buffer comes from pinned host
+        memory with a copy that does not wait for the device."""
+        cos, sin = _cos_sin_half_pi(state.c)
+        trig = np.asarray([cos, sin], np.float32).view(np.int32)
+        host = torch.tensor([state.z1, state.z2, key, offset, int(trig[0]), int(trig[1])],
+                            dtype=torch.int64)
+        device = torch.device("cpu" if device is None else device)
+        if device.type == "cuda":
+            return cls(host.pin_memory().to(device, non_blocking=True))
+        return cls(host.to(device))
+
+    @property
+    def z1(self) -> torch.Tensor:
+        return self.buf[0]
+
+    @property
+    def z2(self) -> torch.Tensor:
+        return self.buf[1]
+
+    @property
+    def key(self) -> torch.Tensor:
+        return self.buf[2]
+
+    @property
+    def offset(self) -> torch.Tensor:
+        return self.buf[3]
+
+    def _trig(self) -> tuple[torch.Tensor, torch.Tensor]:
+        cs = self.buf[4:6].to(torch.int32).view(torch.float32)
+        return cs[0], cs[1]
+
+    def vertex_uniform(self, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
+        """:meth:`RNGState.vertex_uniform` with the state read on the device."""
+        with record_function("rng.vertex_uniform"):
+            return _smoothed(*self._trig(), normal_from_ids(ids, self.z1, salt),
+                             normal_from_ids(ids, self.z2, salt))
+
+    def edge_uniform(self, t: torch.Tensor, s: torch.Tensor, salt: int = 0) -> torch.Tensor:
+        """:meth:`RNGState.edge_uniform` with the state read on the device."""
+        with record_function("rng.edge_uniform"):
+            return _smoothed(*self._trig(), normal_from_pairs(t, s, self.z1, salt),
+                             normal_from_pairs(t, s, self.z2, salt))
+
+    def fold(self, salt: int) -> torch.Tensor:
+        """:meth:`RNGState.fold` as a 0-d int64 tensor."""
+        return (_times(self.z1, 0x9E3779B9) + _times(salt, 0x85EBCA6B)) & _MASK32
 
 
 @dataclass(frozen=True)

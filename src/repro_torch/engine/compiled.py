@@ -1,0 +1,209 @@
+"""Keyed device programs: the port's counterpart of ``jax.jit`` as the JAX
+package uses it (``MinibatchEngine.plan_at``, ``BucketedJit`` in serving).
+
+A :class:`CompiledFunction` wraps a function of tensors.  Each call names
+a key (a serving bucket, or the one shape of ``plan_at``); the first call
+of a key fixes its shape signature, and a call with another signature
+raises :class:`RetraceError`, as a second trace of a bucket does in the
+JAX package.  ``compiles[key]`` counts the signatures a key has seen.
+
+With ``capture=True`` (a CUDA device) the first call of a key runs the
+function eagerly on a side stream -- the warm-up, whose result is that
+call's result -- and then records it into a ``torch.cuda.CUDAGraph``
+whose inputs are static buffers.  Every later call copies its inputs into
+those buffers, replays the graph and returns clones of the graph's
+outputs, so two results never share memory (as JAX's results do not).
+A capture that fails raises :class:`CaptureError`; nothing falls back to
+eager.  The Python collector is run before and paused during a capture:
+a dead graph of another program, destroyed mid-capture, would break it.  The kernels a graph launches are recorded at capture (the
+wrappers' counts are restored, since capture launches nothing) and added
+to :data:`repro_torch.kernels.LAUNCHES` on every replay.
+
+Eager is chosen by the caller's configuration only: the CPU, the
+reference plan backend (its ``torch.unique`` dedup has a data-dependent
+shape) and the shard executor (gloo and NCCL collectives) run the function
+as it is, under the same signature check.  The graphs of one engine or
+server may share a memory pool: they replay one at a time on one stream,
+and each replay's outputs are cloned before the next one runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.kernels._build import LAUNCHES
+
+
+class RetraceError(RuntimeError):
+    """A key of a compiled function saw a second shape signature -- a
+    shape hygiene bug that its captured program would not survive (the
+    JAX package raises it on a second trace of a bucket)."""
+
+
+class CaptureError(RuntimeError):
+    """Recording a function into a CUDA graph failed."""
+
+
+def tree_map(fn: Callable, x):
+    """``fn`` on every tensor leaf of ``x`` (tensors, dataclasses such as
+    plans, tuples, lists and ``None``); other leaves stay as they are."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return type(x)(**{f.name: tree_map(fn, getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, v) for v in x)
+    return x
+
+
+def tensor_leaves(*objs) -> list:
+    """The tensor leaves of ``objs``, in :func:`tree_map`'s order."""
+    out = []
+    for obj in objs:
+        tree_map(out.append, obj)
+    return out
+
+
+def shape_signature(*objs) -> tuple:
+    """``(shape, dtype)`` of every tensor leaf of ``objs``, in order."""
+    return tuple((tuple(t.shape), t.dtype) for t in tensor_leaves(*objs))
+
+
+@dataclasses.dataclass
+class _Program:
+    """One captured graph: static inputs, static outputs, and the kernel
+    launches a replay makes."""
+
+    graph: Any
+    inputs: list
+    outputs: Any
+    launches: dict
+    capture_ms: float
+    pool_bytes: int
+
+    def replay(self, args: tuple):
+        for dst, src in zip(self.inputs, tensor_leaves(args)):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src, non_blocking=True)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+        return tree_map(torch.clone, self.outputs)
+
+
+class CompiledFunction:
+    """``fn`` as one program per key (see the module docstring).
+
+    ``capture`` records a CUDA graph per key (the arguments must then be
+    CUDA tensors); ``pool`` is a ``torch.cuda.graph_pool_handle()`` to
+    share with other programs that never replay at once (default: one
+    pool of this function's own).
+    """
+
+    def __init__(self, name: str, fn: Optional[Callable] = None, capture: bool = False,
+                 pool=None):
+        self.name = name
+        self.fn = fn
+        self.capture = capture
+        self.compiles: dict = {}
+        self._signatures: dict = {}
+        self._programs: dict = {}
+        self._pool = pool
+        self._stream = None
+
+    # -- the signature guard ----------------------------------------------
+    def check(self, key, *args) -> None:
+        """Record the shape signature of one call of ``key``; a second
+        signature raises :class:`RetraceError`."""
+        seen = self._signatures.setdefault(key, set())
+        sig = shape_signature(*args)
+        if sig in seen:
+            return
+        seen.add(sig)
+        self.compiles[key] = len(seen)
+        if len(seen) > 1:
+            raise RetraceError(
+                f"{self.name}: bucket {key} saw {len(seen)} shape signatures "
+                "-- the step must keep one program per bucket"
+            )
+
+    def assert_compiled_once_per_bucket(self) -> None:
+        bad = {k: n for k, n in self.compiles.items() if n > 1}
+        if bad:
+            raise RetraceError(f"{self.name}: retraced buckets {bad}")
+
+    # -- calls ----------------------------------------------------------------
+    def __call__(self, key, *args):
+        self.check(key, *args)
+        if not self.capture:
+            return self.fn(*args)
+        prog = self._programs.get(key)
+        if prog is None:
+            out, self._programs[key] = self._compile(key, args)
+            return out
+        return prog.replay(args)
+
+    def program(self, key) -> Optional[_Program]:
+        """The captured program of ``key`` (None before its first call or
+        when running eagerly)."""
+        return self._programs.get(key)
+
+    def _compile(self, key, args: tuple):
+        """Warm-up call on a side stream (the call's result), then capture."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+        cur, side = torch.cuda.current_stream(), self._stream
+        inputs = [t.clone() for t in tensor_leaves(args)]
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.fn(*args)
+        static_args = _rebuild(args, inputs)
+        before = dict(LAUNCHES)
+        # dead graphs of other programs (in reference cycles) must go now:
+        # a graph destroyed by the collector during the capture breaks it
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # as the capture's own start does
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                outputs = self.fn(*static_args)
+        except Exception as e:
+            raise CaptureError(f"{self.name}: capturing bucket {key} failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
+            launches = {k: n - before.get(k, 0) for k, n in LAUNCHES.items()
+                        if n != before.get(k, 0)}
+            LAUNCHES.clear()
+            LAUNCHES.update(before)
+        torch.cuda.synchronize()
+        prog = _Program(graph, inputs, outputs, launches,
+                        1e3 * (time.perf_counter() - t0),
+                        torch.cuda.memory_reserved() - reserved)
+        cur.wait_stream(side)
+        tree_map(lambda t: t.record_stream(cur), out)
+        return out, prog
+
+    def report(self) -> dict:
+        """Per captured key: capture ms, pool bytes grown by the capture and
+        the kernel launches a replay adds."""
+        return {k: {"capture_ms": p.capture_ms, "pool_bytes": p.pool_bytes,
+                    "launches": dict(p.launches)} for k, p in self._programs.items()}
+
+
+def _rebuild(args: tuple, leaves: list):
+    """``args`` with its tensor leaves replaced, in order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), args)

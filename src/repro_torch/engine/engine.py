@@ -13,11 +13,17 @@ Dependency schedules (§3.2 + A.7): ``iid`` (fresh seed per step),
 ``smoothed`` (κ-window RNG interpolation) and ``nested`` (κ sub-batches
 carved from one group batch under a frozen group RNG).
 
-The JAX package compiles ``plan_at`` into one program; here it runs
-eagerly with the step's RNG state as python scalars.  Seed draws and
-plans are bit-equal to the JAX package's on the CPU, and to the CPU run
-on a card.  ``executor="shard"`` runs one PE per rank of a
-``torch.distributed`` process group (:attr:`MinibatchEngine.shard_runner`,
+As the JAX package compiles ``plan_at`` into one program, the port
+records it as one CUDA graph (:mod:`repro_torch.engine.compiled`) and
+replays it every step: the seed draw and the sampling read the step from
+one device buffer (:class:`repro_torch.core.rng.DeviceRNGState`: the two
+seeds, ``cos``/``sin`` of the interpolation, the draw's key and the nested
+sub-batch offset), which the host fills from pinned memory without a
+sync.  The CPU, ``plan_backend="reference"`` and ``executor="shard"`` run
+the same device-state code eagerly.  Seed draws and plans are bit-equal
+to the JAX package's on the CPU, and to the CPU run on a card.
+``executor="shard"`` runs one PE per rank of a ``torch.distributed``
+process group (:attr:`MinibatchEngine.shard_runner`,
 :mod:`repro_torch.engine.shard`).
 """
 from __future__ import annotations
@@ -42,9 +48,10 @@ from repro_torch.core.feature_loader import FeatureStore
 from repro_torch.core.graph import INVALID, Graph
 from repro_torch.core.minibatch import CapacityPlan, build_minibatch
 from repro_torch.core.partition import Partition, make_partition
-from repro_torch.core.rng import _MASK32, DependentRNG, RNGState, _mix, hash_u32
+from repro_torch.core.rng import _MASK32, DependentRNG, DeviceRNGState, RNGState, hash_u32, mix_int
 from repro_torch.core.samplers.base import Sampler, make_sampler
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.engine.compiled import CompiledFunction
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.plan import Plan
 from repro_torch.engine.stream import MinibatchStream
@@ -54,13 +61,14 @@ from repro_torch.store.tiers import TieredFeatureStore
 _GOLDEN = 0x9E3779B9
 
 
-def _hash_permute_rows(rows: torch.Tensor, z: int) -> torch.Tensor:
+def _hash_permute_rows(rows: torch.Tensor, z) -> torch.Tensor:
     """Row-wise hash-keyed permutation of an INVALID-padded pool table.
 
     Valid ids get uint32 keys (held in int64, clamped below the sentinel
     key) and sort by them; INVALID entries pin to the key maximum so
     padding stays at every row's tail.  The stable sort makes collisions
-    deterministic, as the JAX package's stable argsort does.
+    deterministic, as the JAX package's stable argsort does.  ``z`` is a
+    python int or a 0-d int64 tensor.
     """
     salt = torch.arange(rows.shape[0], dtype=torch.int64, device=rows.device)[:, None]
     key = hash_u32(rows, z, salt)
@@ -71,8 +79,7 @@ def _hash_permute_rows(rows: torch.Tensor, z: int) -> torch.Tensor:
 
 def _draw_key(x: int, base: int) -> int:
     """``_mix(x ^ base * 0x9E3779B9)`` on uint32 python ints."""
-    v = (x & _MASK32) ^ ((base * _GOLDEN) & _MASK32)
-    return int(_mix(torch.tensor(v, dtype=torch.int64)))
+    return mix_int((x & _MASK32) ^ ((base * _GOLDEN) & _MASK32))
 
 
 @dataclass
@@ -210,26 +217,41 @@ class MinibatchEngine:
             out[i, : len(r)] = np.asarray(r, np.int32)
         return torch.from_numpy(out).to(self.device)
 
-    def _seed_batch(self, step: int) -> torch.Tensor:
-        """(P, b) int32 seed rows for ``step``, on the engine's device.
+    def step_state(self, step: int) -> DeviceRNGState:
+        """The step's RNG state, the seed draw's key and the nested
+        sub-batch offset in one buffer on the engine's device
+        (:class:`DeviceRNGState`), written without a device sync."""
+        cfg = self.config
+        step = int(step)
+        if cfg.schedule == "nested":
+            group, i = divmod(step, cfg.kappa)
+            key, offset = _draw_key(group, cfg.seed), i * cfg.local_batch
+        else:
+            key, offset = _draw_key(step, cfg.seed), 0
+        return DeviceRNGState.pack(self.rng_state(step), key, offset, device=self.device)
+
+    def _seed_draw(self, state: DeviceRNGState) -> torch.Tensor:
+        """(P, b) int32 seed rows for the step of ``state``, on the device.
 
         Each draw is a hash-keyed permutation of the pool table under a
         per-(step-or-group, row) salt; pools smaller than the draw pad
-        with INVALID.
+        with INVALID.  A nested sub-batch is gathered at the state's
+        offset (the reference's ``dynamic_slice_in_dim``).
         """
         cfg = self.config
         P, b = cfg.num_pes, cfg.local_batch
-        step = int(step)
         rows = self._seed_rows
+        perm = _hash_permute_rows(rows, state.key)
         if cfg.schedule == "nested":
-            k = cfg.kappa
-            perm = _hash_permute_rows(rows, _draw_key(step // k, cfg.seed))
-            i = step % k
-            return perm[:, i * b : (i + 1) * b].contiguous()
-        perm = _hash_permute_rows(rows, _draw_key(step, cfg.seed))
+            cols = state.offset + torch.arange(b, dtype=torch.int64, device=rows.device)
+            return perm.index_select(1, cols)
         if rows.shape[0] == 1:
             return perm[0, : P * b].reshape(P, b)
         return perm[:, :b].contiguous()
+
+    def _seed_batch(self, step: int) -> torch.Tensor:
+        """(P, b) int32 seed rows for ``step``, on the engine's device."""
+        return self._seed_draw(self.step_state(step))
 
     def seed_batch(self, step: int) -> np.ndarray:
         """(P, b) int32 seed rows for ``step`` (INVALID-padded short rows).
@@ -283,15 +305,42 @@ class MinibatchEngine:
     def plan_at(self, step: int) -> Plan:
         """The plan for ``step``: the seed draw, the schedule's RNG state and
         sampling, always in the stacked ``(P, b)`` layout -- identical to
-        ``build_plan(seed_batch(step), rng=rng_state(step))``.
+        ``build_plan(seed_batch(step), rng=rng_state(step))``.  On a card
+        with the fused backend it is one captured program replayed every
+        step (:attr:`plan_program`); the call does not wait for the device.
 
         With ``executor="shard"`` each rank builds its own PE's plan (id
         all-to-alls between the ranks) and gets that unstacked plan, equal
         bit for bit to its row of the SimExecutor plan.
         """
+        return self.plan_and_seeds(step)[0]
+
+    def plan_and_seeds(self, step: int) -> tuple[Plan, torch.Tensor]:
+        """``(plan_at(step), the step's (P, b) device seed rows)`` from one
+        program run, with no device sync."""
         if isinstance(self.ex, ShardExecutor):
-            return self.shard_runner.plan_at(step)
-        return self.build_plan(self._seed_batch(step), rng=self.rng_state(step))
+            return self.shard_runner.plan_at(step), self._seed_batch(step)
+        return self.plan_program(self.config.local_batch, self.step_state(step))
+
+    def _build_at(self, state: DeviceRNGState) -> tuple[Plan, torch.Tensor]:
+        """The body of :attr:`plan_program`: the seed draw and the plan of
+        the step whose state the buffer holds."""
+        seeds = self._seed_draw(state)
+        return self.build_plan(seeds, rng=state), seeds
+
+    @property
+    def captures(self) -> bool:
+        """Whether :attr:`plan_program` records a CUDA graph: a card, the
+        fused backend and no shard executor (the configuration alone
+        decides; see :mod:`repro_torch.engine.compiled`)."""
+        return (self.device.type == "cuda" and self.config.plan_backend == "fused"
+                and not isinstance(self.ex, ShardExecutor))
+
+    @cached_property
+    def plan_program(self) -> CompiledFunction:
+        """``plan_at``'s program, keyed by the local batch: one CUDA graph
+        of :meth:`_build_at` serves every step of the schedule."""
+        return CompiledFunction("plan_at", self._build_at, capture=self.captures)
 
     @cached_property
     def shard_runner(self):

@@ -1,15 +1,20 @@
 """Streaming plan iterator with prefetch (port of ``repro.engine.stream``).
 
-The stream builds the items of the next ``prefetch`` steps before the
+The stream dispatches the items of the next ``prefetch`` steps before the
 consumer gets the current one, in step order: plan, seed rows, RNG and,
 with ``fetch_features=True``, the plan's input-layer features through
 the engine's store (so a tiered store's CLOCK state advances in step
 order, whatever the depth).  The items are the same at every depth.
 
-The port builds plans eagerly and the build is host-bound (the RNG's
-variates and the per-PE loop), so a deeper prefetch moves work earlier
-but overlaps nothing yet: no host thread runs here.  Overlap waits for
-the plan build on the card (ROADMAP A6).
+A dispatch does not wait for the device: on a card the plan is one
+replay of the engine's captured ``plan_at`` program, and the seed rows
+go to pinned host memory by an asynchronous copy that
+:attr:`StreamItem.seeds` waits for on first access.  So the host runs
+ahead and the card builds the next plans while the consumer works, as
+the JAX package's asynchronous dispatch does.  A feature fetch through
+the tiered store still waits for its plan (the cache's host fills need
+the miss counts), so with ``fetch_features=True`` each dispatch ends in
+that sync.
 """
 from __future__ import annotations
 
@@ -26,6 +31,28 @@ if TYPE_CHECKING:  # import cycle guard, typing only
     from repro_torch.engine.plan import Plan
 
 
+class HostRows:
+    """A device tensor on its way to host memory: a non-blocking copy into
+    pinned memory and an event after it (on a card); :meth:`numpy` waits
+    for that event only, not for later work on the stream."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            t = host
+        self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return self._host.numpy()
+
+
 @dataclass(frozen=True)
 class StreamItem:
     """One pipeline step: the plan plus the RNG that sampled it."""
@@ -33,8 +60,13 @@ class StreamItem:
     step: int
     plan: "Plan"
     rng: "DependentRNG"
-    seeds: np.ndarray  # (P, b) host seed rows
+    seed_rows: HostRows  # (P, b) seed rows, copied to the host
     features: Optional[torch.Tensor] = None  # input-layer H when fetched
+
+    @property
+    def seeds(self) -> np.ndarray:
+        """(P, b) host seed rows (the first access waits for their copy)."""
+        return self.seed_rows.numpy()
 
 
 class MinibatchStream:
@@ -63,11 +95,10 @@ class MinibatchStream:
 
     def _make(self, step: int) -> StreamItem:
         eng = self.engine
-        plan = eng.plan_at(step)
-        seeds = eng.seed_batch(step)
-        rng = eng.rng_at(step)
+        plan, seeds = eng.plan_and_seeds(step)
         feats = eng.gather_features(plan) if self.fetch_features else None
-        return StreamItem(step=step, plan=plan, rng=rng, seeds=seeds, features=feats)
+        return StreamItem(step=step, plan=plan, rng=eng.rng_at(step),
+                          seed_rows=HostRows(seeds), features=feats)
 
     def __len__(self) -> int:
         return self.num_steps

@@ -10,24 +10,22 @@ policies trade that gain against queueing delay:
 * ``hybrid``     -- whichever of the two fires first.
 
 Merged seed sets are padded to a static *bucket ladder*, so plan shapes
-(and, in the JAX package, compiled programs) come in a few sizes only.
-In place of the JAX package's ``BucketedJit``, :class:`BucketGuard` holds
-each bucket of the serving step to one shape signature and raises
-:class:`RetraceError` on a second: eager PyTorch does not retrace, but a
-captured CUDA graph per bucket (ROADMAP.md A6) would not survive a
-second shape.
+and compiled programs come in a few sizes only.  :class:`BucketGuard` is
+the counterpart of the JAX package's ``BucketedJit``: one program per
+bucket of a serving step (a captured CUDA graph on a card with the fused
+plan backend, :mod:`repro_torch.engine.compiled`), ``compiles`` per
+bucket, and :class:`RetraceError` when a bucket sees a second shape.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, replace
 
 import numpy as np
-import torch
 
 from repro_torch.core.graph import INVALID
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import EngineConfig, MinibatchEngine
+from repro_torch.engine.compiled import CompiledFunction, RetraceError
 from repro_torch.serve.queue import Request, RequestQueue
 
 
@@ -159,67 +157,10 @@ def make_policy(name: str, max_batch: int, max_wait_ms: float):
 # --------------------------------------------------------------------------
 # retrace guard
 # --------------------------------------------------------------------------
-class RetraceError(RuntimeError):
-    """A bucket of the serving step saw a second shape signature -- a
-    shape hygiene bug that a captured program per bucket would not
-    survive (the JAX package raises it on a second trace)."""
-
-
-def shape_signature(*objs) -> tuple:
-    """``(shape, dtype)`` of every tensor leaf of ``objs`` (tensors,
-    dataclasses such as plans, tuples, lists and ``None``), in order."""
-    out = []
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            out.append((tuple(x.shape), x.dtype))
-        elif dataclasses.is_dataclass(x):
-            for f in dataclasses.fields(x):
-                walk(getattr(x, f.name))
-        elif isinstance(x, (tuple, list)):
-            for v in x:
-                walk(v)
-
-    for obj in objs:
-        walk(obj)
-    return tuple(out)
-
-
-class BucketGuard:
-    """Per-bucket shape guard with an observable compiles-per-bucket count.
-
-    The port's stand-in for the JAX package's ``BucketedJit``:
-    :meth:`check` records the shape signature of one call of a bucket, and
-    ``compiles[b]`` counts the distinct signatures bucket ``b`` has seen.
-    The first is legal; a new one raises :class:`RetraceError` (as a second
-    trace does in the JAX package), and
-    :meth:`assert_compiled_once_per_bucket` raises while any bucket has
-    more than one.  It records shapes only (one tuple a call), never the
-    dispatched ops.
-    """
-
-    def __init__(self, name: str):
-        self.name = name
-        self.compiles: dict[int, int] = {}
-        self._signatures: dict[int, set] = {}
-
-    def check(self, bucket: int, *objs) -> None:
-        seen = self._signatures.setdefault(bucket, set())
-        sig = shape_signature(*objs)
-        if sig in seen:
-            return
-        seen.add(sig)
-        self.compiles[bucket] = len(seen)
-        if len(seen) > 1:
-            raise RetraceError(
-                f"{self.name}: bucket {bucket} saw {len(seen)} shape signatures "
-                "-- the serving step must keep one program per bucket"
-            )
-
-    def assert_compiled_once_per_bucket(self) -> None:
-        bad = {b: n for b, n in self.compiles.items() if n > 1}
-        if bad:
-            raise RetraceError(f"{self.name}: retraced buckets {bad}")
+#: The port's ``BucketedJit``: one program per bucket of a serving step
+#: (a captured CUDA graph when ``capture``), ``compiles`` per bucket, and
+#: :class:`RetraceError` when a bucket sees a second shape signature.
+BucketGuard = CompiledFunction
 
 
 # --------------------------------------------------------------------------

@@ -24,9 +24,14 @@ algorithm for another batch size, so there predictions agree within a
 float32 tolerance.  ``serve_independent`` replays a trace one request at
 a time as the baseline.
 
-Each bucket's plan and forward inputs are held to one shape signature
-(:class:`repro_torch.serve.coalesce.BucketGuard`, the JAX package's
-per-bucket retrace guard): a second one raises ``RetraceError``, and
+As the JAX package jits ``serve.plan`` and ``serve.forward`` per bucket
+(``BucketedJit``), each bucket here has one program of each
+(:class:`repro_torch.serve.coalesce.BucketGuard`): on a card with
+``plan_backend="fused"`` a captured CUDA graph, replayed for every batch
+of the bucket (the forward under ``no_grad``); the tiered store's gather
+runs eagerly between the two, as the reference's loop splits it.  The
+CPU and the reference backend run the same functions eagerly.  A bucket
+fed a second shape signature raises ``RetraceError``, and
 ``ServeReport.compiles`` counts the signatures per bucket under the JAX
 package's keys, ``"serve.plan"`` and ``"serve.forward"``.
 """
@@ -219,29 +224,40 @@ class GNNServer:
             )
         else:  # uncached: the whole table on the device
             self.store = FeatureStore(torch.from_numpy(features).to(self.device))
-        self._plan_guard = BucketGuard("serve.plan")
-        self._forward_guard = BucketGuard("serve.forward")
+        # one RNG state serves every bucket: all engines share the seed
+        self._rng = self.coalescer.engine_for(self.ladder.buckets[0]).step_state(0)
+        capture = self.device.type == "cuda" and cfg.plan_backend == "fused"
+        pool = torch.cuda.graph_pool_handle() if capture else None
+        self._plan_guard = BucketGuard("serve.plan", self._build_plan, capture, pool)
+        self._forward_guard = BucketGuard("serve.forward", self._apply, capture, pool)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- the serving step's pieces, each bucket held to one shape signature
+    # -- the serving step's pieces: one program of each a bucket
+    def _build_plan(self, seeds: torch.Tensor):
+        return self.coalescer.engine_for(seeds.shape[0]).build_plan(seeds, rng=self._rng)
+
+    def _apply(self, layers, H: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return gnn_apply(self.model, self.gnn_cfg, layers, H)
+
     def _plan(self, seeds):
-        bucket = seeds.shape[0]
-        eng = self.coalescer.engine_for(bucket)
-        plan = eng.build_plan(seeds, rng=eng.rng_at(0))
-        self._plan_guard.check(bucket, plan)
-        return plan
+        """The plan of one bucket of seeds (a host array or a tensor)."""
+        if not isinstance(seeds, torch.Tensor):
+            seeds = torch.from_numpy(np.asarray(seeds, np.int32))
+        if seeds.device.type == "cpu" and self.device.type == "cuda":
+            seeds = seeds.pin_memory()
+        seeds = seeds.to(self.device, non_blocking=True)
+        return self._plan_guard(seeds.shape[0], seeds.to(torch.int32))
 
     def _gather(self, plan) -> torch.Tensor:
         store = self.tiered if self.tiered is not None else self.store
         return store.gather(plan.input_ids)
 
     def _forward(self, plan, H: torch.Tensor) -> torch.Tensor:
-        self._forward_guard.check(plan.seed_ids.shape[0], plan.layers, H)
-        with torch.no_grad():
-            return gnn_apply(self.model, self.gnn_cfg, plan.layers, H)
+        return self._forward_guard(plan.seed_ids.shape[0], plan.layers, H)
 
     def hot_path(self, seeds):
         """The full serving step for one bucket of seeds (plan -> gather ->
@@ -249,7 +265,8 @@ class GNNServer:
         logits)`` on the device.
 
         Registered as a ``repro_torch.analysis`` trace entry: every
-        same-bucket call must dispatch one op sequence.  The gather goes
+        same-bucket call must dispatch one op sequence (on a card, the
+        bucket's two replays and the gather between them).  The gather goes
         through the server's feature tier (the CLOCK cache when
         ``use_cache``); the batch loop times the same three pieces.
         """

@@ -1004,3 +1004,136 @@ def test_lm_train_step_on_card_matches_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
     np.testing.assert_allclose(sa, sb, rtol=1e-4)
     assert sa[-1] < sa[0]
+
+
+def _int_leaves(plan) -> dict:
+    """Every integer and bool leaf of a plan, by name."""
+    out = {"input_ids": plan.input_ids, "seed_ids": plan.seed_ids}
+    for l, layer in enumerate(plan.layers):
+        for name in ("seeds", "self_idx", "nbr_idx", "mask", "etypes", "slot_to_tilde",
+                     "req_idx", "tilde_ids"):
+            if getattr(layer, name, None) is not None:
+                out[f"{name}{l}"] = getattr(layer, name)
+    return out
+
+
+def _same_plans(a, b, what):
+    la, lb = _int_leaves(a), _int_leaves(b)
+    assert set(la) == set(lb), what
+    for k in la:
+        assert la[k].dtype == lb[k].dtype and torch.equal(la[k].cpu(), lb[k].cpu()), (what, k)
+
+
+@pytest.mark.parametrize("mode", ["cooperative", "independent"])
+@pytest.mark.parametrize("schedule,kappa", [("iid", 1), ("smoothed", 16), ("nested", 4)])
+def test_plan_at_replays_match_eager_and_cpu(cuda, mode, schedule, kappa):
+    """``plan_at`` as one captured program: every replay (steps 0, 1, 15,
+    16, 17: c = 0 and a kappa = 16 window edge) equals the eager build of
+    the same state and the CPU's plan, seeds included, for all four
+    samplers; one capture, and each replay adds the eager build's
+    launches."""
+    from repro_torch.engine import EngineConfig
+
+    ds = SyntheticGraphDataset(rmat_graph(scale=10, edge_factor=8, max_degree=16,
+                                          device="cpu"), feature_dim=8, num_classes=4)
+    for sampler in ("labor0", "ns", "rw", "full"):
+        cfg = EngineConfig(mode=mode, num_pes=4, local_batch=16, num_layers=2,
+                           sampler=sampler, fanout=4, schedule=schedule, kappa=kappa,
+                           plan_backend="fused")
+        eng = MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device=cuda)
+        cpu = MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device="cpu")
+        assert eng.captures and not cpu.captures
+        eng.plan_at(0)  # the first call: eager, then captured
+        prog = eng.plan_program.program(16)
+        assert prog is not None and eng.plan_program.compiles == {16: 1}
+        for step in (0, 1, 15, 16, 17):
+            reset_launches()
+            plan, seeds = eng.plan_and_seeds(step)
+            replayed = {k: n for k, n in LAUNCHES.items() if n}
+            reset_launches()
+            eager, eager_seeds = eng.plan_program.fn(eng.step_state(step))
+            eager_launches = {k: n for k, n in LAUNCHES.items() if n}
+            assert eager_launches == replayed == prog.launches, (sampler, step)
+            want, want_seeds = cpu.plan_and_seeds(step)
+            what = (sampler, mode, schedule, step)
+            assert torch.equal(seeds.cpu(), want_seeds) and torch.equal(eager_seeds.cpu(),
+                                                                         want_seeds), what
+            _same_plans(plan, eager, what)
+            _same_plans(plan, want, what)
+        assert eng.plan_program.compiles == {16: 1}
+        a, b = eng.plan_at(1), eng.plan_at(1)
+        assert a.input_ids.data_ptr() != b.input_ids.data_ptr()  # fresh results
+    torch.cuda.synchronize()
+
+
+def test_served_buckets_replay_match_eager(cuda):
+    """``serve.plan`` and ``serve.forward`` captured once per bucket: every
+    replay equals the eager functions on the same inputs bit for bit and
+    the CPU server's plan; ``compiles`` stays 1 a bucket."""
+    ds = make_recsys(num_users=4096, num_items=512, edges_per_user=8,
+                     feature_dim=16, max_degree=64, seed=0, device="cpu")
+    cfg = GNNConfig(num_layers=2, in_dim=16, hidden_dim=32, num_classes=8)
+    serve_cfg = ServeConfig(plan_backend="fused", max_batch=32)
+    card = GNNServer(ds.graph, ds.features, cfg, init_gnn(cfg, seed=0, device="cpu"),
+                     serve_cfg, device=cuda)
+    cpu = GNNServer(ds.graph, ds.features, cfg, init_gnn(cfg, seed=0, device="cpu"),
+                    serve_cfg, device="cpu")
+    users = np.asarray(ds.user_ids, np.int32)
+    for rep in range(3):
+        for bucket in card.ladder.buckets:
+            seeds = np.sort(users[rep * 7: rep * 7 + bucket])
+            plan = card._plan(seeds)
+            _same_plans(plan, card._build_plan(torch.from_numpy(seeds).to(cuda)), bucket)
+            _same_plans(plan, cpu._plan(seeds), bucket)
+            H = card._gather(plan)
+            logits = card._forward(plan, H)
+            assert torch.equal(logits, card._apply(plan.layers, H)), bucket
+    for guard in (card._plan_guard, card._forward_guard):
+        assert guard.compiles == {b: 1 for b in card.ladder.buckets}
+        assert all(guard.program(b) is not None for b in card.ladder.buckets)
+    torch.cuda.synchronize()
+
+
+def test_stream_dispatches_ahead_with_lazy_seeds(cuda):
+    """Items at prefetch 0 and 2 equal, their seeds resolved on first access
+    from pinned host memory, equal to the CPU stream's."""
+    from repro_torch.engine import EngineConfig
+
+    ds = SyntheticGraphDataset(rmat_graph(scale=10, edge_factor=8, max_degree=16,
+                                          device="cpu"), feature_dim=8, num_classes=4)
+    cfg = EngineConfig(mode="cooperative", num_pes=4, local_batch=16, num_layers=2,
+                       sampler="labor0", fanout=4, schedule="smoothed", kappa=4,
+                       plan_backend="fused")
+    runs = {}
+    for dev, depth in ((cuda, 0), (cuda, 2), ("cpu", 2)):
+        eng = MinibatchEngine.from_config(ds.graph, cfg, dataset=ds, device=dev)
+        runs[str(dev), depth] = list(eng.stream(6, prefetch=depth))
+    for a, b, c in zip(runs["cuda", 0], runs["cuda", 2], runs["cpu", 2]):
+        assert a.seed_rows._host.is_pinned() and b.seed_rows._event is not None
+        assert np.array_equal(b.seeds, c.seeds) and np.array_equal(a.seeds, c.seeds)
+        _same_plans(a.plan, c.plan, a.step)
+        _same_plans(b.plan, c.plan, b.step)
+
+
+def test_failed_capture_raises(cuda):
+    """A function that reads a device scalar cannot be captured: the
+    capture raises ``CaptureError`` and nothing falls back to eager (run in
+    a child process: a failed capture can leave the context unusable)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from repro_torch.engine.compiled import CaptureError, CompiledFunction\n"
+        "f = CompiledFunction('sync', lambda t: t * int(t.sum()), capture=True)\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "f(4, x)  # the eager warm-up runs, then the capture raises\n"
+        "print('no capture')\n"
+    )
+    root = Path(__file__).resolve().parents[1]
+    env = {**__import__("os").environ, "PYTHONPATH": str(root / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode != 0 and "no capture" not in proc.stdout
+    assert "CaptureError" in proc.stderr, proc.stderr[-2000:]
