@@ -64,9 +64,11 @@ Phases:
    initial weights for that seed), and a 500-request Poisson
    trace at 4000 requests/s through ``repro_torch.serve.GNNServer``
    with ``plan_backend="fused"`` and the device cache on: ``serve.plan``
-   and ``serve.forward`` run as one captured CUDA graph per bucket, each
-   captured once (``compiles`` 1 a bucket; capture ms, pool bytes and
-   launches a replay printed).  The launch
+   and ``serve.forward`` run as one captured CUDA graph per bucket, and
+   so do the tiered store's ``store.clock_access`` and ``store.assemble``
+   (the host fill of the missed rows between them), each captured once
+   (``compiles`` 1 a bucket; capture ms, pool bytes and launches a replay
+   printed).  The launch
    counters are zeroed right before and read right after; every kernel
    of the path (the GCN's ``spmm`` forward too) must have launched.  The
    same trace through a ``device="cpu"`` server (the plain path) must give
@@ -89,14 +91,23 @@ Phases:
    (in 64, hidden 256, 16 classes; ``train_gnn``'s own weights, those of
    ``init_gnn`` for seed 0, which are the JAX package's) on
    ``rmat_graph(scale=18, edge_factor=8, max_degree=32)``, 4 steps on
-   the card and the same 4 steps on the CPU (the plain path).  The
-   counters are zeroed right before the card run; every kernel of the
-   path must have launched.  Seed batches, every integer leaf of every
-   step's plan and the plan stats must equal the CPU run's; losses agree
-   within ``rtol=1e-4`` and the final weights within ``atol=1e-4``.  Per
-   step: wall ms split into plan, gather, forward+backward and Adam (each
-   ended by a sync) and each kernel's launches; then the device idle
-   share over two more steps under the profiler, with the device ms per
+   the card and the same 4 steps on the CPU (the plain path).  On the
+   card the whole step (plan, gather, forward, backward, Adam) is one
+   captured CUDA graph (``train.step_program``; step 0 is its eager
+   warm-up, then the capture), replayed every step and captured once
+   (capture ms and pool bytes printed).  The counters are zeroed right
+   before the card run; every kernel of the path must have launched.
+   Seed batches, every integer leaf of every step's plan and the plan
+   stats must equal the CPU run's; losses agree within ``rtol=1e-4`` and
+   the final weights within ``atol=1e-4``.  Per step: the captured
+   step's wall ms (to the loss's read) and each kernel's launches.  The
+   same steps again on the card through the eager step
+   (``stage_times=True``): wall ms split into plan, gather,
+   forward+backward and Adam (each ended by a sync); its plans must equal
+   the captured run's bit for bit, its losses, final weights and step-0
+   gradients agree as the CPU's must (the distance printed).  Then the
+   device idle share over two more captured steps under the profiler,
+   with the device ms per
    step of the ``frontier_gather`` and ``unique_compact`` kernels, the
    ``spmm`` and ``seg_softmax`` forward and backward kernels, every sort
    and every memset, beside the plan ms per step; each
@@ -157,6 +168,9 @@ Phases:
    one at κ = 1 in both modes.  Printed: miss rates, the CLOCK-LRU gap,
    the κ = 1/∞ ratio, rows fetched host->device, duplicates, wall ms per
    step (prefetch 0 against 2 at κ = 16), launches per step, peak memory.
+   The tiered store's two programs are captured once at every (mode, κ)
+   (keyed by the stream's ``(P, n)``; capture ms and pool bytes printed at
+   κ = 16).
 9. Multi-process cooperative training: phase 3's configuration with
    ``executor="shard"``, one PE per process (``torch.multiprocessing``,
    ``spawn``; a FileStore and a collective timeout, so a rank that dies
@@ -188,8 +202,10 @@ Phases:
    the RA001/RA002/RA004 sites, each wrapper's RA100, and each trace
    entry's host syncs per call (dispatched ops and sync-debug warnings)
    and whether its op sequence stayed the same; then the syncs of one
-   served batch and of ``GNNServer.hot_path`` at each of phase 2's
-   buckets.  Fails on RA005, RA107, RA199 or RA299.
+   served batch, of ``GNNServer.hot_path`` and of the tiered gather alone
+   (one: the missed ids' read) at each of phase 2's buckets, and of one
+   replay of phase 3's captured train step (none).  Fails on RA005,
+   RA107, RA199 or RA299, or on other sync counts.
 11. The LM pool (``repro_torch.models.transformer``, no CUDA kernel of
    its own: its products are cuBLAS calls, the rest plain torch ops).
    11a: each of the ten architectures at its reduced size, ``init_lm`` on
@@ -200,9 +216,13 @@ Phases:
    tokens equal; for MoE, layer 0's routes (experts and expert tables)
    equal on a seeded input.  11b: gemma2-2b at its published widths and
    depth (26 layers, d 2304, 8/4 heads of 256, d_ff 9216, vocab 256,000,
-   float32, TF32 off): ``init_lm`` on the card; ``prefill_decode`` (batch
+   float32, TF32 off): ``init_lm`` on the card; the decode step is one
+   captured CUDA graph a batch, cache length and state
+   (``decode_program``, captured once a key); ``prefill_decode`` (batch
    4, prompt 16) bit for bit equal to stepping ``make_serve_step`` over
-   the prompt (logits, every cache, 24 greedy tokens); ``forward_train``
+   the prompt (logits, every cache, 24 greedy tokens), and the 24 greedy
+   tokens equal to ``forward_decode`` run eagerly from the same state
+   (its ms a step printed beside the captured one's); ``forward_train``
    at S 64 within ``3e-3 * max|logits|`` of stepped decode;
    ``make_prefill_step`` at batch 4, S 2,048; at 2 layers, card against
    CPU (weights copied from the card): logits within ``atol=1e-4``, 8
@@ -224,7 +244,7 @@ Phases:
    the route's host syncs by the trace pass (0 expected, where
    ``torch.unique`` on the same ids syncs).  12b: gemma2-2b at its
    published widths and depth, float32, TF32 off, remat on:
-   ``make_train_step`` at batch 4, S 2,048, one warm step and 3 timed (each
+   ``make_train_step`` at batch 4, S 2,048, one warm step and 2 timed (each
    ended by a sync): step ms, tokens/s, ``model_flops`` (6·N·D) over the
    step time against 67 TFLOP/s, peak memory, one step split into forward,
    backward and Adam, one under the profiler (CUDA kernels, float32 GEMMs,
@@ -404,7 +424,7 @@ LM_TRAIN_S, LM_PREFILL_S, LM_CONSISTENCY = 64, 2048, 3e-3
 # whisper-tiny's 51,865 ids)
 LM_TRAIN_STEPS, LM_LOSS_RTOL, SSD_DECAY_RTOL = 3, 1e-5, 5e-5
 LM_TRAIN_CHECK_S, COOP_CHECK_S = 64, 256
-LM_TRAIN_B, LM_TRAIN_SEQ, LM_TRAIN_TIMED = 4, 2048, 3
+LM_TRAIN_B, LM_TRAIN_SEQ, LM_TRAIN_TIMED = 4, 2048, 2
 COOP_B, COOP_S = 32, 2048
 # one train step with the cooperative embedding on a card: the dedup once,
 # then the distinct rows' read and the slots' expansion (the backward is
@@ -1089,10 +1109,13 @@ def independent_rows(out: dict, engine, plan, paths: list, per: str, tag: str) -
 def recorded_probe(engine, plan0) -> tuple:
     """The ``tag_probe`` inputs ``(tags, sets, ids)`` that the engine's
     tiered store passes at step 1, after step 0's gather: recorded by a
-    wrapper around the probe for one ``gather_features`` call."""
+    wrapper around the probe for one eager run of the store's access
+    program (its replays call no Python) on a copy of its state."""
     import repro_torch.store.clock as clock
 
     engine.gather_features(plan0)
+    tiered, ids = engine.tiered, engine.plan_at(1).input_ids
+    state = type(tiered.state)(*(t.clone() for t in tiered.state))
     seen, probe = [], clock.tag_probe
 
     def record(tags, sets, ids):
@@ -1101,7 +1124,7 @@ def recorded_probe(engine, plan0) -> tuple:
 
     clock.tag_probe = record
     try:
-        engine.gather_features(engine.plan_at(1))
+        tiered.access_program.fn(state, ids)
     finally:
         clock.tag_probe = probe
     check(len(seen) == 1, f"{len(seen)} tag_probe calls in one tiered gather, want 1")
@@ -1394,6 +1417,18 @@ def phase2(ds, gnn_cfg, serve_cfg, trace) -> dict:
                   f"{b}: {r['capture_ms']:.1f} ms, {r['pool_bytes']} B, {r['launches']}"
                   for b, r in sorted(guard.report().items())))
 
+    served = sorted({b.bucket for b in rep.batches})
+    for prog in (server.tiered.access_program, server.tiered.assemble_program):
+        check(prog.capture and set(served) <= set(prog.compiles)
+              and all(n == 1 for n in prog.compiles.values())
+              and all(n == 1 for n in prog.captures.values()),
+              f"{prog.name}: compiles {prog.compiles}, captures {prog.captures}, want one "
+              "capture a served bucket")
+        print(f"phase2 {prog.name} (the tiered store's program): compiles {prog.compiles}; per "
+              "bucket capture ms, pool bytes grown and launches a replay: " + "; ".join(
+                  f"{b}: {r['capture_ms']:.1f} ms, {r['pool_bytes']} B, {r['launches']}"
+                  for b, r in sorted(prog.report().items())))
+
     cpu = GNNServer(ds.graph, ds.features, gnn_cfg, init_gnn(gnn_cfg, seed=SEED, device="cpu"),
                     serve_cfg, device="cpu")
     t0 = time.perf_counter()
@@ -1616,13 +1651,16 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
         print(f"{tag} seed_batch card vs cpu: equal at steps 0..{tc.num_steps - 1}, "
               f"shape {a.shape}")
 
-    plans, first, per_step = {"cuda": [], "cpu": []}, {}, []
+    plans, first, per_step = {"cuda": [], "eager": [], "cpu": []}, {}, []
 
-    def run(dev: str, steps: int):
+    def run(dev: str, steps: int, eager: bool = False):
         """``steps`` steps on ``dev`` from ``init_gnn(cfg, tc.seed)`` (the
         weights ``train_gnn`` draws by default); keeps each step's plan, the
         initial weights and the step-0 gradient of every parameter (a hook
-        on each, removed after step 0)."""
+        on each, removed after step 0).  ``eager`` runs the card's eager
+        step (``stage_times``: each stage ended by a sync) instead of the
+        captured one."""
+        key = "eager" if eager else dev
         model = init_gnn(gnn_cfg, seed=tc.seed, device=dev)
         named = list(model.named_parameters())
         grads = {}
@@ -1632,20 +1670,20 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
                 grads[i] = g.detach().clone()
 
         hooks = [p.register_hook(functools.partial(keep, i)) for i, (_, p) in enumerate(named)]
-        first[dev] = {"names": [n for n, _ in named],
+        first[key] = {"names": [n for n, _ in named],
                       "init": [p.detach().cpu().numpy().copy() for _, p in named]}
 
         def on_step(step, plan):
-            plans[dev].append(plan)
-            if dev == "cuda":
+            plans[key].append(plan)
+            if key == "cuda":
                 per_step.append({k: LAUNCHES.get(k, 0) for k in KERNELS})
             if step == 0:
                 for h in hooks:
                     h.remove()
-                first[dev]["grad"] = [grads[i].cpu().numpy() for i in range(len(named))]
+                first[key]["grad"] = [grads[i].cpu().numpy() for i in range(len(named))]
 
         return train_gnn(tds, gnn_cfg, dataclasses.replace(tc, num_steps=steps), model=model,
-                         device=dev, stage_times=True, on_step=on_step)
+                         device=dev, stage_times=eager, on_step=on_step)
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1653,28 +1691,61 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
     card = run("cuda", tc.num_steps)
     card_s = time.perf_counter() - t0
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
-    print(f"{tag} card train ({gnn_cfg.model}): {tc.num_steps} steps in {card_s:.2f} s "
-          f"(engine set-up included); launches {launches}")
+    print(f"{tag} card train ({gnn_cfg.model}), the captured train step: {tc.num_steps} steps "
+          f"in {card_s:.2f} s (engine set-up and the capture included); launches {launches}")
     for k in PATH_KERNELS[path]:
         check(launches[k] > 0, f"kernel {k} was not launched on the {path} path")
     calls = {"gcn": 1, "sage": 1, "rgcn": gnn_cfg.num_relations}.get(gnn_cfg.model, 0)
     want = {"spmm": tc.num_pes * L * calls, "spmm_backward": tc.num_pes * (L - 1) * calls}
     prev = {k: 0 for k in KERNELS}
-    for step, (st, cum) in enumerate(zip(card.stage_ms, per_step)):
+    for step, (ms, cum) in enumerate(zip(card.step_ms, per_step)):
         per = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
         prev = cum
-        print(f"{tag} card step {step}: wall {sum(st.values()):.3f} ms = "
-              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+        print(f"{tag} card step {step}: wall {ms:.3f} ms to the loss's read"
+              + (" (eager warm-up + capture)" if step == 0 else " (a replay)")
               + f"; loss {card.losses[step]:.6f}; launches {per}")
         if calls:
             got = {k: per.get(k, 0) for k in want}
             check(got == want, f"step {step}: spmm launches {got}, want {want}")
-    print(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    comp = card.compiled
+    key = tc.local_batch
+    check(comp and comp["compiles"] == {key: 1} and comp["captures"] == {key: 1},
+          f"{tag}: the train step was not captured once: {comp}")
+    rec = comp["report"][key]
+    print(f"{tag} train_step program: capture {rec['capture_ms']:.1f} ms, pool grown "
+          f"{rec['pool_bytes']} B ({rec['pool_bytes'] / 2**30:.2f} GiB), launches a replay "
+          f"{rec['launches']}; warm steps ms "
+          + ", ".join(f"{x:.3f}" for x in card.step_ms[1:])
+          + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the eager step on the card: the stage split, and the captured step held
+    # against it (plans bit for bit, losses and weights within the tolerances)
+    torch.cuda.reset_peak_memory_stats()
+    eager = run("cuda", tc.num_steps, eager=True)
+    for step, st in enumerate(eager.stage_ms):
+        print(f"{tag} card eager step {step}: wall {sum(st.values()):.3f} ms = "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+              + f"; loss {eager.losses[step]:.6f}")
+    print(f"{tag} eager peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    differ = sum(int((la[n].cpu() != lb[n].cpu()).sum())
+                 for a, b in zip(plans["cuda"], plans["eager"])
+                 for la, lb in [(int_leaves(a), int_leaves(b))] for n in la)
+    ce_rel = float(np.max(np.abs(np.asarray(card.losses) - np.asarray(eager.losses))
+                          / np.abs(np.asarray(eager.losses))))
+    ce_w = max(float(np.abs(a[k] - b[k]).max())
+               for a, b in zip(card.params["layers"], eager.params["layers"]) for k in a)
+    print(f"{tag} captured vs eager step on the card, {tc.num_steps} steps: plan entries that "
+          f"differ {differ}; losses max rel diff {ce_rel:.3e} (rtol {TRAIN_RTOL}); final "
+          f"weights max abs diff {ce_w:.3e} (atol {TRAIN_ATOL})")
+    check(differ == 0, f"{tag}: {differ} plan entries differ captured vs eager")
+    check(ce_rel <= TRAIN_RTOL and ce_w <= TRAIN_ATOL,
+          f"{tag}: captured vs eager losses {ce_rel}, weights {ce_w}")
+    check_gradients(tag, first["cuda"], first["eager"], "captured vs eager")
 
     t0 = time.perf_counter()
     cpu = run("cpu", cpu_steps)
     print(f"{tag} cpu train (plain path, {cpu_steps} steps): {time.perf_counter() - t0:.2f} s; "
-          "per step " + "; ".join(f"{sum(st.values()):.1f} ms" for st in cpu.stage_ms))
+          "per step " + "; ".join(f"{ms:.1f} ms" for ms in cpu.step_ms))
 
     entries = differ = 0
     for step, (a, b) in enumerate(zip(plans["cuda"], plans["cpu"])):
@@ -1706,8 +1777,8 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
     else:
         print(f"{tag} final weights card vs cpu: not compared (the CPU ran {cpu_steps} of "
               f"{tc.num_steps} steps)")
-    walls = [sum(st.values()) for st in card.stage_ms]
-    profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in card.stage_ms])
+    walls = card.step_ms
+    profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in eager.stage_ms], walls)
     return {"launches": launches, "loss_rel": loss_rel, "walls": walls,
             "plan0": plans["cuda"][0], "plans": [host_leaves(p) for p in plans["cuda"]],
             "losses": card.losses, "first": first["cuda"]}
@@ -2039,6 +2110,16 @@ def phase_dependent(ds, tc) -> dict:
                   f"[{min(walls):.3f}-{max(walls):.3f}]; consumers ms a step "
                   + ", ".join(f"{k} {v / DEP_STEPS:.3f}" for k, v in split.items() if v)
                   + f"; launches a step {per}; engine set-up {setup_s:.2f} s")
+            for prog in (tiered.access_program, tiered.assemble_program):
+                check(prog.capture and list(prog.compiles.values()) == [1]
+                      and list(prog.captures.values()) == [1],
+                      f"{tag}: {prog.name} compiles {prog.compiles}, captures {prog.captures}, "
+                      "want one capture")
+                if kappa == 16:
+                    print(f"{tag}: {prog.name} (the tiered store's program) captured once: "
+                          + "; ".join(f"{k}: {r['capture_ms']:.1f} ms, {r['pool_bytes']} B, "
+                                      f"launches a replay {r['launches']}"
+                                      for k, r in prog.report().items()))
             if kappa != 16:
                 continue
             # prefetch 0 against prefetch 2 on a fresh engine; at prefetch 0
@@ -2463,12 +2544,15 @@ def rel(path: str) -> str:
     return str(p.resolve().relative_to(ROOT)) if p.is_absolute() else path
 
 
-def phase_analysis(ds, serve_cfg, gnn_cfg, device: str = "cuda") -> dict:
+def phase_analysis(ds, serve_cfg, gnn_cfg, device: str = "cuda", train=None) -> dict:
     """10b: ``run_analysis`` over the port on the card (lint, contracts on
-    the seven CUDA wrappers, trace); then the host syncs of one served batch
-    and of ``hot_path`` at each of phase 2's buckets, by both counts.  Fails
-    on RA005, RA107, RA199, RA299 or a wrapper without RA100; returns the
-    run's launches.  ``device="cpu"`` rehearses the phase with no card."""
+    the seven CUDA wrappers, trace); then the host syncs of one served batch,
+    of ``hot_path`` and of the tiered gather alone (one on a card: the
+    missed ids' read) at each of phase 2's buckets, by both counts; and,
+    given ``train = (dataset, gnn_cfg, tc)``, of one replay of the captured
+    train step (none).  Fails on RA005, RA107, RA199, RA299 or a wrapper
+    without RA100; returns the run's launches.  ``device="cpu"`` rehearses
+    the phase with no card."""
     import torch
     from repro_torch.analysis import run_analysis
     from repro_torch.analysis.trace import record_call
@@ -2513,12 +2597,37 @@ def phase_analysis(ds, serve_cfg, gnn_cfg, device: str = "cuda") -> dict:
         server._execute(batch, 0)  # warm-up: the bucket's engine and cuBLAS
         _, served = record_call(dev, server._execute, batch, 0)
         _, hot = record_call(dev, server.hot_path, seeds)
+        _, gather = record_call(dev, server._gather, server._plan(batch.seeds))
         print(f"phase10b served batch at bucket {bucket}: syncs {served.syncs} dispatched / "
               f"{served.sync_warnings} sync-debug warnings ({len(served.ops)} ops; sites "
               f"{served.sites}); hot_path {hot.syncs} / {hot.sync_warnings} "
-              f"({len(hot.ops)} ops)")
+              f"({len(hot.ops)} ops); the tiered gather {gather.syncs} / "
+              f"{gather.sync_warnings} (sites {gather.sites})")
+        if device == "cuda":
+            check(gather.syncs == 1, f"phase10b bucket {bucket}: the tiered gather syncs "
+                  f"{gather.syncs} times, want 1 (the missed ids' read)")
     print(f"phase10b: compiles {server._plan_guard.compiles} (plan), "
-          f"{server._forward_guard.compiles} (forward)")
+          f"{server._forward_guard.compiles} (forward), "
+          f"{server.tiered.access_program.compiles} (store.clock_access), "
+          f"{server.tiered.assemble_program.compiles} (store.assemble)")
+    if train is not None:
+        from repro_torch.engine import MinibatchEngine
+        from repro_torch.train import adam_init, step_program
+
+        tds, tcfg, tc = train
+        engine = MinibatchEngine.from_config(tds.graph, tc.engine_config(tcfg.num_layers),
+                                             dataset=tds, device=device)
+        model = init_gnn(tcfg, seed=SEED, device=device)
+        prog = step_program(engine, tcfg, model, adam_init(model),
+                            torch.as_tensor(tds.labels, device=dev), tc.lr)
+        float(prog(tc.local_batch, engine.step_state(0))[0])  # warm-up + capture
+        _, step = record_call(dev, prog, tc.local_batch, engine.step_state(1))
+        print(f"phase10b train step ({tcfg.model}, {tc.mode}, captured {prog.capture}): one "
+              f"replay {step.syncs} syncs dispatched / {step.sync_warnings} sync-debug warnings "
+              f"({len(step.ops)} ops; sites {step.sites})")
+        if device == "cuda":  # the CPU's plain spmm reads its row counts
+            check(step.syncs == 0 and step.sync_warnings == 0,
+                  f"phase10b: the train step syncs {step.syncs} / {step.sync_warnings}")
     return launches
 
 
@@ -2662,6 +2771,8 @@ def phase_lm(card: str, device: str = "cuda", cfg=None, prefill_s: int = LM_PREF
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.transformer import (
+        decode_program,
+        forward_decode,
         forward_train,
         init_decode_state,
         init_lm,
@@ -2710,11 +2821,27 @@ def phase_lm(card: str, device: str = "cuda", cfg=None, prefill_s: int = LM_PREF
     leaves_a, leaves_b = lm_leaves(state_a), lm_leaves(state_b)
     check(all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b, strict=True)),
           "phase11b: prefill_decode caches != stepped caches")
+    eager_state = copy.deepcopy(state_b)
     step_ms: list = []
     gen_a, state_a = lm_greedy(serve, model, logits_a, state_a, LM_NEW, step_ms)
     gen_b, _ = lm_greedy(serve, model, logits_b, state_b, LM_NEW)
     check(np.array_equal(gen_a, gen_b), "phase11b: greedy tokens after prefill != stepped")
     decode_ms = float(np.median(step_ms))
+    # the captured step against forward_decode run eagerly from the same state
+    eager_ms: list = []
+    eager_step = lambda m, st, tok: forward_decode(m, cfg, st, tok)  # noqa: E731
+    gen_e, _ = lm_greedy(eager_step, model, logits_b, eager_state, LM_NEW, eager_ms)
+    check(np.array_equal(gen_e, gen_b), "phase11b: greedy tokens captured != eager")
+    prog = decode_program(model, cfg)
+    key = (B, max_len)
+    check(dev.type != "cuda" or (prog.capture and prog.compiles == {key: 1}),
+          f"phase11b: decode program compiles {prog.compiles}")
+    print(f"phase11b decode program (captured {prog.capture}): compiles {prog.compiles}, "
+          f"captures a key {prog.captures} (one a decode state); per key, its first capture: "
+          + "; ".join(f"{k}: {r['capture_ms']:.1f} ms, {r['pool_bytes']} B"
+                      for k, r in prog.report().items())
+          + f"; {LM_NEW} greedy tokens equal to forward_decode run eagerly; eager ms a step "
+          f"median {float(np.median(eager_ms)) if eager_ms else 0.0:.3f}; [{card}]", flush=True)
     print(f"phase11b prefill_decode (B {B}, prompt {S0}) bit for bit equal to {S0} "
           f"make_serve_step steps: logits, {len(leaves_a)} state tensors, {LM_NEW} greedy "
           f"tokens (row 0: {gen_a[0][:8].tolist()} ...); [{card}]", flush=True)
@@ -3197,37 +3324,39 @@ SERVE_PROFILE_GROUPS = {
 }
 
 
-def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
-    """Device busy and idle share over ``PROFILE_STEPS`` steps (steps 4 and
-    5 of a fresh engine and model, through ``train_step``, the step
-    ``train_gnn`` runs; the engine's ``plan_at`` is captured before the
-    window, so both steps replay it) under torch.profiler, the kernels that take the
-    device time, the device ms per step of ``PROFILE_GROUPS``, beside the
-    card run's plan ms per step (``plan_ms``, its warm steps 1..), and the
-    host time in the sampler's variates.  A step calls ``Graph.neighbor_table``
-    once per hop per PE; each call must make one ``frontier_gather``
-    launch (the wrapper's counter) and one CUDA kernel (the profile)."""
+def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list, walls: list) -> None:
+    """Device busy and idle share over ``PROFILE_STEPS`` steps (steps 5 and
+    6 of a fresh engine and model, through ``train.step_program``, the
+    program ``train_gnn`` replays; its first call, the capture, comes
+    before the window, so both steps are replays) under torch.profiler,
+    the kernels that take the device time, the device ms per step of
+    ``PROFILE_GROUPS``, beside the eager run's plan ms per step
+    (``plan_ms``, its warm steps 1..) and the captured run's warm steps
+    (``walls``), and the host time in the sampler's variates.  A step
+    calls ``Graph.neighbor_table`` once per hop per PE; each call must
+    make one ``frontier_gather`` launch (the wrapper's counter, which a
+    replay advances by the launches its capture recorded) and one CUDA
+    kernel (the profile)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import MinibatchEngine
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.gnn import init_gnn
-    from repro_torch.train import adam_init, train_step
+    from repro_torch.train import adam_init, step_program
 
     engine = MinibatchEngine.from_config(tds.graph, tc.engine_config(gnn_cfg.num_layers),
                                          dataset=tds, device="cuda")
     model = init_gnn(gnn_cfg, seed=tc.seed, device="cuda")
     labels = torch.as_tensor(tds.labels).cuda()
-    opt = adam_init(list(model.parameters()))
-    engine.plan_at(tc.num_steps)  # the plan program's first call and capture
+    prog = step_program(engine, gnn_cfg, model, adam_init(model), labels, tc.lr)
+    float(prog(tc.local_batch, engine.step_state(tc.num_steps))[0])  # warm-up + capture
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for step in range(tc.num_steps, tc.num_steps + PROFILE_STEPS):
-            loss, opt, _ = train_step(engine, gnn_cfg, model, opt, labels, step, tc.lr)
-            float(loss.detach())
+        for step in range(tc.num_steps + 1, tc.num_steps + 1 + PROFILE_STEPS):
+            float(prog(tc.local_batch, engine.step_state(step))[0])
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     stats = cuda_kernel_us(prof)
@@ -3243,10 +3372,11 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
     busy_ms = sum(d for d, _, _ in stats) / 1e3
     rng_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
                  if ev.key.startswith("rng.") and ev.device_type == DeviceType.CPU) / 1e3
-    print(f"{tag} profile (profiler on), {PROFILE_STEPS} steps: wall {wall_ms:.1f} ms, "
-          f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; host ms "
-          f"per step in the sampler's variates (rng.vertex_uniform or rng.edge_uniform) "
-          f"{rng_ms / PROFILE_STEPS:.3f}")
+    print(f"{tag} profile (profiler on), {PROFILE_STEPS} captured steps: wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.2f} ms ({busy_ms / PROFILE_STEPS:.3f} a step, "
+          f"{sum(c for _, c, _ in stats) / PROFILE_STEPS:.0f} kernels), idle share "
+          f"{1 - busy_ms / wall_ms:.4f}; host ms per step in the sampler's variates "
+          f"(rng.vertex_uniform or rng.edge_uniform) {rng_ms / PROFILE_STEPS:.3f}")
     for dev_us, count, key in stats[:12]:
         print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
     groups = []
@@ -3254,10 +3384,11 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list) -> None:
         hit = [(us, c) for us, c, key in stats if any(p in key for p in parts)]
         groups.append(f"{name} {sum(us for us, _ in hit) / 1e3 / PROFILE_STEPS:.4f} "
                       f"({sum(c for _, c in hit) / PROFILE_STEPS:.0f} kernels)")
-    warm = plan_ms[1:] or plan_ms
+    warm, whole = plan_ms[1:] or plan_ms, walls[1:] or walls
     print(f"{tag} profile device ms per step: " + ", ".join(groups)
-          + f"; plan ms per step (card run, warm steps) mean {sum(warm) / len(warm):.3f} "
-          + "[" + ", ".join(f"{v:.3f}" for v in warm) + "]")
+          + f"; plan ms per step (eager card run, warm steps) mean {sum(warm) / len(warm):.3f} "
+          + "[" + ", ".join(f"{v:.3f}" for v in warm) + "]; captured step ms (warm steps) "
+          + f"mean {sum(whole) / len(whole):.3f}")
 
 
 # --------------------------------------------------------------------------
@@ -3694,7 +3825,8 @@ def main(argv: list) -> int:
         launches["train_shard"] = phase_shard(tds, train_cfg, tc, p3)
         t0 = time.perf_counter()
         launches["examples"] = phase_examples()
-        launches["analysis"] = phase_analysis(ds, serve_cfg, gnn_cfg)
+        launches["analysis"] = phase_analysis(ds, serve_cfg, gnn_cfg,
+                                              train=(tds, train_cfg, tc))
         print(f"phase10: {time.perf_counter() - t0:.1f} s")
         launches["lm"] = phase_lm(info["card"])
         p12 = phase_lm_train(info["card"])

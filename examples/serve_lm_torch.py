@@ -7,8 +7,11 @@ The port's twin of ``serve_lm.py``, at its configuration: the REDUCED
 variant of an assigned architecture prefills the whole prompt batch with
 ``prefill_decode`` (it steps the per-token decode step, so the caches
 come out bit-identical to stepping ``serve_step`` over the prompt) and
-then greedy-decodes new tokens with the KV/SSM cache ``serve_step``.
-Runs on the CUDA card unless ``--device cpu``.
+then greedy-decodes new tokens with the KV/SSM cache ``serve_step``.  As
+the reference jits both, both run the decode program: on the card one
+captured CUDA graph, replayed for every prompt position and every new
+token (the state updated in place); the tokens stay on the device until
+the end.  Runs on the CUDA card unless ``--device cpu`` (eager there).
 """
 import argparse
 import time
@@ -46,13 +49,11 @@ def serve_lm(arch: str = "gemma2-2b", batch: int = 4, prompt_len: int = 16,
     out = []
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     for _ in range(new_tokens):
-        out.append(tok[:, 0].cpu().numpy())
+        out.append(tok)
         logits, state = serve(model, state, tok)
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    gen = torch.cat(out, 1).cpu().numpy()  # the one read of the tokens
     dt = time.perf_counter() - t0
-    gen = np.stack(out, 1)
     total = B * (S0 + new_tokens)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
     print(f"arch={cfg.name}  batch={B}  decoded {gen.shape[1]} tokens/seq")

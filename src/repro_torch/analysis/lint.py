@@ -106,11 +106,14 @@ HOT_SCOPES = {
         "GATLayer.forward", "GNN.forward", "gnn_apply", "gnn_apply_stacked",
         "gnn_apply_cooperative",
     ),
-    "train/loop.py": ("plan_loss", "step_loss", "train_step"),
+    "train/loop.py": ("plan_loss", "step_loss", "train_step", "step_program"),
     "train/metrics.py": ("masked_softmax_xent",),
     "train/optim.py": ("adam_update",),
-    "store/clock.py": ("hash_set", "unique_rows", "_insert_one", "clock_access"),
-    "store/tiers.py": ("_assemble", "TieredFeatureStore.gather"),
+    "store/clock.py": ("hash_set", "unique_rows", "_insert", "clock_access"),
+    # the two programs' bodies; the host fill between them (the missed
+    # ids' read) is the gather's one sync, counted by the trace pass
+    "store/tiers.py": ("_assemble", "TieredFeatureStore._access",
+                       "TieredFeatureStore._fill_assemble"),
     "serve/coalesce.py": ("Coalescer.build_plan",),
     "serve/server.py": ("GNNServer.hot_path",),
 }

@@ -14,10 +14,22 @@ whose inputs are static buffers.  Every later call copies its inputs into
 those buffers, replays the graph and returns clones of the graph's
 outputs, so two results never share memory (as JAX's results do not).
 A capture that fails raises :class:`CaptureError`; nothing falls back to
-eager.  The Python collector is run before and paused during a capture:
-a dead graph of another program, destroyed mid-capture, would break it.  The kernels a graph launches are recorded at capture (the
-wrappers' counts are restored, since capture launches nothing) and added
-to :data:`repro_torch.kernels.LAUNCHES` on every replay.
+eager.
+
+Arguments named in ``state_args`` are the program's state: their tensors
+are read and written in place by the graph (a decode step's caches, a
+cache's tags and rows), so they are neither cloned nor copied.  A
+program is recorded for each key and set of state addresses: a call with
+another state of the same shapes records one more program (its first
+call again the eager warm-up), and a call whose state sits at the
+addresses of an earlier one replays that one, which then reads and
+writes the caller's tensors.
+
+The Python collector is run before and paused during a capture: a dead
+graph of another program, destroyed mid-capture, would break it.  The
+kernels a graph launches are recorded at capture (the wrappers' counts
+are restored, since capture launches nothing) and added to
+:data:`repro_torch.kernels.LAUNCHES` on every replay.
 
 Eager is chosen by the caller's configuration only: the CPU, the
 reference plan backend (its ``torch.unique`` dedup has a data-dependent
@@ -50,12 +62,17 @@ class CaptureError(RuntimeError):
 
 def tree_map(fn: Callable, x):
     """``fn`` on every tensor leaf of ``x`` (tensors, dataclasses such as
-    plans, tuples, lists and ``None``); other leaves stay as they are."""
+    plans, named tuples, tuples, lists, dicts and ``None``); other leaves
+    stay as they are."""
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if isinstance(x, dict):
+        return type(x)((k, tree_map(fn, v)) for k, v in x.items())
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return type(x)(**{f.name: tree_map(fn, getattr(x, f.name))
                           for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):  # a named tuple
+        return type(x)(*(tree_map(fn, v) for v in x))
     if isinstance(x, (tuple, list)):
         return type(x)(tree_map(fn, v) for v in x)
     return x
@@ -88,7 +105,7 @@ class _Program:
 
     def replay(self, args: tuple):
         for dst, src in zip(self.inputs, tensor_leaves(args)):
-            if dst.data_ptr() != src.data_ptr():
+            if dst is not None and dst.data_ptr() != src.data_ptr():
                 dst.copy_(src, non_blocking=True)
         self.graph.replay()
         for name, n in self.launches.items():
@@ -102,15 +119,19 @@ class CompiledFunction:
     ``capture`` records a CUDA graph per key (the arguments must then be
     CUDA tensors); ``pool`` is a ``torch.cuda.graph_pool_handle()`` to
     share with other programs that never replay at once (default: one
-    pool of this function's own).
+    pool of this function's own).  ``state_args`` are the positions of
+    the arguments passed by reference (see the module docstring).
+    ``captures[key]`` counts the graphs recorded for a key.
     """
 
     def __init__(self, name: str, fn: Optional[Callable] = None, capture: bool = False,
-                 pool=None):
+                 pool=None, state_args: tuple = ()):
         self.name = name
         self.fn = fn
         self.capture = capture
+        self.state_args = tuple(state_args)
         self.compiles: dict = {}
+        self.captures: dict = {}
         self._signatures: dict = {}
         self._programs: dict = {}
         self._pool = pool
@@ -142,16 +163,20 @@ class CompiledFunction:
         self.check(key, *args)
         if not self.capture:
             return self.fn(*args)
-        prog = self._programs.get(key)
+        state = tuple(t.data_ptr() for i in self.state_args for t in tensor_leaves(args[i]))
+        progs = self._programs.setdefault(key, {})
+        prog = progs.get(state)
         if prog is None:
-            out, self._programs[key] = self._compile(key, args)
+            out, progs[state] = self._compile(key, args)
+            self.captures[key] = self.captures.get(key, 0) + 1
             return out
         return prog.replay(args)
 
     def program(self, key) -> Optional[_Program]:
-        """The captured program of ``key`` (None before its first call or
-        when running eagerly)."""
-        return self._programs.get(key)
+        """The captured program of ``key`` last recorded (None before its
+        first call or when running eagerly)."""
+        progs = self._programs.get(key)
+        return next(reversed(progs.values())) if progs else None
 
     def _compile(self, key, args: tuple):
         """Warm-up call on a side stream (the call's result), then capture."""
@@ -160,11 +185,14 @@ class CompiledFunction:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
         cur, side = torch.cuda.current_stream(), self._stream
-        inputs = [t.clone() for t in tensor_leaves(args)]
+        # state arguments keep their tensors (None: nothing to copy in)
+        inputs = [None if i in self.state_args else t.clone()
+                  for i, a in enumerate(args) for t in tensor_leaves(a)]
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             out = self.fn(*args)
-        static_args = _rebuild(args, inputs)
+        static_args = _rebuild(args, [t if t is not None else s for t, s in
+                                      zip(inputs, tensor_leaves(args))])
         before = dict(LAUNCHES)
         # dead graphs of other programs (in reference cycles) must go now:
         # a graph destroyed by the collector during the capture breaks it
@@ -197,10 +225,13 @@ class CompiledFunction:
         return out, prog
 
     def report(self) -> dict:
-        """Per captured key: capture ms, pool bytes grown by the capture and
-        the kernel launches a replay adds."""
+        """Per captured key, of its first program (the one that grew the
+        pool; a later state's reuses it): capture ms, pool bytes grown by
+        the capture and the kernel launches a replay adds; and the key's
+        count of programs (one per state)."""
         return {k: {"capture_ms": p.capture_ms, "pool_bytes": p.pool_bytes,
-                    "launches": dict(p.launches)} for k, p in self._programs.items()}
+                    "launches": dict(p.launches), "programs": len(progs)}
+                for k, progs in self._programs.items() for p in [next(iter(progs.values()))]}
 
 
 def _rebuild(args: tuple, leaves: list):

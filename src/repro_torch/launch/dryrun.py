@@ -118,10 +118,6 @@ from repro_torch.models.transformer.config import active_param_count
 from repro_torch.train.optim import AdamState
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
-#: bytes of the reference's Adam step counter, an int32 scalar argument of
-#: its train step (a host int in the port's ``AdamState``)
-ADAM_STEP_BYTES = 4
-
 
 def _mesh_tag(multi_pod: bool, mesh_shape: Optional[tuple] = None) -> str:
     if mesh_shape is not None:
@@ -179,6 +175,10 @@ def _shard_tree(tree, placements, mesh, device):
     return tree
 
 
+#: how many groups of the peak's live tensors a record lists (``--peak-split``)
+SPLIT_PEAK = [0]
+
+
 def run_traced(args: tuple, fn, finish=None):
     """Run ``fn(*args)`` under a fresh :class:`CostCounter` with DTensor's
     implicit replication on (plain tensors meet DTensors as replicated
@@ -187,7 +187,7 @@ def run_traced(args: tuple, fn, finish=None):
     Returns ``(counter, outputs, seconds)``."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    cc = CostCounter()
+    cc = CostCounter(split_peak=SPLIT_PEAK[0] > 0)
     t0 = time.perf_counter()
     with cc, _shadow_ops_uncounted(cc), _cluster_all_to_all(), implicit_replication():
         cc.add_arguments(*args)
@@ -294,13 +294,17 @@ def _memory(cc) -> dict:
     temp + arguments + outputs - alias)."""
     out, alias = cc.outputs
     peak = cc.costs.peak_bytes
-    return {
+    mem = {
         "argument_bytes": cc.costs.argument_bytes,
         "output_bytes": out,
         "temp_bytes": peak - cc.costs.argument_bytes - out + alias,
         "alias_bytes": alias,
         "peak_per_device_gb": peak / 2**30,
     }
+    if cc.split_peak:
+        mem["peak_split"] = [dict(zip(("bytes", "count", "op", "shape", "dtype"), row))
+                             for row in cc.peak_split(SPLIT_PEAK[0])]
+    return mem
 
 
 def _print(result: dict, roof) -> None:
@@ -313,6 +317,9 @@ def _print(result: dict, roof) -> None:
         f"coll={roof.collective_s*1e3:.2f}ms) useful={roof.useful_ratio:.2f}",
         flush=True,
     )
+    for g in result["memory"].get("peak_split", []):
+        print(f"  live at the peak: {g['bytes'] / 2**30:8.3f} GiB in {g['count']:4d} x "
+              f"{g['shape']} {g['dtype']} from {g['op']}", flush=True)
 
 
 def _trace_step(cfg, spec: ShapeSpec, mesh, moe_fsdp: bool, dev) -> tuple:
@@ -343,14 +350,13 @@ def _trace_in_fake_mode(cfg, spec: ShapeSpec, mesh, model, p_sh: dict, dev) -> t
                             torch.float32 if p.dtype.is_floating_point else p.dtype,
                             o_sh[n], dev) for n, p in zip(names, model.parameters())]
 
-        opt = AdamState(step=0, mu=moment(), nu=moment())
+        opt = AdamState(step=sharded(mesh, (), torch.int32, rep, dev), mu=moment(),
+                        nu=moment())
         batch = data(batch_specs(cfg, spec))
         step = make_train_step(cfg)
         cc, _, secs = run_traced(
             (model, opt, batch), step,
             finish=lambda out: (out[0], out[1], out[2]["loss"].redistribute(mesh, rep)))
-        cc.costs.argument_bytes += ADAM_STEP_BYTES
-        cc.outputs = (cc.outputs[0] + ADAM_STEP_BYTES, cc.outputs[1] + ADAM_STEP_BYTES)
     elif spec.kind == "prefill":
         batch = data(batch_specs(cfg, spec))
         step = _serving_step(cfg, "prefill")
@@ -422,7 +428,11 @@ def main(argv: Optional[list] = None, out_dir: Optional[Path] = None) -> None:
     ap.add_argument("--tag", default="", help="suffix for the result json")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="device of the fake tensors (no card is used either way)")
+    ap.add_argument("--peak-split", type=int, default=0, metavar="N",
+                    help="print and record the N largest groups of tensors live at the "
+                         "peak (by the op that made them, shape and dtype)")
     args = ap.parse_args(argv)
+    SPLIT_PEAK[0] = args.peak_split
     overrides = dict(_parse_override(kv) for kv in args.overrides)
 
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.multi_pod]

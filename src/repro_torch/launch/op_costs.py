@@ -32,6 +32,8 @@ bounds):
   counting the arguments (:meth:`CostCounter.add_arguments`).  A storage is
   live from the op that makes it until its last reference dies.  The
   reference's counterpart is XLA's temp + arguments + outputs - aliases.
+  With ``split_peak``, :meth:`CostCounter.peak_split` names the storages
+  live at the peak by the op that made them and their shape.
 
 No trip-count weighting: the reference's ``_build_multipliers`` re-weights
 scan bodies by their trip counts because XLA's cost analysis counts a
@@ -176,8 +178,11 @@ class CostCounter(TorchDispatchMode):
         cc.costs
     """
 
-    def __init__(self):
+    def __init__(self, split_peak: bool = False):
         super().__init__()
+        self.split_peak = split_peak
+        self._origin: dict = {}    # storage key -> (op, shape, dtype), with split_peak
+        self._at_peak: list = []   # (bytes, origin) of the storages live at the peak
         global _COLLECTIVES
         if _COLLECTIVES is None:
             _COLLECTIVES = _collective_table()
@@ -189,7 +194,7 @@ class CostCounter(TorchDispatchMode):
         self._arguments: set = set()  # the arguments' storage keys
 
     # -- memory ------------------------------------------------------------
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, origin: str = "argument") -> None:
         try:
             st = t.untyped_storage()
         except (NotImplementedError, RuntimeError):  # a subclass without storage
@@ -200,9 +205,25 @@ class CostCounter(TorchDispatchMode):
         nb = st.nbytes()
         self._live[ref.cdata] = (ref, nb)
         self._live_bytes += nb
+        if self.split_peak:
+            self._origin[ref.cdata] = (origin, tuple(t.shape), str(t.dtype))
         if self._live_bytes > self.costs.peak_bytes:
             self._sweep()
+            if self._live_bytes > self.costs.peak_bytes and self.split_peak:
+                self._at_peak = [(b, self._origin.get(k)) for k, (_, b) in self._live.items()]
             self.costs.peak_bytes = max(self.costs.peak_bytes, self._live_bytes)
+
+    def peak_split(self, top: int = 20) -> list:
+        """With ``split_peak``: the storages live at the peak grouped by the
+        op that made them (``"argument"`` for the step's arguments), shape
+        and dtype, as ``(bytes, count, op, shape, dtype)``, largest first."""
+        groups: dict = {}
+        for nb, origin in self._at_peak:
+            g = groups.setdefault(origin or ("?", (), ""), [0, 0])
+            g[0] += nb
+            g[1] += 1
+        rows = sorted(((b, n, *o) for o, (b, n) in groups.items()), reverse=True)
+        return rows[:top]
 
     def _sweep(self) -> None:
         dead = [k for k, (ref, _) in self._live.items() if ref.expired()]
@@ -270,7 +291,7 @@ class CostCounter(TorchDispatchMode):
             d["bytes"] += nb
             d["count"] += 1
         for t in _tensors(out):
-            self._track(t)
+            self._track(t, str(func))
         return out
 
     def record_kernel(self, name: str, tensors) -> None:

@@ -7,7 +7,10 @@
 Each is a function of (model, [opt_state | state], batch).  The train
 step runs autograd and then ``adam_update``, which updates the model
 and the moments in place; the serving steps run under
-``torch.inference_mode()``.
+``torch.inference_mode()``.  The serve step is the decode program of
+:func:`repro_torch.models.transformer.decode_step`: one captured CUDA
+graph a batch size and cache length on a card, writing the decode state
+in place (the state passed in is the state returned).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.transformer import forward_decode, forward_prefill
+from repro_torch.models.transformer import decode_step, forward_prefill
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.model import LM, _unembed, forward_hidden
 from repro_torch.models.transformer.modules import model_dim
@@ -59,12 +62,24 @@ def _ce_sum(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     model dim would make DTensor all-gather them (``logsumexp``) and
     allocate a replicated gradient (``gather``'s backward); there the sum
     runs as :class:`_VocabParallelCE` on the local shards, and comes back
-    as a DTensor partial over the batch dims."""
+    as a DTensor partial over the batch dims.  Logits split over the batch
+    dims only take the plain sum on each device's rows, partial likewise."""
     md = model_dim()
     if md is not None:
         from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
         mesh, mi = md
+        if isinstance(logits, DTensor) and all(
+                pl.dim < logits.ndim - 1 for pl in logits.placements if isinstance(pl, Shard)):
+            # rows split over the batch dims, the vocabulary whole: each
+            # device sums its own rows, so the logits' gradient keeps their
+            # layout (``gather``'s backward on the DTensor would allocate it
+            # replicated, the global batch's logits on every device)
+            y = y.redistribute(mesh, logits.placements)
+            local = _ce_sum(logits.to_local(), y.to_local())
+            return DTensor.from_local(
+                local, mesh, [Partial() if isinstance(pl, Shard) else pl
+                              for pl in logits.placements], run_check=False)
         if isinstance(logits, DTensor) and logits.placements[mi] == Shard(logits.ndim - 1):
             batch = [Replicate() if i == mi else pl for i, pl in enumerate(logits.placements)]
             y = y.redistribute(mesh, [Shard(0) if isinstance(pl, Shard) else pl
@@ -160,7 +175,6 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 def make_serve_step(cfg: ArchConfig) -> Callable:
     def serve_step(model, state, token):
-        logits, state = forward_decode(model, cfg, state, token)
-        return logits, state
+        return decode_step(model, cfg, state, token)
 
     return serve_step

@@ -2,7 +2,9 @@
 from repro_torch.models.transformer.config import ArchConfig, active_param_count, param_count
 from repro_torch.models.transformer.model import (
     LM,
+    decode_program,
     decode_state_from_jax,
+    decode_step,
     forward_decode,
     forward_hidden,
     forward_prefill,
@@ -18,7 +20,9 @@ __all__ = [
     "ArchConfig",
     "LM",
     "active_param_count",
+    "decode_program",
     "decode_state_from_jax",
+    "decode_step",
     "forward_decode",
     "forward_hidden",
     "forward_prefill",

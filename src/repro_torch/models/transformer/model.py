@@ -23,9 +23,20 @@ reference's units (``torch.utils.checkpoint``, the port's
 :func:`forward_decode`, :func:`prefill_decode`) runs under
 ``torch.inference_mode()``, which keeps no activations, so ``cfg.remat``
 has no effect there.
+
+As the JAX package jits its serve step, :func:`decode_step` runs
+:func:`forward_decode` as one program a model, batch size and cache
+length (:func:`decode_program`, a
+:class:`repro_torch.engine.compiled.CompiledFunction`): on a card one
+captured CUDA graph that reads and writes the decode state in place (its
+caches and device ``pos``), so consecutive steps on one state replay it
+with no host work but the launch.  :func:`prefill_decode` replays the
+same program once a prompt position, so prefill equals stepping bit for
+bit by construction.  The CPU runs the same body eagerly.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -509,16 +520,55 @@ def forward_decode(model: LM, cfg: ArchConfig, state: dict, token) -> tuple[torc
 
 
 # --------------------------------------------------------------------------
-# prefill: fill the decode caches over a whole prompt
+# the decode step as one program; prefill: the program over a whole prompt
 # --------------------------------------------------------------------------
-@torch.inference_mode()
+_DECODE_PROGRAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def decode_program(model: LM, cfg: ArchConfig):
+    """:func:`forward_decode` of ``model`` as a program keyed by ``(batch,
+    cache length)``, the decode state passed by reference: a call writes
+    the new state into the state's own tensors and returns the logits.  A
+    captured CUDA graph a key and state on a card (the first call of each
+    the eager warm-up); eager on the CPU.  One per model and config, kept
+    while the model lives."""
+    # the engine's package imports this one
+    from repro_torch.engine.compiled import CompiledFunction, tensor_leaves
+
+    programs = _DECODE_PROGRAMS.setdefault(model, {})
+    if cfg not in programs:
+        ref = weakref.ref(model)  # the cache must not keep the model alive
+
+        @torch.inference_mode()
+        def body(state: dict, token: torch.Tensor) -> torch.Tensor:
+            logits, new = forward_decode(ref(), cfg, state, token)
+            for dst, src in zip(tensor_leaves(state), tensor_leaves(new), strict=True):
+                if dst is not src:
+                    dst.copy_(src)
+            return logits
+
+        programs[cfg] = CompiledFunction("serve_step", body, state_args=(0,),
+                                         capture=model.embed.device.type == "cuda")
+    return programs[cfg]
+
+
+def decode_step(model: LM, cfg: ArchConfig, state: dict, token) -> tuple[torch.Tensor, dict]:
+    """:func:`forward_decode` through :func:`decode_program`: ``(logits (B,
+    V), state)``, the state updated in place (the same dict and tensors)."""
+    token = torch.as_tensor(token, device=model.embed.device).to(torch.int32)
+    kv = [lay["kv"]["k"].shape[1] for lay in state["layers"] if "kv" in lay]
+    key = (token.shape[0], max(kv, default=0))
+    return decode_program(model, cfg)(key, state, token), state
+
+
 def prefill_decode(model: LM, cfg: ArchConfig, state: dict, tokens) -> tuple[torch.Tensor, dict]:
-    """Prompt prefill (tokens (B, S0)) against the decode caches: steps
-    :func:`forward_decode` over the prompt positions, so the caches, state
-    and logits are bit-identical to stepping the serve step token by token.
-    Returns the last prompt position's logits ``(B, V)`` and the state."""
+    """Prompt prefill (tokens (B, S0)) against the decode caches: one
+    :func:`decode_step` a prompt position (on a card a replay of the serve
+    step's graph), so the caches, state and logits are bit-identical to
+    stepping the serve step token by token.  Returns the last prompt
+    position's logits ``(B, V)`` and the state (updated in place)."""
     tokens = torch.as_tensor(tokens, device=model.embed.device)
     logits = None
     for t in range(tokens.shape[1]):
-        logits, state = forward_decode(model, cfg, state, tokens[:, t:t + 1])
+        logits, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
     return logits, state

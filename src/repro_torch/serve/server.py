@@ -28,9 +28,11 @@ As the JAX package jits ``serve.plan`` and ``serve.forward`` per bucket
 (``BucketedJit``), each bucket here has one program of each
 (:class:`repro_torch.serve.coalesce.BucketGuard`): on a card with
 ``plan_backend="fused"`` a captured CUDA graph, replayed for every batch
-of the bucket (the forward under ``no_grad``); the tiered store's gather
-runs eagerly between the two, as the reference's loop splits it.  The
-CPU and the reference backend run the same functions eagerly.  A bucket
+of the bucket (the forward under ``no_grad``).  The tiered store's gather
+runs between the two, as the reference's loop splits it, through its own
+two programs keyed by the bucket (``clock_access`` and ``_assemble``,
+captured on a card) and the host fill between them.  The CPU and the
+reference backend run the same functions eagerly.  A bucket
 fed a second shape signature raises ``RetraceError``, and
 ``ServeReport.compiles`` counts the signatures per bucket under the JAX
 package's keys, ``"serve.plan"`` and ``"serve.forward"``.
@@ -253,8 +255,9 @@ class GNNServer:
         return self._plan_guard(seeds.shape[0], seeds.to(torch.int32))
 
     def _gather(self, plan) -> torch.Tensor:
-        store = self.tiered if self.tiered is not None else self.store
-        return store.gather(plan.input_ids)
+        if self.tiered is not None:
+            return self.tiered.gather(plan.input_ids, key=plan.seed_ids.shape[0])
+        return self.store.gather(plan.input_ids)
 
     def _forward(self, plan, H: torch.Tensor) -> torch.Tensor:
         return self._forward_guard(plan.seed_ids.shape[0], plan.layers, H)
@@ -382,11 +385,12 @@ class GNNServer:
         }
         self._plan_guard.assert_compiled_once_per_bucket()
         self._forward_guard.assert_compiled_once_per_bucket()
+        if self.tiered is not None:
+            self.tiered.access_program.assert_compiled_once_per_bucket()
+            self.tiered.assemble_program.assert_compiled_once_per_bucket()
 
     def reset(self) -> None:
-        """Fresh cache + counters (keeps the per-bucket signatures)."""
+        """Fresh cache + counters (keeps the per-bucket signatures and
+        programs: the cache is emptied in place)."""
         if self.tiered is not None:
-            self.tiered = TieredFeatureStore(
-                self.tiered.host, capacity=self.tiered.capacity,
-                ways=self.tiered.ways, device=self.device,
-            )
+            self.tiered.clear()

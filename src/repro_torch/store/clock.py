@@ -4,17 +4,20 @@ Layout: ``capacity = num_sets * ways`` slots per PE.  A vertex id hashes
 to one set (Knuth multiplicative hash); within the set, ways are managed
 by a clock hand over reference bits.  A batch access:
 
-1. dedups the batch (:func:`unique_rows`),
+1. dedups the batch (:func:`unique_rows`, static width),
 2. probes all ids against the tag array in one launch
    (:func:`repro_torch.store.kernel.tag_probe` -- the CUDA kernel),
 3. sets the reference bit of every hit,
 4. inserts misses round by round (at most one insert per set per round,
-   at most ``ways`` rounds), each round running CLOCK victim selection
-   vectorized across the sets it inserts into.
+   ``ways`` rounds, all of them run), each round running CLOCK victim
+   selection vectorized across all sets under masks.
 
-State tensors carry a leading ``(P, ...)`` PE axis.  Unlike the JAX
-package, an access returns new tensors for the changed leaves and
-leaves the old state untouched, so callers may keep both.
+As in the JAX package, no shape depends on the data and nothing is read
+on the host, so an access can be recorded into a CUDA graph (the tiered
+store's program, :mod:`repro_torch.store.tiers`).  State tensors carry a
+leading ``(P, ...)`` PE axis.  An access returns new tensors for the
+changed leaves and leaves the old state untouched, so callers may keep
+both.
 
 :class:`ClockCache` replays id batches through the policy alone (no
 feature rows), so its hit rate can be held against the exact LRU oracle
@@ -82,75 +85,79 @@ def hash_set(ids: torch.Tensor, num_sets: int) -> torch.Tensor:
 
 
 def unique_rows(ids: torch.Tensor) -> torch.Tensor:
-    """Row-wise sorted unique with fixed width (INVALID pads sort last)."""
+    """Row-wise sorted unique with static width (INVALID pads sort last):
+    ``jnp.unique(row, size=n, fill_value=INVALID)`` per row, through the
+    plan path's sort and ``unique_compact`` (the CUDA kernel on a card),
+    so the shape never depends on the data."""
+    from repro_torch.kernels import unique_compact
+
     n = ids.shape[-1]
-    out = torch.full_like(ids, INVALID)
-    for p in range(ids.shape[0]):
-        u = torch.unique(ids[p], sorted=True)
-        out[p, : u.shape[0]] = u
-    return out
+    return torch.stack([unique_compact(row.contiguous(), n) for row in ids])
 
 
-def _insert_one(tags, ref, hand, ids, sets, hit, way):
-    """Insert this batch's misses into one PE's cache (CLOCK eviction).
+def _insert(tags, ref, hand, ids, sets, hit, way):
+    """Insert this batch's misses into every PE's cache (CLOCK eviction).
 
-    ``ids`` is one deduplicated row; at most one insert lands per set per
-    round, so ``ways`` rounds admit every miss that can fit.  Overflowing
-    conflicts (more misses than ways hashing to one set) are dropped --
-    they stay misses and their rows are served straight from the fetch.
+    ``ids`` holds one deduplicated row per PE; at most one insert lands
+    per set per round, so ``ways`` rounds admit every miss that can fit.
+    Overflowing conflicts (more misses than ways hashing to one set) are
+    dropped -- they stay misses and their rows are served straight from
+    the fetch.  Every round runs over all sets with masks, as the JAX
+    package's static loop does, so no shape depends on the data.
     """
-    S, W = tags.shape
-    n = ids.shape[0]
+    P, S, W = tags.shape
+    n = ids.shape[1]
     dev = ids.device
     valid = ids != INVALID
     miss = valid & ~hit
 
-    ref = ref.clone()
-    ref[sets[hit].long(), way[hit].long()] = True  # second chance for every hit
+    # second chance for every hit; the rest write a spare entry
+    flat = torch.arange(P, device=dev)[:, None] * (S * W) + sets.long() * W + way.clamp(min=0)
+    ref = torch.cat([ref.reshape(-1), ref.new_zeros(1)])
+    ref = ref.scatter_(0, torch.where(hit, flat, P * S * W).reshape(-1), True)  # a scalar fill,
+    ref = ref[:-1].reshape(P, S, W)  # not an upload (illegal in a capture)
 
     # rank of each miss within its set: sort by set, then position since
     # the start of the equal-set run
     key = torch.where(miss, sets, S)
-    skey, order = torch.sort(key, stable=True)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    newseg = torch.ones(n, dtype=torch.bool, device=dev)
-    newseg[1:] = skey[1:] != skey[:-1]
-    seg_start = torch.cummax(torch.where(newseg, idx, 0), dim=0).values
-    rank = torch.empty(n, dtype=torch.int32, device=dev)
-    rank[order] = idx - seg_start
+    skey, order = torch.sort(key, dim=1, stable=True)
+    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(P, n)
+    newseg = torch.ones((P, n), dtype=torch.bool, device=dev)
+    newseg[:, 1:] = skey[:, 1:] != skey[:, :-1]
+    seg_start = torch.cummax(torch.where(newseg, idx, 0), dim=1).values
+    rank = torch.empty((P, n), dtype=torch.int32, device=dev).scatter_(1, order, idx - seg_start)
 
-    fill_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    fill_slot = torch.full((P, n), -1, dtype=torch.int32, device=dev)
     wpos = torch.arange(W, dtype=torch.int32, device=dev)
-    tags, hand = tags.clone(), hand.clone()
     for r in range(W):
         sel = miss & (rank == r)
-        if not bool(sel.any()):  # ranks run 0, 1, ...: no later round inserts
-            break
-        # the sets this round inserts into, one miss each (ranks are unique
-        # within a set); every other set is left as it is
-        rows = sets[sel].long()
-        h = hand[rows]
-        # CLOCK sweep, vectorized over those sets: walk ways from the hand,
+        # the id this round inserts into each set (at most one: ranks are
+        # unique within a set), INVALID where none; the rest write a spare
+        tgt = torch.where(sel, sets, S).long()
+        ins = torch.full((P, S + 1), INVALID, dtype=torch.int32, device=dev)
+        ins = ins.scatter_(1, tgt, ids)[:, :S]
+        do = ins != INVALID                                       # (P, S)
+        # CLOCK sweep, vectorized over sets: walk ways from the hand,
         # victim = first clear ref bit; if all set, clear the full circle
         # and take the hand position (classic second chance).
-        ordered = (h[:, None] + wpos[None, :]) % W             # (k, W)
-        ref_ord = torch.gather(ref[rows], 1, ordered.long())
-        k = torch.argmin(ref_ord.to(torch.uint8), dim=1)
-        swept = (wpos[None, :] < k[:, None]) | ref_ord.all(1)[:, None]
+        ordered = (hand[..., None] + wpos) % W                    # (P, S, W)
+        ref_ord = torch.gather(ref, 2, ordered.long())
+        k = torch.argmin(ref_ord.to(torch.uint8), dim=2)
+        swept = (wpos < k[..., None]) | ref_ord.all(2)[..., None]
         ref_ord = ref_ord & ~swept
-        inv = (wpos[None, :] - h[:, None]) % W
-        ref_nat = torch.gather(ref_ord, 1, inv.long())
-        victim = torch.gather(ordered, 1, k[:, None])[:, 0]
-        at_victim = wpos[None, :] == victim[:, None]
-        tags[rows] = torch.where(at_victim, ids[sel][:, None], tags[rows])
-        ref[rows] = at_victim | ref_nat
-        hand[rows] = (victim + 1) % W
-        fill_slot[sel] = sets[sel] * W + victim
+        inv = (wpos - hand[..., None]) % W
+        ref_nat = torch.gather(ref_ord, 2, inv.long())
+        victim = torch.gather(ordered, 2, k[..., None])[..., 0]
+        at_victim = wpos == victim[..., None]
+        tags = torch.where(do[..., None] & at_victim, ins[..., None], tags)
+        ref = torch.where(do[..., None], at_victim | ref_nat, ref)
+        hand = torch.where(do, (victim + 1) % W, hand)
+        fill_slot = torch.where(sel, sets * W + torch.gather(victim, 1, sets.long()), fill_slot)
 
     # a later round may have evicted an earlier same-batch insert (only
     # possible at W == 1): an admitted row owns its slot only if its tag
     # survived to the end of the batch
-    survived = tags.reshape(-1)[fill_slot.clamp(min=0).long()] == ids
+    survived = torch.gather(tags.reshape(P, S * W), 1, fill_slot.clamp(min=0).long()) == ids
     fill_slot = torch.where((fill_slot >= 0) & survived, fill_slot, -1)
     return tags, ref, hand, fill_slot, miss
 
@@ -161,7 +168,8 @@ def clock_access(state: ClockState, uniq: torch.Tensor) -> tuple[ClockState, Clo
     ``uniq``: (P, n) row-wise *unique* sorted ids (see :func:`unique_rows`),
     INVALID-padded.  Lookup resolves against the pre-batch tags: a row
     evicted by this batch's own inserts still counts as the hit it was
-    when the batch arrived.
+    when the batch arrived.  Every shape is fixed by ``uniq``'s and the
+    state's, and nothing is read on the host.
     """
     P, S, W = state.tags.shape
     valid = uniq != INVALID
@@ -176,12 +184,8 @@ def clock_access(state: ClockState, uniq: torch.Tensor) -> tuple[ClockState, Clo
     hit = way >= 0
     slot = torch.where(hit, sets * W + way.clamp(min=0), -1)
 
-    outs = [
-        _insert_one(state.tags[p], state.ref[p], state.hand[p], uniq[p],
-                    sets[p], hit[p], way[p])
-        for p in range(P)
-    ]
-    tags, ref, hand, fill_slot, miss = (torch.stack(x) for x in zip(*outs))
+    tags, ref, hand, fill_slot, miss = _insert(state.tags, state.ref, state.hand, uniq, sets,
+                                               hit, way)
     new = ClockState(
         tags=tags, ref=ref, hand=hand,
         hits=state.hits + hit.sum(1, dtype=torch.int32),

@@ -12,6 +12,17 @@ served from a device-resident CLOCK cache (:mod:`repro_torch.store.clock`):
       4. assemble the output from cache hits + fresh fetches and admit
          the fetched rows into their slots (device).
 
+As the JAX package jits ``clock_access`` and ``_assemble``, steps 1-2 and
+step 4 are two :class:`repro_torch.engine.compiled.CompiledFunction`
+programs of fixed shape, keyed by the caller's key (a serving bucket, a
+stream's ``(P, n)``): on a card captured CUDA graphs that update the
+CLOCK state and the cache rows in place.  Step 3 stays on the host
+between them, as in the reference: one read of the missed ids (the one
+sync of a gather), the host gather into pinned memory and one upload of
+those rows.  The second program expands them into the reference's dense
+``fetched`` block, aligned with the unique ids (zeros at hits and
+padding).
+
 Hit rows are read out of the cache data array *before* the new rows are
 written, so a slot recycled within the same batch still serves the value
 it held at lookup time -- output is bit-exact with the uncached
@@ -29,39 +40,35 @@ from torch.profiler import record_function
 
 from repro_torch.core.graph import INVALID
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.gather import gather
 from repro_torch.store.clock import ClockAccess, ClockState, clock_access, clock_init, unique_rows
 
 
 def _assemble(
-    data: torch.Tensor, acc: ClockAccess, rows: torch.Tensor, ids: torch.Tensor
+    rows: torch.Tensor, acc: ClockAccess, fetched: torch.Tensor, ids: torch.Tensor
 ) -> torch.Tensor:
     """Combine cache hits + host fetches into the output; admit fetches.
 
-    ``data``: (P, slots, d) cache rows, updated in place.  ``rows``: (k, d)
-    host rows of the missed unique ids, in the row-major order of the
-    missed entries of ``acc.uniq``.  Returns the gathered (P, n_ids, d)
-    output: zeros, then each valid id's row copied in (a hit's from the
-    cache, a miss's from ``rows``).
+    ``rows``: the ``(P * slots + 1, d)`` cache rows, PE-major, updated in
+    place; the last is a spare row that dropped admissions write to.
+    ``fetched``: (P, n, d) host rows aligned with ``acc.uniq`` (zeros at
+    hits and padding).  Returns the gathered (P, n_ids, d) output, as the
+    JAX package's ``_assemble`` does.
     """
     P, n = acc.uniq.shape
-    dev = data.device
-    valid = ids != INVALID
-    # every valid id's position among its PE's unique ids (duplicates too)
-    pos = torch.searchsorted(acc.uniq, ids).clamp(max=n - 1)
-    missed = (acc.uniq != INVALID) & ~acc.hit
-    row_of = torch.full((P, n), -1, dtype=torch.int64, device=dev)
-    row_of[missed] = torch.arange(rows.shape[0], device=dev)
-    out = torch.zeros((P, ids.shape[1], data.shape[2]), dtype=data.dtype, device=dev)
+    slots = (rows.shape[0] - 1) // P
+    dev = rows.device
+    pe = torch.arange(P, device=dev)[:, None]
     # read hit rows BEFORE admitting this batch's fetches: a slot being
     # recycled in this batch must serve its lookup-time value
-    hit = valid & torch.gather(acc.hit, 1, pos)
-    p, j = hit.nonzero(as_tuple=True)
-    out[p, j] = data[p, torch.gather(acc.slot, 1, pos)[p, j].long()]
-    p, j = (valid & ~hit).nonzero(as_tuple=True)
-    out[p, j] = rows[row_of[p, pos[p, j]]]
-    p, j = (acc.fill_slot >= 0).nonzero(as_tuple=True)  # dropped rows are not admitted
-    data[p, acc.fill_slot[p, j].long()] = rows[row_of[p, j]]
-    return out
+    cached = rows[(pe * slots + acc.slot.clamp(min=0)).reshape(-1)].reshape(P, n, -1)
+    uniq_rows = torch.where(acc.hit[..., None], cached, fetched)
+    tgt = torch.where(acc.fill_slot >= 0, pe * slots + acc.fill_slot, P * slots)
+    rows.index_copy_(0, tgt.reshape(-1), fetched.reshape(P * n, -1))
+    # route every original id (duplicates included) to its unique row
+    pos = torch.searchsorted(acc.uniq, ids).clamp(max=n - 1)
+    src = torch.where(ids != INVALID, pe * n + pos, -1).to(torch.int32)
+    return gather(uniq_rows.reshape(P * n, -1), src)
 
 
 class TieredFeatureStore:
@@ -70,7 +77,7 @@ class TieredFeatureStore:
     Same masking semantics as ``FeatureStore.gather`` (INVALID rows come
     back as zeros), bit-exact rows, plus hit/miss/fetch accounting.
     ``capacity`` and the cache state are *per PE*.  Runs on CUDA unless
-    ``device="cpu"``.
+    ``device="cpu"``; on a card its two programs are captured graphs.
     """
 
     def __init__(
@@ -85,19 +92,58 @@ class TieredFeatureStore:
         host = torch.as_tensor(np.ascontiguousarray(features))
         if host.ndim != 2:
             raise ValueError(f"features must be (V, d), got {tuple(host.shape)}")
-        self.host = host.pin_memory() if self.device.type == "cuda" else host
+        cuda = self.device.type == "cuda"
+        self.host = host.pin_memory() if cuda else host
         self.capacity = capacity
         self.ways = ways
         self.num_pes = num_pes
         self.state: ClockState = clock_init(capacity, ways, num_pes, self.device)
         d = self.host.shape[1]
-        self.data = torch.zeros((num_pes, capacity, d), dtype=self.host.dtype,
-                                device=self.device)
+        self._rows = torch.zeros((num_pes * capacity + 1, d), dtype=self.host.dtype,
+                                 device=self.device)
+        self.data = self._rows[:-1].view(num_pes, capacity, d)  # (P, slots, d) cache rows
         self.fetched_rows = 0  # rows pulled across the host->device link
         self.batches = 0
+        self._staging: dict = {}  # key -> (device rows, host rows) of the fills
+        from repro_torch.engine.compiled import CompiledFunction  # the engine imports this
 
-    def gather(self, ids) -> torch.Tensor:
-        """Masked gather through the cache; INVALID rows come back zero."""
+        pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.access_program = CompiledFunction(
+            "store.clock_access", self._access, capture=cuda, pool=pool, state_args=(0,))
+        self.assemble_program = CompiledFunction(
+            "store.assemble", self._fill_assemble, capture=cuda, pool=pool,
+            state_args=(0, 1))
+
+    # -- the two programs ------------------------------------------------------
+    @staticmethod
+    def _access(state: ClockState, ids: torch.Tensor):
+        """Dedup, probe and CLOCK-update (``state`` in place); returns the
+        access and the missed unique ids (-1 elsewhere)."""
+        new, acc = clock_access(state, unique_rows(ids))
+        for dst, src in zip(state, new):
+            dst.copy_(src)
+        missed = (acc.uniq != INVALID) & ~acc.hit
+        return acc, torch.where(missed, acc.uniq, -1)
+
+    @staticmethod
+    def _fill_assemble(rows: torch.Tensor, staging: torch.Tensor, acc: ClockAccess,
+                       ids: torch.Tensor) -> torch.Tensor:
+        """The dense ``fetched`` block from the uploaded rows (``staging``
+        holds the missed unique ids' rows in row-major order), then
+        :func:`_assemble`."""
+        P, n = acc.uniq.shape
+        missed = ((acc.uniq != INVALID) & ~acc.hit).reshape(-1)
+        row_of = torch.cumsum(missed, 0, dtype=torch.int32) - 1
+        fetched = gather(staging, torch.where(missed, row_of, -1)).reshape(P, n, -1)
+        return _assemble(rows, acc, fetched, ids)
+
+    def gather(self, ids, key=None) -> torch.Tensor:
+        """Masked gather through the cache; INVALID rows come back zero.
+
+        ``key`` names the programs' key (a serving bucket; default the ids'
+        shape).  Between the two programs the missed ids are read on the
+        host (the one sync), their rows gathered from host memory and
+        uploaded."""
         if not isinstance(ids, torch.Tensor):
             ids = torch.from_numpy(np.asarray(ids, np.int32))
         ids = ids.to(device=self.device, dtype=torch.int32)
@@ -108,21 +154,33 @@ class TieredFeatureStore:
             raise ValueError(
                 f"expected ({self.num_pes}, n) ids, got shape {tuple(ids.shape)}"
             )
+        key = tuple(ids.shape) if key is None else key
         with record_function("store.clock_access"):
-            self.state, acc = clock_access(self.state, unique_rows(ids))
+            acc, miss = self.access_program(key, self.state, ids)
 
         # slow tier: fetch only the missed unique rows from host memory
-        missed = (acc.uniq != INVALID) & ~acc.hit
-        miss_ids = acc.uniq[missed].long().cpu()
-        rows = self.host[miss_ids.clamp(0, self.host.shape[0] - 1)]
-        if self.device.type == "cuda":
-            rows = rows.pin_memory()
-        rows = rows.to(self.device, non_blocking=True)
-        self.fetched_rows += int(miss_ids.shape[0])
+        staging, host_rows = self._staging_for(key, ids.numel())
+        miss = miss.reshape(-1).cpu().numpy()  # the one sync: the missed ids' read
+        miss = torch.from_numpy(miss[miss >= 0].astype(np.int64))
+        k = int(miss.shape[0])
+        torch.index_select(self.host, 0, miss, out=host_rows[:k])
+        if staging is not host_rows:
+            staging[:k].copy_(host_rows[:k], non_blocking=True)
+        self.fetched_rows += k
         self.batches += 1
 
-        out = _assemble(self.data, acc, rows, ids)
+        out = self.assemble_program(key, self._rows, staging, acc, ids)
         return out[0] if squeeze else out
+
+    def _staging_for(self, key, n: int) -> tuple:
+        """The device rows the fills of ``key`` upload into and their host
+        rows (pinned on a card; the same tensor on the CPU)."""
+        if key not in self._staging:
+            shape, dt = (n, self.host.shape[1]), self.host.dtype
+            host = torch.empty(shape, dtype=dt, pin_memory=self.device.type == "cuda")
+            dev = torch.zeros(shape, dtype=dt, device=self.device) if self.device.type == "cuda" else host
+            self._staging[key] = (dev, host)
+        return self._staging[key]
 
     @property
     def hits(self) -> int:
@@ -147,10 +205,20 @@ class TieredFeatureStore:
         total = self.hits + self.misses
         return self.misses / total if total else 0.0
 
+    def clear(self) -> None:
+        """Empty the cache and zero its counters in place: the state of a
+        new store, with this one's programs kept."""
+        fresh = clock_init(self.capacity, self.ways, self.num_pes, self.device)
+        for dst, src in zip(self.state, fresh):
+            dst.copy_(src)
+        self._rows.zero_()
+        self.fetched_rows = 0
+        self.batches = 0
+
     def reset_stats(self) -> None:
-        """Zero the CLOCK counters, ``fetched_rows`` and ``batches``; the
-        cache's contents stay."""
-        z = torch.zeros((self.num_pes,), dtype=torch.int32, device=self.device)
-        self.state = self.state._replace(hits=z, misses=z, requested=z)
+        """Zero the CLOCK counters, ``fetched_rows`` and ``batches`` in place;
+        the cache's contents stay."""
+        for t in (self.state.hits, self.state.misses, self.state.requested):
+            t.zero_()
         self.fetched_rows = 0
         self.batches = 0

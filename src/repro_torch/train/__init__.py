@@ -5,6 +5,7 @@ from repro_torch.train.loop import (
     TrainResult,
     evaluate,
     make_loss_fn,
+    step_program,
     train_gnn,
     train_step,
 )
@@ -20,5 +21,5 @@ __all__ = [
     "AdamState", "TrainConfig", "TrainResult", "adam_init", "adam_update",
     "cosine_lr", "evaluate", "load_checkpoint", "macro_f1", "make_loss_fn",
     "masked_softmax_xent", "masked_softmax_xent_parts", "micro_f1", "save_checkpoint",
-    "sgd_update", "train_gnn", "train_step",
+    "sgd_update", "step_program", "train_gnn", "train_step",
 ]

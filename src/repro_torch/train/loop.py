@@ -13,8 +13,19 @@ One step: the seed draw and plan (``engine.plan_at``), the gather of the
 input features (the ``gather`` kernel on a card), the GCN (``spmm``
 forward and backward kernels on a card) or the GAT (``seg_softmax``
 forward and backward kernels), masked cross-entropy, backward and Adam.
-``train_gnn`` can end each of these stages with a device sync and record
-its wall time (``stage_times=True``).
+
+As the JAX package compiles its ``train_step`` into one program with the
+step a traced argument, ``train_gnn`` runs the whole step as one
+:class:`repro_torch.engine.compiled.CompiledFunction`
+(:func:`step_program`): on a card with the fused backend one captured
+CUDA graph, replayed every step, that reads its step from the
+:class:`repro_torch.core.rng.DeviceRNGState` buffer and updates the
+weights, Adam's moments and its device step in place.  Its first call
+runs step 0 eagerly on a side stream and then captures.  The CPU and
+the reference backend run the same body eagerly.  ``stage_times=True``
+ends every stage with a device sync and records its wall time, which a
+graph cannot do: it selects the eager :func:`train_step` (the plan still
+a replay of ``engine.plan_at``'s program).
 
 With ``TrainConfig(executor="shard")`` (cooperative) every rank of a
 ``torch.distributed`` process group runs this loop for its own PE: the
@@ -38,6 +49,7 @@ from repro_torch.core.cooperative import ShardExecutor
 from repro_torch.core.graph import INVALID
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import EngineConfig, MinibatchEngine
+from repro_torch.engine.compiled import CompiledFunction
 from repro_torch.models.gnn import GNN, GNNConfig, init_gnn
 from repro_torch.train.metrics import masked_softmax_xent, micro_f1
 from repro_torch.train.optim import AdamState, adam_init, adam_update
@@ -79,6 +91,10 @@ class TrainResult:
     losses: list = field(default_factory=list)
     val_f1: list = field(default_factory=list)
     stage_ms: list = field(default_factory=list)  # per step {stage: ms}, if timed
+    step_ms: list = field(default_factory=list)   # per step wall ms, to the loss read
+    # the step program's capture per key (ms, pool bytes, launches a replay)
+    # and its signatures per key; empty where the step ran eagerly
+    compiled: dict = field(default_factory=dict)
     # shard executor, if timed: per step {kind: (exchanges, bytes, ms)} of
     # this rank's all-to-alls ("ids", "forward", "backward")
     exchanges: list = field(default_factory=list)
@@ -143,6 +159,29 @@ def train_step(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: Ada
     return loss, opt, plan
 
 
+def step_program(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: AdamState,
+                 labels: torch.Tensor, lr: float, with_plan: bool = False) -> CompiledFunction:
+    """The whole training step as one program keyed by the local batch:
+    ``program(local_batch, engine.step_state(step))`` builds the step's
+    plan (``engine._build_at``: ``plan_at``'s body, since a capture cannot
+    hold another), gathers the inputs, takes the loss and its gradients and
+    runs Adam, updating ``model`` and ``opt`` in place.  It returns
+    ``(loss,)``, or ``(loss, plan)`` with ``with_plan`` (a replay then
+    copies the plan out).  A CUDA graph where ``engine.captures``; eager
+    (the same body) otherwise."""
+    params = list(model.parameters())
+
+    def body(state):
+        plan, _ = engine._build_at(state)
+        H = plan.gather_inputs(engine.store)
+        loss = plan_loss(engine, gnn_cfg, model, plan, H, labels)
+        grads = torch.autograd.grad(loss, params)
+        adam_update(params, grads, opt, lr=lr)
+        return (loss.detach(), plan) if with_plan else (loss.detach(),)
+
+    return CompiledFunction("train_step", body, capture=engine.captures)
+
+
 def train_gnn(
     dataset,
     gnn_cfg: GNNConfig,
@@ -156,13 +195,18 @@ def train_gnn(
 
     ``model`` (e.g. from :func:`repro_torch.models.gnn.params_from_jax`)
     moves to the device and is trained in place; by default the weights
-    are drawn from ``tc.seed``.  ``stage_times`` ends every stage with a
-    sync and records its wall ms in ``TrainResult.stage_ms`` (and, under
-    the shard executor, each step's all-to-alls in
-    ``TrainResult.exchanges``); ``on_step(step, plan)`` sees each step's
-    plan.  Under ``executor="shard"`` every rank of the process group calls
-    this; the device is then the rank's own (``cuda:{LOCAL_RANK %
-    device_count}`` unless ``"cpu"``) and ``losses`` the global losses.
+    are drawn from ``tc.seed``.  Each step is one call of
+    :func:`step_program` (a graph replay on a card with the fused
+    backend), and its wall ms to the loss's read goes to
+    ``TrainResult.step_ms``.  ``stage_times`` runs the eager
+    :func:`train_step` instead, ends every stage with a sync and records
+    its wall ms in ``TrainResult.stage_ms`` (and, under the shard
+    executor, each step's all-to-alls in ``TrainResult.exchanges``), as
+    does ``executor="shard"``; ``on_step(step, plan)`` sees each step's
+    plan (then an output of the program).  Under ``executor="shard"``
+    every rank of the process group calls this; the device is then the
+    rank's own (``cuda:{LOCAL_RANK % device_count}`` unless ``"cpu"``)
+    and ``losses`` the global losses.
     """
     engine = MinibatchEngine.from_config(
         dataset.graph, tc.engine_config(gnn_cfg.num_layers), dataset=dataset,
@@ -181,6 +225,10 @@ def train_gnn(
     opt = adam_init(list(model.parameters()))
     labels = torch.as_tensor(np.asarray(dataset.labels)).to(dev)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    program = None
+    if not (shard or stage_times):
+        program = step_program(engine, gnn_cfg, model, opt, labels, tc.lr,
+                               with_plan=on_step is not None)
 
     result = TrainResult(model=model)
     for step in range(tc.num_steps):
@@ -191,8 +239,14 @@ def train_gnn(
                 sync()
                 marks.append(time.perf_counter())
 
-        loss, opt, plan = train_step(engine, gnn_cfg, model, opt, labels, step, tc.lr, mark)
+        if program is not None:
+            loss, *plan = program(tc.local_batch, engine.step_state(step))
+            plan = plan[0] if plan else None
+        else:
+            loss, opt, plan = train_step(engine, gnn_cfg, model, opt, labels, step, tc.lr,
+                                         mark)
         result.losses.append(float(loss.detach()))
+        result.step_ms.append(1e3 * (time.perf_counter() - marks[0]))
         if stage_times:
             result.stage_ms.append({
                 s: 1e3 * (b - a) for s, a, b in zip(stages, marks, marks[1:])
@@ -208,6 +262,9 @@ def train_gnn(
             on_step(step, plan)
         if tc.eval_every and (step + 1) % tc.eval_every == 0:
             result.val_f1.append(evaluate(dataset, gnn_cfg, model, tc, device=dev))
+    if program is not None and program.capture:
+        result.compiled = {"report": program.report(), "compiles": dict(program.compiles),
+                           "captures": dict(program.captures)}
     return result
 
 

@@ -241,4 +241,8 @@ def test_port_trace_and_hot_path_findings(port_report):
     hot = [(f["rule"], f["file"], f["line"]) for f in rep["findings"]
            if f["rule"] in ("RA001", "RA002", "RA004")]
     assert hot  # reported, not suppressed: the plan build's worklist
-    assert ("RA001", "src/repro_torch/store/clock.py") in {(r, f) for r, f, _ in hot}
+    # the fixed-shape tiered store and the device-step Adam read nothing on
+    # the host and run no host numpy inside their programs
+    files = {f for _, f, _ in hot}
+    for path in ("store/clock.py", "store/tiers.py", "train/optim.py"):
+        assert f"src/repro_torch/{path}" not in files, [h for h in hot if path in h[1]]

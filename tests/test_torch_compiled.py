@@ -16,7 +16,16 @@ device-state code eagerly.  Held here:
   op sequence across a ``c = 0`` and a ``c > 0`` step;
 * ``CompiledFunction``: ``RetraceError`` on a second signature,
   ``compiles`` per key, and eager only by configuration;
-* stream items resolve their seeds lazily, equal to ``seed_batch``.
+* stream items resolve their seeds lazily, equal to ``seed_batch``;
+* the GNN train step as one program (``train.step_program``, eager here):
+  Adam with its step on the device bit for bit with the JAX package's over
+  20 steps, and ``train_gnn``'s losses and weights through the program
+  against the JAX ``train_gnn``; a second signature under one key raises
+  ``RetraceError`` (the train step's and the tiered store's programs);
+* the LM decode program (``models.transformer.decode_step``): the state
+  written in place, prefill and greedy tokens equal to the JAX package's
+  jitted ``prefill_decode`` and serve step (``examples/serve_lm.py``'s
+  calls) on an attention + SSM hybrid with ring caches.
 
 Small size: ``rmat_graph(scale=9)``, 2 PEs, local batch 8, 2 layers.
 """
@@ -254,3 +263,133 @@ def test_stream_seeds_resolve_lazily(graphs):
         np.testing.assert_array_equal(item.seeds, eng.seed_batch(item.step))
     rows = HostRows(torch.arange(6, dtype=torch.int32).reshape(2, 3))
     np.testing.assert_array_equal(rows.numpy(), np.arange(6).reshape(2, 3))
+
+
+# --------------------------------------------------------------------------
+# the GNN train step as one program
+# --------------------------------------------------------------------------
+def test_device_step_adam_bit_equal_to_jax_over_20_steps():
+    """The step on the device and the bias corrections from the powf table:
+    parameters, moments and step bit for bit with the JAX package's
+    ``adam_update`` over 20 steps of gradients from 1e-9 to 10 (numpy's
+    power, the scales before, differed at step 4 and at step 9)."""
+    from repro.train import optim as joptim
+    from repro_torch.train.optim import adam_init, adam_update
+
+    rng = np.random.default_rng(7)
+    shapes = [(5, 3), (3,), (2, 4, 2)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    jp, jst = [jnp.asarray(p) for p in params], joptim.adam_init([jnp.asarray(p)
+                                                                 for p in params])
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    st = adam_init(tp)
+    assert st.step.dtype == torch.int32 and st.step.shape == ()
+    # op by op: under jit XLA fuses the update into FMAs, which torch's
+    # elementwise ops do not round as
+    j_update = lambda p, g, s: joptim.adam_update(p, g, s, lr=1e-2)
+    for _ in range(20):
+        grads = [(rng.standard_normal(s) * 10.0 ** rng.integers(-9, 2)).astype(np.float32)
+                 for s in shapes]
+        jp, jst = j_update(jp, [jnp.asarray(g) for g in grads], jst)
+        assert adam_update(tp, [torch.from_numpy(g) for g in grads], st, lr=1e-2) is st
+        for got, want in zip(tp + st.mu + st.nu, list(jp) + list(jst.mu) + list(jst.nu)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(st.step) == int(jst.step) == 20
+
+
+def test_train_step_program_equals_jax_train_gnn(graphs):
+    from repro.models.gnn import GNNConfig as JGNNConfig
+    from repro.train import loop as jloop
+    from repro_torch.models.gnn import GNNConfig, init_gnn
+    from repro_torch.train import TrainConfig, adam_init, step_program, train_gnn
+
+    jd, td = graphs
+    tc = dict(num_pes=2, local_batch=8, fanout=3, num_steps=4, schedule="smoothed", kappa=4,
+              eval_every=0, plan_backend="fused", lr=1e-2)
+    gcfg = dict(model="gcn", num_layers=2, in_dim=8, hidden_dim=16, num_classes=4)
+    want = jloop.train_gnn(jd, JGNNConfig(**gcfg), jloop.TrainConfig(**tc))
+    got = train_gnn(td, GNNConfig(**gcfg), TrainConfig(**tc), device="cpu")
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+    assert not got.stage_ms and len(got.step_ms) == 4
+    for layer, jl in zip(got.params["layers"], want.params["layers"]):
+        for name in jl:
+            np.testing.assert_allclose(layer[name], np.asarray(jl[name]), rtol=0, atol=1e-5)
+
+    # the program itself: one signature a key, the step read from the buffer
+    eng = MinibatchEngine.from_config(td.graph, TrainConfig(**tc).engine_config(2),
+                                      dataset=td, device="cpu")
+    model = init_gnn(GNNConfig(**gcfg), seed=0, device="cpu")
+    opt = adam_init(model)
+    prog = step_program(eng, GNNConfig(**gcfg), model, opt, torch.as_tensor(td.labels), 1e-2,
+                        with_plan=True)
+    assert not prog.capture  # the CPU
+    losses = []
+    for step in range(4):
+        loss, plan = prog(8, eng.step_state(step))
+        losses.append(float(loss))
+        np.testing.assert_array_equal(plan.input_ids.numpy(), eng.plan_at(step).input_ids.numpy())
+    np.testing.assert_allclose(losses, want.losses, rtol=1e-5)
+    assert prog.compiles == {8: 1} and int(opt.step) == 4
+    bad = trng.DeviceRNGState(eng.step_state(4).buf[:5])
+    with pytest.raises(RetraceError, match="train_step: bucket 8"):
+        prog(8, bad)
+
+
+def test_tiered_store_programs_retrace_on_a_second_signature():
+    from repro_torch.store import TieredFeatureStore
+
+    feats = np.random.default_rng(1).standard_normal((64, 4)).astype(np.float32)
+    store = TieredFeatureStore(feats, capacity=16, ways=4, device="cpu")
+    store.gather(torch.arange(8, dtype=torch.int32), key="b8")
+    store.gather(torch.arange(4, 12, dtype=torch.int32), key="b8")  # same shape: same program
+    assert store.access_program.compiles == store.assemble_program.compiles == {"b8": 1}
+    with pytest.raises(RetraceError, match="store.clock_access: bucket b8"):
+        store.gather(torch.arange(9, dtype=torch.int32), key="b8")
+
+
+# --------------------------------------------------------------------------
+# the LM decode program
+# --------------------------------------------------------------------------
+def test_lm_decode_program_equals_jax_prefill_and_greedy_tokens():
+    from repro.configs import get_config as j_get_config
+    from repro.launch.steps import make_serve_step as j_make_serve_step
+    from repro.models.transformer import init_decode_state as j_init_decode_state
+    from repro.models.transformer import init_lm as j_init_lm
+    from repro.models.transformer import prefill_decode as j_prefill_decode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import (
+        decode_program,
+        init_decode_state,
+        lm_params_from_jax,
+        prefill_decode,
+    )
+
+    B, S0, new = 2, 10, 6
+    jcfg = j_get_config("hymba-1.5b").reduced(ssm_chunk=8, window=8)  # ring caches wrap
+    cfg = get_config("hymba-1.5b").reduced(ssm_chunk=8, window=8)
+    params = j_init_lm(jax.random.PRNGKey(0), jcfg)
+    model = lm_params_from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S0)).astype(np.int32)
+
+    j_serve = jax.jit(j_make_serve_step(jcfg))
+    jl, jst = jax.jit(lambda p, st, t: j_prefill_decode(p, jcfg, st, t))(
+        params, j_init_decode_state(jcfg, B, S0 + new), jnp.asarray(prompts))
+    state = init_decode_state(cfg, B, S0 + new, device="cpu")
+    logits, out = prefill_decode(model, cfg, state, torch.from_numpy(prompts))
+    assert out is state  # written in place
+    assert int(state["pos"]) == S0
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), rtol=2e-5, atol=2e-5)
+    serve, want, got = make_serve_step(cfg), [], []
+    jtok = jnp.argmax(jl, -1)[:, None].astype(jnp.int32)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for _ in range(new):
+        want.append(np.asarray(jtok)[:, 0])
+        got.append(tok[:, 0].numpy())
+        jl, jst = j_serve(params, jst, jtok)
+        logits, state = serve(model, state, tok)
+        jtok = jnp.argmax(jl, -1)[:, None].astype(jnp.int32)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    np.testing.assert_array_equal(np.stack(got, 1), np.stack(want, 1))
+    prog = decode_program(model, cfg)
+    assert prog.compiles == {(B, S0 + new): 1} and not prog.capture

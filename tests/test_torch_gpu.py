@@ -916,8 +916,10 @@ def test_lm_on_card_matches_cpu(cuda, arch):
         if cfg.enc_dec:
             state["enc_out"] = t(enc)
         last, state = prefill_decode(model, cfg, state, t(toks[:, :16]))
-        leaves = [state["pos"]] + [layer[part][k] for layer in state["layers"]
-                                   for part in sorted(layer) for k in sorted(layer[part])]
+        # copies: the serve steps below write the state in place
+        leaves = [v.clone() for v in [state["pos"]] + [
+            layer[part][k] for layer in state["layers"]
+            for part in sorted(layer) for k in sorted(layer[part])]]
         serve, lg, gen = make_serve_step(cfg), last, []
         for _ in range(8):
             tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
@@ -1137,3 +1139,140 @@ def test_failed_capture_raises(cuda):
                           env=env, timeout=300)
     assert proc.returncode != 0 and "no capture" not in proc.stdout
     assert "CaptureError" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat", "sage", "rgcn"])
+@pytest.mark.parametrize("mode", ["cooperative", "independent"])
+def test_train_step_program_replays_match_eager(cuda, model, mode):
+    """The GNN train step as one captured program against its own body run
+    eagerly on the card (``program.fn``) from the same weights: plans bit
+    for bit at every step, losses within ``rtol=1e-5`` and weights within
+    ``atol=1e-5`` (cuBLAS may take another algorithm inside a graph); one
+    capture, and the step's device counter advanced by every replay."""
+    from repro_torch.engine import EngineConfig
+    from repro_torch.train import adam_init, step_program
+
+    ds = SyntheticGraphDataset(rmat_graph(scale=11, edge_factor=8, max_degree=16,
+                                          num_edge_types=4 if model == "rgcn" else 1,
+                                          device="cpu"), feature_dim=16, num_classes=4)
+    cfg = GNNConfig(model=model, num_layers=2, in_dim=16, hidden_dim=32, num_classes=4,
+                    num_heads=2, num_relations=4)
+    ecfg = EngineConfig(mode=mode, num_pes=4, local_batch=16, num_layers=2, fanout=5,
+                        sampler="ns" if model == "sage" else "labor0", schedule="smoothed",
+                        kappa=4, plan_backend="fused")
+    labels = torch.as_tensor(ds.labels, device=cuda)
+    runs = []
+    for captured in (True, False):
+        eng = MinibatchEngine.from_config(ds.graph, ecfg, dataset=ds, device=cuda)
+        net = init_gnn(cfg, seed=0, device=cuda)
+        opt = adam_init(net)
+        prog = step_program(eng, cfg, net, opt, labels, 1e-2, with_plan=True)
+        assert prog.capture
+        run = prog if captured else (lambda key, state, p=prog: p.fn(state))
+        out = [run(16, eng.step_state(step)) for step in range(4)]
+        runs.append(([float(loss) for loss, _ in out], [plan for _, plan in out],
+                     [p.detach().clone() for p in net.parameters()]))
+        assert int(opt.step) == 4
+        if captured:
+            assert prog.captures == {16: 1} and prog.compiles == {16: 1}
+    (la, pa, wa), (lb, pb, wb) = runs
+    for step, (a, b) in enumerate(zip(pa, pb)):
+        _same_plans(a, b, (model, mode, step))
+    np.testing.assert_allclose(la, lb, rtol=1e-5)
+    for a, b in zip(wa, wb):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_tiered_store_programs_replay_match_cpu(cuda):
+    """The tiered store's two programs captured once a key: every batch's
+    rows, CLOCK state and counters equal the CPU store's bit for bit, with
+    one sync a gather (the missed ids' read)."""
+    from repro_torch.store import TieredFeatureStore
+
+    rng = np.random.default_rng(3)
+    V, P, n = 4096, 2, 256
+    feats = rng.standard_normal((V, 16)).astype(np.float32)
+    card = TieredFeatureStore(feats, capacity=512, ways=8, num_pes=P, device=cuda)
+    cpu = TieredFeatureStore(feats, capacity=512, ways=8, num_pes=P, device="cpu")
+    trace = _kappa_trace(12, P, n, V, 4, seed=5)
+    for step, ids in enumerate(trace):
+        got = card.gather(torch.from_numpy(ids).to(cuda))
+        want = cpu.gather(torch.from_numpy(ids))
+        assert torch.equal(got.cpu(), want), step
+        for name, a, b in zip(card.state._fields, card.state, cpu.state):
+            assert torch.equal(a.cpu(), b), (step, name)
+        assert torch.equal(card.data.cpu(), cpu.data), step
+        assert card.fetched_rows == cpu.fetched_rows
+    for prog in (card.access_program, card.assemble_program):
+        assert prog.captures == {(P, n): 1} and prog.compiles == {(P, n): 1}
+    ids = torch.from_numpy(trace[0]).to(cuda)  # the upload syncs: before the window
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            card.gather(ids)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(syncs) == 1, [f"{w.filename}:{w.lineno}" for w in syncs]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_decode_program_replays_match_eager(cuda, arch):
+    """The LM decode step as one captured program a batch and cache length
+    against ``forward_decode`` run eagerly on the card on a copy of the
+    state: logits and state within ``1e-4`` of the largest |logit|, greedy
+    tokens equal, one capture; prefill through the program equals stepping
+    it bit for bit."""
+    import copy
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import (
+        decode_program,
+        forward_decode,
+        init_decode_state,
+        init_lm,
+        prefill_decode,
+    )
+
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 12)), device=cuda)
+    model = init_lm(cfg, seed=0, device=cuda)
+
+    def fresh():
+        st = init_decode_state(cfg, 4, 24, device=cuda)
+        if cfg.enc_dec:
+            st["enc_out"] = torch.as_tensor(
+                np.random.default_rng(2).standard_normal((4, cfg.enc_len, cfg.d_model)),
+                dtype=st["enc_out"].dtype, device=cuda)
+        return st
+
+    serve = make_serve_step(cfg)
+    pre, st_a = prefill_decode(model, cfg, fresh(), toks)
+    st_b = fresh()
+    for t in range(toks.shape[1]):
+        step_logits, st_b = serve(model, st_b, toks[:, t:t + 1])
+    assert torch.equal(pre, step_logits)
+    leaves = lambda st: [st["pos"]] + [lay[p][k] for lay in st["layers"]  # noqa: E731
+                                       for p in sorted(lay) for k in sorted(lay[p])]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(st_a), leaves(st_b), strict=True))
+    eager_state = copy.deepcopy(st_a)
+    lg_c, lg_e = pre, pre.clone()
+    scale = float(pre.abs().max())
+    for _ in range(6):
+        tok_c = torch.argmax(lg_c, -1)[:, None].to(torch.int32)
+        tok_e = torch.argmax(lg_e, -1)[:, None].to(torch.int32)
+        assert torch.equal(tok_c, tok_e)
+        lg_c, st_a = serve(model, st_a, tok_c)
+        lg_e, eager_state = forward_decode(model, cfg, eager_state, tok_e)
+        assert float((lg_c - lg_e).abs().max()) <= 1e-4 * scale
+    for a, b in zip(leaves(st_a), leaves(eager_state), strict=True):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-4 * max(
+            1.0, float(b.float().abs().max()))
+    prog = decode_program(model, cfg)
+    key = (4, 24 if any("kv" in lay for lay in st_a["layers"]) else 0)
+    assert prog.compiles == {key: 1} and prog.captures == {key: 2}  # two states

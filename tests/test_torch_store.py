@@ -5,7 +5,10 @@ requested counters must be equal after every batch of a κ-scheduled id
 trace, and so must each access's outcome (``uniq``, ``hit``, ``slot``,
 ``fill_slot``).  ``TieredFeatureStore.gather`` rows must equal
 ``FeatureStore.gather`` bit for bit, with the same fetch accounting as
-the JAX tiered store.
+the JAX tiered store.  The fixed-shape forms are held at the edges: a
+one-way cache whose same-batch inserts evict each other, a set asked for
+more misses than it has ways, and ``_assemble`` on the dense ``fetched``
+block against the jitted JAX ``_assemble``.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ from repro.store import clock_access as j_clock_access
 from repro.store import clock_init as j_clock_init
 from repro.store import hash_set as j_hash_set
 from repro.store import unique_rows as j_unique_rows
+from repro.store.tiers import _assemble as j_assemble
 from repro_torch.core import FeatureStore
 from repro_torch.store import (
     TieredFeatureStore,
@@ -27,6 +31,7 @@ from repro_torch.store import (
     hash_set,
     unique_rows,
 )
+from repro_torch.store.tiers import _assemble
 
 torch.set_num_threads(1)  # the suite runs files in parallel workers
 
@@ -139,3 +144,74 @@ def test_feature_store_gather_vs_jax_on_out_of_range_ids():
                                       np.asarray(ref.gather(jnp.asarray(ids))))
     np.testing.assert_array_equal(port.gather(torch.from_numpy(outside)).numpy(),
                                   feats[np.clip(outside, 0, V - 1)])
+
+
+def _same_set_ids(num_sets: int, count: int, start: int = 0) -> np.ndarray:
+    """``count`` ids from ``start`` up that hash to set 0 of ``num_sets``."""
+    ids = np.arange(start, start + 64 * count * num_sets, dtype=np.int32)
+    hit = ids[hash_set(torch.from_numpy(ids), num_sets).numpy() == 0]
+    assert len(hit) >= count
+    return hit[:count]
+
+
+def _access_both(js, ts, ids):
+    js, jacc = jax.jit(j_clock_access)(js, j_unique_rows(jnp.asarray(ids)))
+    ts, tacc = clock_access(ts, unique_rows(torch.from_numpy(ids)))
+    for name in js._fields:
+        np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                                      err_msg=name)
+    for name in jacc._fields:
+        np.testing.assert_array_equal(getattr(tacc, name).numpy(),
+                                      np.asarray(getattr(jacc, name)), err_msg=name)
+    return js, ts, jacc, tacc
+
+
+def test_clock_access_fixed_shape_edge_cases_bit_equal():
+    # W = 1: every round inserts into the one way, so a set's later misses
+    # evict its earlier same-batch inserts, which must not keep their slot
+    S = 4
+    ids = np.concatenate([_same_set_ids(S, 3), np.full(2, INVALID, np.int32)])[None]
+    js, ts = j_clock_init(S, 1, 1), clock_init(S, 1, 1, device="cpu")
+    js, ts, _, tacc = _access_both(js, ts, ids)
+    fill = tacc.fill_slot.numpy()[0]
+    assert (fill >= 0).sum() == 1 and int(ts.misses) == 3  # one survives, all missed
+    # more misses in one set than it has ways (W = 4, 7 misses): 4 admitted,
+    # 3 dropped; then a batch that hits some and misses again
+    S, W = 8, 4
+    js, ts = j_clock_init(S * W, W, 2), clock_init(S * W, W, 2, device="cpu")
+    many = _same_set_ids(S, 7, start=100)
+    ids = np.stack([np.concatenate([many, np.full(3, INVALID, np.int32)]),
+                    np.arange(10, dtype=np.int32)])
+    js, ts, _, tacc = _access_both(js, ts, ids)
+    assert (tacc.fill_slot.numpy()[0] >= 0).sum() == W
+    ids = np.stack([np.concatenate([many[::-1], _same_set_ids(S, 3, start=5000)]),
+                    np.arange(5, 15, dtype=np.int32)])
+    js, ts, jacc, tacc = _access_both(js, ts, ids)
+    assert bool(tacc.hit.any()) and int(ts.hits.sum()) > 0
+
+
+def test_assemble_dense_fetched_bit_equal_to_jax():
+    """``_assemble`` (the cache rows with their spare row) against the JAX
+    ``_assemble`` on the same access and the same dense ``fetched`` block,
+    batch after batch: the output and the cache rows."""
+    rng = np.random.default_rng(4)
+    P, cap, W, d = 2, 64, 4, 8
+    feats = rng.standard_normal((V, d)).astype(np.float32)
+    js, ts = j_clock_init(cap, W, P), clock_init(cap, W, P, device="cpu")
+    jdata = jnp.zeros((P, cap, d), jnp.float32)
+    rows = torch.zeros((P * cap + 1, d))
+    traces = [make_trace("smoothed", 4, batch=48, seed=40 + p) for p in range(P)]
+    for step in range(8):
+        ids = np.stack([tr[step] for tr in traces])
+        js, jacc = jax.jit(j_clock_access)(js, j_unique_rows(jnp.asarray(ids)))
+        ts, tacc = clock_access(ts, unique_rows(torch.from_numpy(ids)))
+        uniq = tacc.uniq.numpy()
+        missed = (uniq != INVALID) & ~tacc.hit.numpy()
+        fetched = np.zeros(uniq.shape + (d,), np.float32)
+        fetched[missed] = feats[np.clip(uniq, 0, V - 1)[missed]]
+        want, jdata = jax.jit(j_assemble)(jdata, jacc, jnp.asarray(fetched), jnp.asarray(ids))
+        got = _assemble(rows, tacc, torch.from_numpy(fetched), torch.from_numpy(ids))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"out {step}")
+        np.testing.assert_array_equal(rows[:-1].reshape(P, cap, d).numpy(), np.asarray(jdata),
+                                      err_msg=f"cache rows {step}")
+        assert missed.any() and tacc.hit.numpy().any() or step == 0
