@@ -177,18 +177,26 @@ Phases:
    fails the phase), each rank calling ``train_gnn`` on phase 3's graph
    and dataset, made once here and handed to the ranks.  9a: 4 ranks on
    the one card over gloo (CUDA tensors, which gloo stages through host
-   memory); 9b: 1 rank over NCCL (P = 1), so NCCL's all-to-all and
-   all-reduce run on the card.  The kernels were built in phase 0; a rank
-   only loads them.  Checked: every step's stacked plan (``stack_plan``)
-   equal bit for bit to phase 3's card ``SimExecutor`` plan (9b: to a P = 1
-   ``SimExecutor``'s on the card), losses within ``rtol=1e-4`` of its,
-   step-0 gradients within ``1e-5`` of each parameter's largest ``|g|``,
-   every rank's weights equal bit for bit after every step, and each
-   rank's launches per step (``frontier_gather`` L, ``unique_compact``
-   2L + 1, ``gather`` 1, ``spmm`` L, its backward L - 1).  Printed per
-   rank and step: wall ms split into plan, gather, forward+backward,
-   all-reduce and Adam, and each direction's exchanges (ids, embeddings
-   forward, gradients backward) with their bytes and event ms; peak
+   memory), through the eager staged step (``stage_times=True``; gloo's
+   collectives run on the host and cannot be captured); 9b: 1 rank over
+   NCCL (P = 1), so NCCL's all-to-all and all-reduce run on the card:
+   first through the step program (one captured CUDA graph, the
+   collectives in it), then the same steps through the eager staged step.
+   The kernels were built in phase 0; a rank only loads them.  Checked:
+   every step's stacked plan (``stack_plan``) equal bit for bit to phase
+   3's card ``SimExecutor`` plan (9b: to a P = 1 ``SimExecutor``'s on the
+   card), losses within ``rtol=1e-4`` of its, step-0 gradients within
+   ``1e-5`` of each parameter's largest ``|g|``, every rank's weights
+   equal bit for bit after every step, and each rank's launches per step
+   (``frontier_gather`` L, ``unique_compact`` 2L + 1, ``gather`` 1,
+   ``spmm`` L, its backward L - 1); 9b's captured run against its staged
+   run: plans bit for bit, losses, final weights (``atol=1e-4``) and
+   step-0 gradients, one capture of the step program and of the plan
+   program.  Printed per rank and step of a staged run: wall ms split into
+   plan, gather, forward+backward, all-reduce and Adam, and each
+   direction's exchanges (ids, embeddings forward, gradients backward)
+   with their bytes and event ms; 9b's capture (ms, pool bytes, launches
+   a replay), its captured steps' ms and its plan replays' ms; peak
    memory per rank.  On one card the exchange crosses host memory between
    processes: its time says nothing about an NVLink all-to-all.
 10. The examples and the analyzer.  10a: the four ``examples/*_torch.py``
@@ -204,8 +212,10 @@ Phases:
    and whether its op sequence stayed the same; then the syncs of one
    served batch, of ``GNNServer.hot_path`` and of the tiered gather alone
    (one: the missed ids' read) at each of phase 2's buckets, and of one
-   replay of phase 3's captured train step (none).  Fails on RA005,
-   RA107, RA199 or RA299, or on other sync counts.
+   replay of phase 3's captured train step, of the shard executor's plan
+   and train-step programs on a one-rank NCCL group in this process, and
+   of ``make_train_step``'s program at a reduced gemma2 (none each).
+   Fails on RA005, RA107, RA199 or RA299, or on other sync counts.
 11. The LM pool (``repro_torch.models.transformer``, no CUDA kernel of
    its own: its products are cuBLAS calls, the rest plain torch ops).
    11a: each of the ten architectures at its reduced size, ``init_lm`` on
@@ -233,23 +243,32 @@ Phases:
    launches and idle share under the profiler, and its host syncs (the
    analyzer's trace pass).
 12. LM training (``repro_torch.launch.steps.make_train_step``: chunked CE,
-   remat, autograd, ``adam_update``).  12a: each of the ten
+   remat, autograd, ``adam_update``; on the card one captured CUDA graph a
+   batch shape, its first call the eager warm-up).  12a: each of the ten
    architectures at its reduced size, the same ``init_lm`` weights on the
    card and the CPU: ``lm_loss`` within ``rtol=1e-5``, each parameter's
    step-0 gradient within 1e-5 of its largest ``|g|`` (the SSD's ``A_log``
-   5e-5), 3 steps' losses within ``rtol=1e-4`` and falling; then a reduced
+   5e-5), 3 steps' losses within ``rtol=1e-4`` and falling, the card's
+   through the captured program (one capture) and within ``rtol=1e-4`` of
+   the program's body run eagerly on the card; then a reduced
    gemma2 with ``cooperative_embed`` (B·S > V): the card's kernel route
    (``unique_compact``, then ``gather`` twice) and the CPU's plain route
    give ``embed[tokens]`` bit for bit, the gradients held as above, and
    the route's host syncs by the trace pass (0 expected, where
    ``torch.unique`` on the same ids syncs).  12b: gemma2-2b at its
-   published widths and depth, float32, TF32 off, remat on:
-   ``make_train_step`` at batch 4, S 2,048, one warm step and 2 timed (each
-   ended by a sync): step ms, tokens/s, ``model_flops`` (6·N·D) over the
-   step time against 67 TFLOP/s, peak memory, one step split into forward,
-   backward and Adam, one under the profiler (CUDA kernels, float32 GEMMs,
-   idle share) and one under the trace pass (host syncs); then at 2
-   layers of the same widths, card against CPU at S 64.  12c: whisper-tiny
+   published widths and depth, float32, TF32 off, remat on, at batch 4,
+   S 2,048: first the program's body run eagerly (a warm step, one timed,
+   the peak memory that 13b holds its trace to, one under
+   ``FlopCounterMode`` and one split into forward, backward and Adam, each
+   stage ended by a sync), then ``make_train_step``: the eager warm-up and
+   capture (capture ms, pool bytes) and 2 timed replays (each to the
+   loss's read): step ms, tokens/s, ``model_flops`` (6·N·D) over the step
+   time against 67 TFLOP/s, peak memory with the pool, one replay under
+   the profiler (CUDA kernels, float32 GEMMs, idle share) and one under
+   the trace pass (0 host syncs); then at 2 layers of the same widths the
+   captured program against its body run eagerly over 3 steps at batch 4
+   x S 2,048 (a full-size copy of the weights and moments would not fit
+   beside them), and card against CPU at S 64.  12c: whisper-tiny
    at its published widths with ``cooperative_embed``, batch 32 x S 2,048
    (65,536 Zipf token slots over 51,865 ids): the kernel route's rows bit
    for bit equal to the plain versions' on the card and to
@@ -257,9 +276,9 @@ Phases:
    ``embed[tokens]`` route (1e-5 as above); one train step; the distinct
    ids against the slots; phase-1 rows for ``unique_compact`` and both
    ``gather`` calls at these shapes.  The launch counts are zeroed right
-   before 12c's train step and read right after it: on a card the step
-   must launch ``unique_compact`` once and ``gather`` twice, and no other
-   kernel.
+   before 12c's second train step (on a card a replay of the captured
+   program) and read right after it: the step must launch
+   ``unique_compact`` once and ``gather`` twice, and no other kernel.
 13. The dry-run (``repro_torch.launch.dryrun``), each part in a child
    process, so no process group enters this one.  13a: ``python -m
    repro_torch.launch.dryrun`` for gemma2-2b ``train_4k`` and ``--gnn`` on
@@ -2195,15 +2214,21 @@ def phase_dependent(ds, tc) -> dict:
 # phase 9
 # --------------------------------------------------------------------------
 def shard_rank(rank: int, world: int, backend: str, store: str, out_dir: str, device: str,
-               tds, gnn_cfg, tc) -> None:
+               tds, gnn_cfg, tc, modes: tuple) -> None:
     """One rank of phase 9, in a process of its own: ``train_gnn`` with
-    ``executor="shard"`` for this rank's PE, counters zeroed right before.
-    After each step (``on_step``): the launches, the stacked plan
-    (``stack_plan``, an all-gather) and whether every rank's weights are
-    equal bit for bit (an all-gather); at step 0 the all-reduced gradient
-    (tensor hooks read this rank's share during the step).  Writes its
-    results to ``out_dir/rank{rank}.pt``.  The kernels must be built
-    already: a rank only loads them."""
+    ``executor="shard"`` for this rank's PE once per mode of ``modes``:
+    ``"captured"`` through the step program (one CUDA graph under NCCL),
+    ``"staged"`` through the eager step with stage times
+    (``stage_times=True``), each from the seeded weights, counters zeroed
+    right before.  After each step (``on_step``): the launches, the
+    stacked plan (``stack_plan``, an all-gather) and whether every rank's
+    weights are equal bit for bit (an all-gather); at step 0 the
+    all-reduced gradient (tensor hooks read this rank's share during the
+    step: a captured run's step 0 is the program's eager warm-up).  After
+    a captured run: the step program's capture report, and the plan
+    program's replays timed (``ShardRunner.plan_at``, each ended by a
+    sync).  Writes its results to ``out_dir/rank{rank}.pt``.  The kernels
+    must be built already: a rank only loads them."""
     import datetime
 
     import torch
@@ -2232,49 +2257,69 @@ def shard_rank(rank: int, world: int, backend: str, store: str, out_dir: str, de
         tc = dataclasses.replace(tc, executor="shard")
         runner = MinibatchEngine.from_config(tds.graph, tc.engine_config(gnn_cfg.num_layers),
                                              dataset=tds, device=dev).shard_runner
-        model = init_gnn(gnn_cfg, seed=tc.seed, device=dev)
-        params = list(model.parameters())
-        share = {}
-
-        def keep(i, g):
-            share.setdefault(i, g.detach().clone())
-
-        hooks = [p.register_hook(functools.partial(keep, i)) for i, p in enumerate(params)]
-        out = {"rank": rank, "backend": backend, "launches": [], "plans": [], "same": [],
-               "init": [p.detach().cpu().numpy().copy() for p in params]}
-
-        def on_step(step, plan):
-            out["launches"].append({k: LAUNCHES.get(k, 0) for k in KERNELS})
-            if step == 0:
-                for h in hooks:
-                    h.remove()
-                flat = torch.cat([share[i].reshape(-1) for i in range(len(params))])
-                dist.all_reduce(flat)
-                out["grad"] = [g.view_as(p).cpu().numpy()
-                                for g, p in zip(flat.split([p.numel() for p in params]),
-                                                params)]
-            stacked = host_leaves(runner.stack_plan(plan))
-            out["plans"].append(stacked if rank == 0 else None)
-            w = torch.cat([p.detach().reshape(-1) for p in params])
-            every = [torch.empty_like(w) for _ in range(world)]
-            dist.all_gather(every, w)
-            out["same"].append(all(torch.equal(x, every[0]) for x in every))
-
-        reset_launches()
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
+        out = {"rank": rank, "backend": backend, "runs": {}}
         laps.append(time.perf_counter())
-        res = train_gnn(tds, gnn_cfg, tc, model=model, device=dev, stage_times=True,
-                        on_step=on_step)
+        for mode in modes:
+            model = init_gnn(gnn_cfg, seed=tc.seed, device=dev)
+            params = list(model.parameters())
+            share = {}
+
+            def keep(i, g):
+                share.setdefault(i, g.detach().clone())
+
+            hooks = [p.register_hook(functools.partial(keep, i)) for i, p in enumerate(params)]
+            run = {"launches": [], "plans": [], "same": [],
+                   "init": [p.detach().cpu().numpy().copy() for p in params]}
+
+            def on_step(step, plan):
+                run["launches"].append({k: LAUNCHES.get(k, 0) for k in KERNELS})
+                if step == 0:
+                    for h in hooks:
+                        h.remove()
+                    flat = torch.cat([share[i].reshape(-1) for i in range(len(params))])
+                    dist.all_reduce(flat)
+                    run["grad"] = [g.view_as(p).cpu().numpy()
+                                   for g, p in zip(flat.split([p.numel() for p in params]),
+                                                   params)]
+                stacked = host_leaves(runner.stack_plan(plan))
+                run["plans"].append(stacked if rank == 0 else None)
+                w = torch.cat([p.detach().reshape(-1) for p in params])
+                every = [torch.empty_like(w) for _ in range(world)]
+                dist.all_gather(every, w)
+                run["same"].append(all(torch.equal(x, every[0]) for x in every))
+
+            reset_launches()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res = train_gnn(tds, gnn_cfg, tc, model=model, device=dev,
+                            stage_times=mode == "staged", on_step=on_step)
+            run["seconds"] = time.perf_counter() - t0
+            prev = {k: 0 for k in KERNELS}
+            for i, cum in enumerate(run["launches"]):
+                run["launches"][i] = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
+                prev = cum
+            run.update(losses=res.losses, stage_ms=res.stage_ms, step_ms=res.step_ms,
+                       exchanges=res.exchanges, compiled=res.compiled,
+                       weights=[p.detach().cpu().numpy().copy() for p in params],
+                       total={k: v for k, v in prev.items() if v},
+                       peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+            if mode == "captured":
+                run["plan_ms"] = []
+                for step in range(tc.num_steps):  # the first call captures
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    runner.plan_at(step)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    run["plan_ms"].append(1e3 * (time.perf_counter() - t0))
+                run["plan_program"] = (runner.plan_program.capture,
+                                       dict(runner.plan_program.compiles),
+                                       runner.plan_program.report())
+            out["runs"][mode] = run
         laps.append(time.perf_counter())
-        prev = {k: 0 for k in KERNELS}
-        for i, cum in enumerate(out["launches"]):
-            out["launches"][i] = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
-            prev = cum
-        out.update(laps=[b - a for a, b in zip(laps, laps[1:])],
-                   losses=res.losses, stage_ms=res.stage_ms, exchanges=res.exchanges,
-                   total={k: v for k, v in prev.items() if v},
-                   peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+        out["laps"] = [b - a for a, b in zip(laps, laps[1:])]
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2301,7 +2346,7 @@ def host_tensors(ds, back: bool = False):
 
 
 def run_ranks(backend: str, world: int, run_dir: Path, tds, gnn_cfg, tc,
-              device: str = "cuda") -> list:
+              device: str = "cuda", modes: tuple = ("staged",)) -> list:
     """``world`` processes of :func:`shard_rank` (``spawn``), one FileStore;
     fails as soon as one rank fails, and at ``SHARD_DEADLINE_S`` kills them
     all.  Returns each rank's results."""
@@ -2314,7 +2359,7 @@ def run_ranks(backend: str, world: int, run_dir: Path, tds, gnn_cfg, tc,
     store = run_dir / f"store-{backend}-{world}"
     shared = host_tensors(tds)
     procs = [ctx.Process(target=shard_rank, args=(r, world, backend, str(store), str(run_dir),
-                                                  device, shared, gnn_cfg, tc))
+                                                  device, shared, gnn_cfg, tc, modes))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2339,14 +2384,19 @@ def run_ranks(backend: str, world: int, run_dir: Path, tds, gnn_cfg, tc,
 def phase_shard(tds, gnn_cfg, tc, p3: dict, device: str = "cuda") -> dict:
     """Phase 3's configuration with ``executor="shard"``: 9a, ``num_pes``
     ranks on the one card over gloo (CUDA tensors, staged through host
-    memory by gloo); 9b, one rank over NCCL (P = 1), so NCCL's all-to-all
-    and all-reduce run on the card.  Checked against phase 3's card
-    SimExecutor run (``p3``): every step's stacked plan bit for bit, the
-    losses, the step-0 gradients; the ranks' weights equal bit for bit
-    after every step, each rank's launches per step; 9b's plans equal a
-    P = 1 SimExecutor's on the card.  Returns the launches (all ranks).
-    ``device="cpu"`` rehearses it on the CPU at a small size (gloo both
-    times, CPU tensors)."""
+    memory by gloo), through the eager staged step (gloo's collectives run
+    on the host: nothing to capture); 9b, one rank over NCCL (P = 1), so
+    NCCL's all-to-all and all-reduce run on the card: first through the
+    step program (one captured CUDA graph), then the same steps through
+    the eager staged step.  Checked against phase 3's card SimExecutor run
+    (``p3``) for 9a and a P = 1 SimExecutor's on the card for 9b: every
+    step's stacked plan bit for bit, the losses, 9a's step-0 gradients;
+    the ranks' weights equal bit for bit after every step, each rank's
+    launches per step; 9b's captured run against its staged run: plans
+    bit for bit, losses, final weights and step-0 gradients as phase 3
+    holds the CPU's, one capture.  Returns the launches (all ranks, all
+    runs).  ``device="cpu"`` rehearses it on the CPU at a small size
+    (gloo both times, CPU tensors, the program eager)."""
     import shutil
 
     import numpy as np
@@ -2368,29 +2418,23 @@ def phase_shard(tds, gnn_cfg, tc, p3: dict, device: str = "cuda") -> dict:
         want = {}  # the plain versions launch nothing
     total = {k: 0 for k in KERNELS}
     try:
-        for tag, backend, P in (("phase9a", "gloo", tc.num_pes),
-                                ("phase9b", "nccl" if card else "gloo", 1)):
+        for tag, backend, P, modes in (
+                ("phase9a", "gloo", tc.num_pes, ("staged",)),
+                ("phase9b", "nccl" if card else "gloo", 1, ("captured", "staged"))):
             run_tc = dataclasses.replace(tc, num_pes=P)
             t0 = time.perf_counter()
-            ranks = run_ranks(backend, P, run_dir, tds, gnn_cfg, run_tc, device)
+            ranks = run_ranks(backend, P, run_dir, tds, gnn_cfg, run_tc, device, modes)
             where = f"one card ({torch.cuda.get_device_name(0)})" if card else "the CPU"
             print(f"{tag}: backend {backend}, {P} rank(s) on {where}, {run_tc.num_steps} "
-                  f"steps in {time.perf_counter() - t0:.1f} s (process start included)")
+                  f"steps a run, runs {list(modes)}, in {time.perf_counter() - t0:.1f} s "
+                  "(process start included)")
             if backend == "gloo":
+                print(f"{tag}: the step runs eagerly, by configuration: gloo's collectives run "
+                      "on the host and cannot be recorded into a CUDA graph (an NCCL group "
+                      "captures, 9b)")
                 print(f"{tag} caveat: the ranks share one card and gloo stages every exchange "
                       "through host memory between processes; these exchange times say "
                       "nothing about an NVLink all-to-all between cards")
-            for r in ranks:
-                check(r["backend"] == backend, f"rank {r['rank']} ran {r['backend']}")
-                check(all(r["same"]), f"{tag} rank {r['rank']}: weights differ between ranks "
-                      f"after steps {[i for i, s in enumerate(r['same']) if not s]}")
-                for step, got in enumerate(r["launches"]):
-                    check(got == want, f"{tag} rank {r['rank']} step {step}: launches {got}, "
-                          f"want {want}")
-                check(r["losses"] == ranks[0]["losses"], f"{tag}: losses differ between ranks")
-                for k, v in r["total"].items():
-                    total[k] += v
-                report_rank(tag, r, P)
             if P == tc.num_pes:
                 ref_plans, ref_losses = p3["plans"], p3["losses"]
             else:
@@ -2398,48 +2442,116 @@ def phase_shard(tds, gnn_cfg, tc, p3: dict, device: str = "cuda") -> dict:
                                                      dataset=tds, device=device)
                 ref_plans = [host_leaves(engine.plan_at(s)) for s in range(run_tc.num_steps)]
                 ref_losses = train_gnn(tds, gnn_cfg, run_tc, device=device).losses
-            check(len(ref_plans) == len(ranks[0]["plans"]) == run_tc.num_steps,
-                  f"{tag}: {len(ranks[0]['plans'])} plans")
-            entries = 0
-            for step, (got, ref) in enumerate(zip(ranks[0]["plans"], ref_plans)):
-                check(set(got) == set(ref), f"{tag} step {step}: leaves {sorted(got)} vs "
-                      f"{sorted(ref)}")
-                for name, v in got.items():
-                    w = ref[name]
-                    check(v.dtype == w.dtype and np.array_equal(v, w),
-                          f"{tag} step {step}: plan leaf {name} differs from the SimExecutor's")
-                    entries += v.size
-            losses = ranks[0]["losses"]
-            rel = float(np.max(np.abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)))
-            print(f"{tag}: stacked plans equal the card SimExecutor's (P = {P}): {entries} "
-                  f"entries over {len(ref_plans)} steps; losses {losses} vs {list(ref_losses)}: "
-                  f"max rel diff {rel:.3e} (rtol {TRAIN_RTOL}); weights equal on every rank "
-                  f"after every step; launches per rank step {want}")
-            check(rel <= TRAIN_RTOL, f"{tag}: losses differ from the SimExecutor's by {rel}")
-            if P == tc.num_pes:
-                check_gradients(tag, ranks[0], p3["first"], "shard vs card SimExecutor")
+            for mode in modes:
+                runs = [r["runs"][mode] for r in ranks]
+                for r, run in zip(ranks, runs):
+                    check(r["backend"] == backend, f"rank {r['rank']} ran {r['backend']}")
+                    check(all(run["same"]), f"{tag} {mode} rank {r['rank']}: weights differ "
+                          f"between ranks after steps "
+                          f"{[i for i, s in enumerate(run['same']) if not s]}")
+                    for step, got in enumerate(run["launches"]):
+                        check(got == want, f"{tag} {mode} rank {r['rank']} step {step}: "
+                              f"launches {got}, want {want}")
+                    check(run["losses"] == runs[0]["losses"],
+                          f"{tag} {mode}: losses differ between ranks")
+                    for k, v in run["total"].items():
+                        total[k] += v
+                    report_rank(f"{tag} {mode}", r["rank"], run, P)
+                check(len(ref_plans) == len(runs[0]["plans"]) == run_tc.num_steps,
+                      f"{tag} {mode}: {len(runs[0]['plans'])} plans")
+                entries = 0
+                for step, (got, ref) in enumerate(zip(runs[0]["plans"], ref_plans)):
+                    check(set(got) == set(ref), f"{tag} {mode} step {step}: leaves "
+                          f"{sorted(got)} vs {sorted(ref)}")
+                    for name, v in got.items():
+                        w = ref[name]
+                        check(v.dtype == w.dtype and np.array_equal(v, w),
+                              f"{tag} {mode} step {step}: plan leaf {name} differs from the "
+                              "SimExecutor's")
+                        entries += v.size
+                losses = runs[0]["losses"]
+                rel = float(np.max(np.abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)))
+                print(f"{tag} {mode}: stacked plans equal the card SimExecutor's (P = {P}): "
+                      f"{entries} entries over {len(ref_plans)} steps; losses {losses} vs "
+                      f"{list(ref_losses)}: max rel diff {rel:.3e} (rtol {TRAIN_RTOL}); weights "
+                      f"equal on every rank after every step; launches per rank step {want}")
+                check(rel <= TRAIN_RTOL, f"{tag} {mode}: losses differ from the SimExecutor's "
+                      f"by {rel}")
+                if P == tc.num_pes:
+                    check_gradients(f"{tag} {mode}", runs[0], p3["first"],
+                                    "shard vs card SimExecutor")
+            for r in ranks:
+                group, setup, runs = r["laps"]
+                print(f"{tag} rank {r['rank']}: s in the rank: group {group:.2f}, engine "
+                      f"{setup:.2f}, the runs {runs:.2f}")
+            if "captured" in modes:
+                shard_captured_vs_staged(tag, ranks[0], p3["first"]["names"], card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     print(f"phase9: {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
-def report_rank(tag: str, r: dict, P: int) -> None:
-    """One rank's steps: wall ms split into the stages, the exchanges' count,
-    bytes (the buffer handed to ``all_to_all_single``, and the part that
-    leaves the rank) and event ms; its peak device memory, and where its
-    seconds went after the process started."""
-    for step, (st, ex) in enumerate(zip(r["stage_ms"], r["exchanges"])):
+def shard_captured_vs_staged(tag: str, r: dict, names: list, card: bool) -> None:
+    """A rank's captured run against its staged run of the same steps:
+    plans bit for bit, losses within ``TRAIN_RTOL``, final weights within
+    ``ATOL``, step-0 gradients by :func:`check_gradients`; on a card one
+    capture of the step program and of the plan program.  Prints the
+    capture's ms, pool bytes and launches a replay, the captured steps'
+    wall ms and the plan program's replays' ms."""
+    import numpy as np
+
+    cap, st = r["runs"]["captured"], r["runs"]["staged"]
+    for step, (a, b) in enumerate(zip(cap["plans"], st["plans"], strict=True)):
+        check(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a),
+              f"{tag} step {step}: the captured run's plan differs from the staged run's")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(cap["losses"], st["losses"], strict=True))
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(cap["weights"], st["weights"],
+                                                            strict=True))
+    check(rel <= TRAIN_RTOL and gap <= ATOL, f"{tag}: captured vs staged losses rel {rel}, "
+          f"final weights {gap}")
+    check_gradients(f"{tag} captured", cap, {"names": names, **st}, "captured vs staged")
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
+    print(f"{tag} captured vs staged: plans equal bit for bit over {len(cap['plans'])} steps; "
+          f"losses max rel diff {rel:.3e} (rtol {TRAIN_RTOL}, bit-equal "
+          f"{cap['losses'] == st['losses']}); final weights max abs diff {gap:.3e} (atol "
+          f"{ATOL})")
+    comp = cap["compiled"]
+    capture, plan_compiles, plan_rep = cap["plan_program"]
+    if card:
+        check(bool(comp) and list(comp["captures"].values()) == [1]
+              and comp["compiles"] == comp["captures"],
+              f"{tag}: the step program's captures {comp}")
+        check(capture and len(plan_rep) == 1 and list(plan_compiles.values()) == [1],
+              f"{tag}: the plan program's captures {plan_compiles}, {plan_rep}")
+    for key, rep in comp.get("report", {}).items():
+        print(f"{tag} step program (key {key}): one capture, {rep['capture_ms']:.1f} ms; pool "
+              f"grown {rep['pool_bytes']} B; launches a replay {rep['launches']}; "
+              f"compiles {comp['compiles']}")
+    for key, rep in plan_rep.items():
+        print(f"{tag} plan program (key {key}): capture {rep['capture_ms']:.1f} ms, pool "
+              f"{rep['pool_bytes']} B, launches a replay {rep['launches']}")
+    print(f"{tag} captured: step ms (to the loss's read) {fmt(cap['step_ms'])}; plan_at ms "
+          f"(each ended by a sync; the first call captures where it can) "
+          f"{fmt(cap['plan_ms'])}; staged step ms "
+          f"{fmt([sum(s.values()) for s in st['stage_ms']])}, its plan "
+          f"{fmt([s['plan'] for s in st['stage_ms']])}; captured {capture}")
+
+
+def report_rank(tag: str, rank: int, run: dict, P: int) -> None:
+    """One rank's run: each step's wall ms (split into the stages where
+    timed) and the exchanges' count, bytes (the buffer handed to
+    ``all_to_all_single``, and the part that leaves the rank) and event
+    ms; its peak device memory and its seconds in ``train_gnn``."""
+    for step, (st, ex) in enumerate(zip(run["stage_ms"], run["exchanges"])):
         parts = "; ".join(
             f"{kind} x{n} {b} B ({b * (P - 1) // P} B to other ranks) {ms:.3f} ms"
             for kind, (n, b, ms) in ex.items())
-        print(f"{tag} rank {r['rank']} step {step}: wall {sum(st.values()):.3f} ms = "
+        print(f"{tag} rank {rank} step {step}: wall {sum(st.values()):.3f} ms = "
               + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
               + f"; exchanges (ids in plan, forward and backward in forward_backward): {parts}")
-    group, setup, train = r["laps"]
-    print(f"{tag} rank {r['rank']}: peak device memory {r['peak'] / 2**30:.3f} GiB; s in the "
-          f"rank: group {group:.2f}, engine and model {setup:.2f}, train_gnn {train:.2f} "
-          "(its engine and the per-step checks included)")
+    print(f"{tag} rank {rank}: peak device memory {run['peak'] / 2**30:.3f} GiB; train_gnn "
+          f"{run['seconds']:.2f} s (its engine and the per-step checks included)")
 
 
 # --------------------------------------------------------------------------
@@ -2628,7 +2740,81 @@ def phase_analysis(ds, serve_cfg, gnn_cfg, device: str = "cuda", train=None) -> 
         if device == "cuda":  # the CPU's plain spmm reads its row counts
             check(step.syncs == 0 and step.sync_warnings == 0,
                   f"phase10b: the train step syncs {step.syncs} / {step.sync_warnings}")
+        analysis_shard_step(dev, tds, tcfg, tc)
+    analysis_lm_step(dev)
     return launches
+
+
+def analysis_shard_step(dev, tds, gnn_cfg, tc) -> None:
+    """10b: one replay of the shard executor's plan program and of its
+    step program, on a one-rank group in this process (NCCL on a card,
+    gloo on the CPU; a FileStore in a temporary directory), under the trace
+    pass: no host sync on a card.  The programs go before the group."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.trace import record_call
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.train import adam_init, step_program
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    stc = dataclasses.replace(tc, executor="shard", num_pes=1)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, init_method=f"file://{d}/store", rank=0, world_size=1)
+        try:
+            engine = MinibatchEngine.from_config(tds.graph, stc.engine_config(gnn_cfg.num_layers),
+                                                 dataset=tds, device=dev)
+            runner = engine.shard_runner
+            runner.plan_at(0)  # warm-up + capture
+            _, plan = record_call(dev, runner.plan_at, 1)
+            model = init_gnn(gnn_cfg, seed=SEED, device=dev)
+            prog = step_program(engine, gnn_cfg, model, adam_init(model),
+                                torch.as_tensor(tds.labels, device=dev), stc.lr)
+            float(prog(stc.local_batch, engine.step_state(0))[0])  # warm-up + capture
+            _, step = record_call(dev, prog, stc.local_batch, engine.step_state(1))
+            print(f"phase10b shard executor ({backend}, 1 rank; captured {prog.capture}): one "
+                  f"plan_at replay {plan.syncs} syncs dispatched / {plan.sync_warnings} sync-debug "
+                  f"warnings ({len(plan.ops)} ops); one train step replay {step.syncs} / "
+                  f"{step.sync_warnings} ({len(step.ops)} ops; sites {step.sites})")
+            if dev.type == "cuda":
+                check(prog.capture and runner.plan_program.capture,
+                      "phase10b: the shard programs did not capture under NCCL")
+                check(plan.syncs == plan.sync_warnings == step.syncs == step.sync_warnings == 0,
+                      f"phase10b: the shard programs sync: plan {plan.sites}, step {step.sites}")
+            del prog, runner, engine
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+
+
+def analysis_lm_step(dev) -> None:
+    """10b: one replay of ``make_train_step``'s program (a reduced gemma2,
+    batch 4 x S 64) under the trace pass: no host sync on a card."""
+    import numpy as np
+    from repro_torch.analysis.trace import record_call
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import adam_init
+
+    cfg = get_config("gemma2-2b").reduced()
+    model = init_lm(cfg, seed=SEED, device=dev)
+    opt, step = adam_init(model), make_train_step(cfg, lr=1e-3)
+    batch = on(lm_train_batch(cfg, np.random.default_rng(SEED), LM_BATCH, LM_TRAIN_CHECK_S), dev)
+    float(step(model, opt, batch)[2]["loss"])  # warm-up + capture
+    _, rec = record_call(dev, step, model, opt, batch)
+    prog = step.program(model)
+    print(f"phase10b LM train step ({cfg.name}, B {LM_BATCH} x S {LM_TRAIN_CHECK_S}; captured "
+          f"{prog.capture}): one replay {rec.syncs} syncs dispatched / {rec.sync_warnings} "
+          f"sync-debug warnings ({len(rec.ops)} ops; sites {rec.sites})")
+    if dev.type == "cuda":
+        check(prog.capture and rec.syncs == rec.sync_warnings == 0,
+              f"phase10b: the LM train step syncs {rec.syncs} / {rec.sync_warnings}")
 
 
 # --------------------------------------------------------------------------
@@ -2662,6 +2848,18 @@ def lm_greedy(serve, model, logits, state, n: int, step_ms: list = None):
             step_ms.append(1e3 * (time.perf_counter() - t0))
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     return np.stack(out, 1), state
+
+
+def free_cached(dev) -> None:
+    """Collect dead objects (a captured program's graph among them) and, on
+    a card, return the cached blocks to the device for the next model."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def sync(dev) -> None:
@@ -2997,16 +3195,48 @@ def lm_grads_compare(tag: str, cfg, card, cpu, batch: dict) -> str:
             + lm_grads_close(tag, cpu, g_card, g_cpu))
 
 
-def lm_steps(cfg, model, batch: dict, steps: int) -> list:
-    """The losses of ``steps`` ``make_train_step`` steps on one batch."""
+def lm_steps(cfg, model, batch: dict, steps: int, eager: bool = False) -> tuple:
+    """The losses of ``steps`` ``make_train_step`` steps on one batch, and
+    the step's program; ``eager`` runs the program's body as it is (on a
+    card the step replays one captured graph)."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.train import adam_init
 
     step, opt, out = make_train_step(cfg, lr=1e-3), adam_init(model), []
+    prog = step.program(model)
     for _ in range(steps):
-        model, opt, m = step(model, opt, batch)
-        out.append(float(m["loss"]))
-    return out
+        if eager:
+            loss = prog.fn(list(model.parameters()), opt, batch)
+        else:
+            model, opt, m = step(model, opt, batch)
+            loss = m["loss"]
+        out.append(float(loss))
+    return out, prog
+
+
+def lm_captured_vs_eager(tag: str, cfg, model, batch: dict, steps: int) -> tuple:
+    """``steps`` steps of ``make_train_step``'s program (captured on a card)
+    from ``model``'s weights against its body run eagerly from a copy:
+    losses within ``TRAIN_RTOL`` (cuBLAS may take another algorithm inside
+    a graph), one capture on a card.  ``model`` is trained in place.
+    Returns the captured losses and a line to print."""
+    import copy
+
+    eager_model = copy.deepcopy(model)
+    a, prog = lm_steps(cfg, model, batch, steps)
+    e, _ = lm_steps(cfg, eager_model, batch, steps, eager=True)
+    err = max(abs(x - y) / abs(y) for x, y in zip(a, e))
+    gap = max(float((p.detach() - q.detach()).abs().max())
+              for p, q in zip(model.parameters(), eager_model.parameters()))
+    check(err <= TRAIN_RTOL, f"{tag}: captured losses {a}, eager {e} (rtol {TRAIN_RTOL})")
+    if next(model.parameters()).is_cuda:
+        check(prog.capture and list(prog.captures.values()) == [1]
+              and list(prog.compiles.values()) == [1],
+              f"{tag}: the train program's captures {prog.captures}, compiles {prog.compiles}")
+    del eager_model
+    return a, (f"{steps} steps through the program (captured {prog.capture}, "
+               f"{sum(prog.captures.values())} capture) within {err:.3e} of its body run eagerly "
+               f"(rtol {TRAIN_RTOL}; bit-equal {a == e}), final weights max abs diff {gap:.3e}")
 
 
 def coop_route_syncs(dev, model, cfg, tokens) -> tuple:
@@ -3045,14 +3275,15 @@ def phase_lm_train_archs(dev) -> None:
         cpu_model = copy.deepcopy(model).to("cpu")
         batch = lm_train_batch(cfg, np.random.default_rng(SEED), LM_BATCH, LM_TRAIN_CHECK_S)
         line = lm_grads_compare(f"phase12a {arch}", cfg, model, cpu_model, batch)
-        a = lm_steps(cfg, model, on(batch, dev), LM_TRAIN_STEPS)
-        b = lm_steps(cfg, cpu_model, on(batch, "cpu"), LM_TRAIN_STEPS)
+        a, against = lm_captured_vs_eager(f"phase12a {arch}", cfg, model, on(batch, dev),
+                                          LM_TRAIN_STEPS)
+        b, _ = lm_steps(cfg, cpu_model, on(batch, "cpu"), LM_TRAIN_STEPS)
         err = max(abs(x - y) / abs(y) for x, y in zip(a, b))
         check(err <= TRAIN_RTOL and a[-1] < a[0],
               f"phase12a {arch}: losses card {a} cpu {b} (rtol {TRAIN_RTOL}, falling)")
         print(f"phase12a {arch}: {line}; {LM_TRAIN_STEPS} steps' losses card "
               f"{[round(v, 6) for v in a]} within {err:.3e} of the cpu's (rtol {TRAIN_RTOL}), "
-              f"falling ({time.perf_counter() - t0:.1f} s)", flush=True)
+              f"falling; card {against} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), cooperative_embed=True)
     toks = synthetic_token_batch(LM_BATCH, COOP_CHECK_S + 1, cfg.vocab_size, seed=SEED)
@@ -3126,37 +3357,29 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
     toks = synthetic_token_batch(B, S + 1, cfg.vocab_size, seed=SEED)
     batch = on({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, dev)
     step = make_train_step(cfg, lr=1e-3)
+    prog = step.program(model)
+    eager = lambda: prog.fn(list(model.parameters()), opt, batch)  # noqa: E731
+    # the eager step first: the peak (phase 13b's), FLOPs and the split,
+    # before the capture's pool holds memory of its own
     t0 = time.perf_counter()
-    model, opt, m = step(model, opt, batch)  # warm-up: cuBLAS handles and algorithms
-    sync(dev)
-    losses, step_ms = [float(m["loss"])], []
+    losses = [float(eager())]  # warm-up: cuBLAS handles and algorithms
     warm_ms = 1e3 * (time.perf_counter() - t0)
-    for _ in range(LM_TRAIN_TIMED):
-        sync(dev)
-        t0 = time.perf_counter()
-        model, opt, m = step(model, opt, batch)
-        sync(dev)
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        losses.append(float(m["loss"]))
-    check(all(np.isfinite(losses)), f"phase12b: losses {losses}")
-    step_s = float(np.median(step_ms)) / 1e3
-    flops = model_flops(cfg, spec, active_param_count(cfg))
+    sync(dev)
+    t0 = time.perf_counter()
+    losses.append(float(eager()))
+    eager_ms = 1e3 * (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if card_run else 0.0
-    print(f"phase12b make_train_step (B {B}, S {S}): step ms (each ended by a sync) "
-          + ", ".join(f"{v:.1f}" for v in step_ms) + f", median {1e3 * step_s:.1f} (warm-up "
-          f"{warm_ms:.1f}); {B * S / step_s:.1f} tokens/s; model_flops {flops:.4e} "
-          f"(6 N D, N = active_param_count {active_param_count(cfg)}), "
-          f"{flops / step_s / PEAK_FLOPS:.4f} of {PEAK_FLOPS / 1e12:.0f} TFLOP/s float32; "
-          f"losses {[round(v, 6) for v in losses]}; peak memory {peak:.3f} GiB allocated "
-          f"({base:.3f} GiB of it held by earlier phases); [{card}]", flush=True)
     # one step under PyTorch's FLOP counter, for phase 13b's traced count
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as fc:
-        model, opt, m = step(model, opt, batch)
+        eager()
         sync(dev)
     counted_flops = fc.get_total_flops()
-    print(f"phase12b one step under FlopCounterMode: {counted_flops:.6e} FLOPs", flush=True)
+    print(f"phase12b the eager step (the program's body): warm-up {warm_ms:.1f} ms, then "
+          f"{eager_ms:.1f} ms (ended by the loss's read); peak memory {peak:.3f} GiB allocated "
+          f"({base:.3f} GiB of it held by earlier phases); one step under FlopCounterMode: "
+          f"{counted_flops:.6e} FLOPs; [{card}]", flush=True)
     # one step split into its stages, each ended by a sync
     params = list(model.parameters())
     marks = [time.perf_counter()]
@@ -3171,9 +3394,44 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
     marks.append(time.perf_counter())
     del loss, grads, params
     split = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
-    print(f"phase12b one step split (each stage ended by a sync): forward (lm_loss) "
+    print(f"phase12b one eager step split (each stage ended by a sync): forward (lm_loss) "
           f"{split[0]:.1f} ms, backward (remat recomputes included) {split[1]:.1f} ms, "
           f"adam_update {split[2]:.1f} ms; [{card}]", flush=True)
+    # the program: the eager warm-up and the capture, then replays
+    if card_run:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    model, opt, m = step(model, opt, batch)
+    losses.append(float(m["loss"]))
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    step_ms = []
+    for _ in range(LM_TRAIN_TIMED):
+        sync(dev)
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    check(all(np.isfinite(losses)), f"phase12b: losses {losses}")
+    step_s = float(np.median(step_ms)) / 1e3
+    flops = model_flops(cfg, spec, active_param_count(cfg))
+    cap_peak = torch.cuda.max_memory_allocated(dev) / 2**30 if card_run else 0.0
+    rep = next(iter(prog.report().values()), None)
+    if card_run:
+        check(rep is not None and list(prog.captures.values()) == [1],
+              f"phase12b: the train program's captures {prog.captures}")
+    print(f"phase12b make_train_step (B {B}, S {S}), captured {prog.capture}: first call "
+          f"(eager warm-up + capture) {first_ms:.1f} ms"
+          + (f", of it capture {rep['capture_ms']:.1f} ms, pool grown {rep['pool_bytes']} B, "
+             f"{sum(rep['launches'].values())} launches of the seven kernels a replay"
+             if rep else "")
+          + "; replayed step ms (to the loss's read) " + ", ".join(f"{v:.1f}" for v in step_ms)
+          + f", median {1e3 * step_s:.1f} (eager {eager_ms:.1f}); {B * S / step_s:.1f} tokens/s; "
+          f"model_flops {flops:.4e} (6 N D, N = active_param_count {active_param_count(cfg)}), "
+          f"{flops / step_s / PEAK_FLOPS:.4f} of {PEAK_FLOPS / 1e12:.0f} TFLOP/s float32; "
+          f"losses {[round(v, 6) for v in losses]}; peak memory with the graph's pool "
+          f"{cap_peak:.3f} GiB allocated; [{card}]", flush=True)
     if card_run:
         for _ in range(2):  # the first trace pays the tracer's start-up
             sync(dev)
@@ -3185,7 +3443,7 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
         stats = cuda_kernel_us(prof)
         busy_ms = sum(us for us, _, _ in stats) / 1e3
         gemm = [(us, c) for us, c, key in stats if "gemm" in key.lower()]
-        print(f"phase12b profile, one step (CUDA tracing on): wall {wall_ms:.1f} ms (the "
+        print(f"phase12b profile, one replayed step (CUDA tracing on): wall {wall_ms:.1f} ms (the "
               f"tracer's cost included), device busy {busy_ms:.1f} ms, idle share "
               f"{1 - busy_ms / wall_ms:.4f}; the untraced median step {1e3 * step_s:.1f} ms, "
               f"{sum(c for _, c, _ in stats)} CUDA kernels, of them float32 GEMMs "
@@ -3193,11 +3451,25 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
               f"[{card}]")
         for us, count, key in stats[:10]:
             print(f"  device {us / 1e3:10.3f} ms  calls {count:6d}  {key[:90]}")
-        _, rec = record_call(dev, step, model, opt, batch)
-        print(f"phase12b one train step, trace pass: {rec.syncs} syncs dispatched / "
+        rec = record_call(dev, step, model, opt, batch)[1]
+        print(f"phase12b one replayed train step, trace pass: {rec.syncs} syncs dispatched / "
               f"{rec.sync_warnings} sync-debug warnings, {len(rec.ops)} ops; sites "
               f"{rec.sites}", flush=True)
-    del model, opt, batch, m
+        check(rec.syncs == rec.sync_warnings == 0, f"phase12b: the replay syncs: {rec.sites}")
+    del model, opt, batch, m, prog, eager, step
+    free_cached(dev)
+
+    # captured against eager at the published widths, 2 layers, B x S as above
+    small = dataclasses.replace(cfg, num_layers=2)
+    model = init_lm(small, seed=SEED, device=dev)
+    batch = on(lm_train_batch(small, np.random.default_rng(SEED), B, S), dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30 if card_run else 0.0
+    _, line = lm_captured_vs_eager(f"phase12b {small.name} at 2 layers", small, model, batch,
+                                   LM_TRAIN_STEPS)
+    print(f"phase12b {small.name} at 2 layers, B {B} x S {S} ({held:.3f} GiB allocated "
+          f"before its model): {line}; [{card}]", flush=True)
+    del model, batch
+    free_cached(dev)
 
     # card against CPU at the published widths, 2 layers
     small = dataclasses.replace(cfg, num_layers=2)
@@ -3251,7 +3523,9 @@ def phase_coop_embed(card: str, dev, cfg, batch: int, seq: int) -> dict:
     model = init_lm(cfg, seed=SEED, device=dev)
     ids = x.reshape(-1).to(torch.int32).contiguous()
     uniq_r, inv_r = unique_with_inverse_ref(ids, V)
-    h = _embed_tokens(model, cfg, x)
+    # detached: a live autograd graph over the weights, made on this stream,
+    # would break the train step's capture below
+    h = _embed_tokens(model, cfg, x).detach()
     h_plain = gather_ref(gather_ref(model.embed.detach(), uniq_r), inv_r).reshape(h.shape)
     check(torch.equal(h, h_plain) and torch.equal(h, model.embed[x]),
           "phase12c: the kernel route's rows differ from the plain versions' or embed[tokens]")
@@ -3265,19 +3539,26 @@ def phase_coop_embed(card: str, dev, cfg, batch: int, seq: int) -> dict:
     line = (f"lm_loss {l_coop:.6f} against the plain route's {l_plain:.6f}; "
             + lm_grads_close("phase12c", model, g_coop, g_plain))
     step, opt = make_train_step(cfg, lr=1e-3), adam_init(model)
+    _, _, m = step(model, opt, data)  # on a card the eager warm-up, then the capture
     reset_launches()
     _, _, m = step(model, opt, data)
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
     check(bool(torch.isfinite(m["loss"])), "phase12c: non-finite loss")
+    prog = step.program(model)
+    rep = next(iter(prog.report().values()), None)
     if dev.type == "cuda":
         want = {k: COOP_STEP_LAUNCHES.get(k, 0) for k in KERNELS}
         check(launches == want, f"phase12c: the train step launched {launches}, not {want}")
+        check(rep is not None and list(prog.captures.values()) == [1],
+              f"phase12c: the train program's captures {prog.captures}")
     print(f"phase12c {cfg.name} (d {cfg.d_model}, {cfg.num_layers} layers, V {V}, enc_len "
           f"{cfg.enc_len}) cooperative embedding at B {batch} x S {seq}: {distinct} "
           f"distinct ids of {x.numel()} token slots ({x.numel() / distinct:.2f} slots a row "
           f"read); h equal bit for bit to the plain versions' and to embed[tokens]; {line}; "
-          f"one make_train_step loss {float(m['loss']):.6f} ({time.perf_counter() - t0:.1f} s)"
-          f"; [{card}]", flush=True)
+          f"the second make_train_step call (a replay where captured: {prog.capture}) loss "
+          f"{float(m['loss']):.6f}, launches {launches}"
+          + (f"; capture {rep['capture_ms']:.1f} ms, pool grown {rep['pool_bytes']} B" if rep
+             else "") + f" ({time.perf_counter() - t0:.1f} s); [{card}]", flush=True)
     out = {"launches": launches}
     if dev.type == "cuda":
         path, per = ["lm_train"], "1/step"

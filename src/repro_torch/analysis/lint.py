@@ -100,13 +100,14 @@ HOT_SCOPES = {
         "MinibatchEngine.plan_at", "MinibatchEngine.gather_features",
         "MinibatchEngine.apply_model",
     ),
-    "engine/shard.py": ("ShardRunner.plan_at", "ShardRunner.loss_and_grad"),
+    "engine/shard.py": ("ShardRunner.plan_at", "ShardRunner._build_at",
+                        "ShardRunner.loss_and_grad", "ShardRunner.plan_loss_and_grad"),
     "models/gnn/layers.py": (
         "GCNLayer.forward", "SAGELayer.forward", "RGCNLayer.forward",
         "GATLayer.forward", "GNN.forward", "gnn_apply", "gnn_apply_stacked",
         "gnn_apply_cooperative",
     ),
-    "train/loop.py": ("plan_loss", "step_loss", "train_step", "step_program"),
+    "train/loop.py": ("plan_loss", "step_loss", "plan_grads", "train_step", "step_program"),
     "train/metrics.py": ("masked_softmax_xent",),
     "train/optim.py": ("adam_update",),
     "store/clock.py": ("hash_set", "unique_rows", "_insert", "clock_access"),

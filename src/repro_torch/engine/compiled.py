@@ -1,5 +1,6 @@
 """Keyed device programs: the port's counterpart of ``jax.jit`` as the JAX
-package uses it (``MinibatchEngine.plan_at``, ``BucketedJit`` in serving).
+package uses it (``MinibatchEngine.plan_at``, ``ShardRunner``'s build,
+the train steps, ``BucketedJit`` in serving).
 
 A :class:`CompiledFunction` wraps a function of tensors.  Each call names
 a key (a serving bucket, or the one shape of ``plan_at``); the first call
@@ -33,8 +34,10 @@ are restored, since capture launches nothing) and added to
 
 Eager is chosen by the caller's configuration only: the CPU, the
 reference plan backend (its ``torch.unique`` dedup has a data-dependent
-shape) and the shard executor (gloo and NCCL collectives) run the function
-as it is, under the same signature check.  The graphs of one engine or
+shape), the shard executor over gloo (its collectives run on the host;
+NCCL's are kernels, recorded like any other) and an LM step under a
+registered mesh (the dry-run's fake tensors) run the function as it is,
+under the same signature check.  The graphs of one engine or
 server may share a memory pool: they replay one at a time on one stream,
 and each replay's outputs are cloned before the next one runs.
 """

@@ -19,8 +19,10 @@ replays it every step: the seed draw and the sampling read the step from
 one device buffer (:class:`repro_torch.core.rng.DeviceRNGState`: the two
 seeds, ``cos``/``sin`` of the interpolation, the draw's key and the nested
 sub-batch offset), which the host fills from pinned memory without a
-sync.  The CPU, ``plan_backend="reference"`` and ``executor="shard"`` run
-the same device-state code eagerly.  Seed draws and plans are bit-equal
+sync.  With ``executor="shard"`` each rank's build is a program of its
+own (:attr:`ShardRunner.plan_program`), captured when the group runs
+NCCL.  The CPU, ``plan_backend="reference"`` and a gloo group run the
+same device-state code eagerly.  Seed draws and plans are bit-equal
 to the JAX package's on the CPU, and to the CPU run on a card.
 ``executor="shard"`` runs one PE per rank of a ``torch.distributed``
 process group (:attr:`MinibatchEngine.shard_runner`,
@@ -313,11 +315,13 @@ class MinibatchEngine:
         all-to-alls between the ranks) and gets that unstacked plan, equal
         bit for bit to its row of the SimExecutor plan.
         """
+        if isinstance(self.ex, ShardExecutor):
+            return self.shard_runner.plan_at(step)
         return self.plan_and_seeds(step)[0]
 
     def plan_and_seeds(self, step: int) -> tuple[Plan, torch.Tensor]:
-        """``(plan_at(step), the step's (P, b) device seed rows)`` from one
-        program run, with no device sync."""
+        """``(plan_at(step), the step's (P, b) device seed rows)`` with no
+        device sync (one program run, two under the shard executor)."""
         if isinstance(self.ex, ShardExecutor):
             return self.shard_runner.plan_at(step), self._seed_batch(step)
         return self.plan_program(self.config.local_batch, self.step_state(step))
@@ -330,11 +334,14 @@ class MinibatchEngine:
 
     @property
     def captures(self) -> bool:
-        """Whether :attr:`plan_program` records a CUDA graph: a card, the
-        fused backend and no shard executor (the configuration alone
-        decides; see :mod:`repro_torch.engine.compiled`)."""
-        return (self.device.type == "cuda" and self.config.plan_backend == "fused"
-                and not isinstance(self.ex, ShardExecutor))
+        """Whether this engine's programs record CUDA graphs: a card and the
+        fused backend, and under the shard executor an NCCL group
+        (:attr:`ShardRunner.captures`: gloo's collectives run on the host).
+        The configuration alone decides; see
+        :mod:`repro_torch.engine.compiled`."""
+        if isinstance(self.ex, ShardExecutor):
+            return self.shard_runner.captures
+        return self.device.type == "cuda" and self.config.plan_backend == "fused"
 
     @cached_property
     def plan_program(self) -> CompiledFunction:

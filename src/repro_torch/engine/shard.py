@@ -20,16 +20,34 @@ Floating-point loss and gradients agree to reduction order: each rank
 sums its own seeds' cross-entropy and the shares are all-reduced, where
 the simulation reduces one flat array.
 
-Gradient sync is explicit in :meth:`ShardRunner.loss_and_grad`: each rank
-differentiates its share of the global masked mean (its CE sum over the
-all-reduced valid count), then the loss shares and every gradient are
+Gradient sync is explicit in :meth:`ShardRunner.plan_loss_and_grad`: each
+rank differentiates its share of the global masked mean (its CE sum over
+the all-reduced valid count), then the loss shares and every gradient are
 all-reduced (SUM) in one buffer.  The backward all-to-alls of Alg. 1
 come from autograd through the exchange.
+
+Compiled programs
+-----------------
+As the JAX package jits the ``shard_map`` build, the plan build is one
+:class:`repro_torch.engine.compiled.CompiledFunction`
+(:attr:`ShardRunner.plan_program`), keyed by the local batch, that reads
+its step from the engine's :class:`repro_torch.core.rng.DeviceRNGState`
+buffer; ``train_gnn`` runs the whole step as one more
+(:func:`repro_torch.train.step_program`).  Each is one captured CUDA
+graph on a card when the group runs NCCL (:attr:`ShardRunner.captures`):
+NCCL's collectives are kernels on the card, recorded into the graph.
+Gloo's run on the host and cannot be recorded, so under gloo, and on the
+CPU, the same bodies run eagerly.  A replay launches the recorded
+collectives, so every rank must have captured the same sequence of
+collectives and must replay its graphs in the same order as the others:
+the bodies never branch on the rank (the rank only picks this PE's seed
+row), and every rank calls the same programs at the same steps.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
@@ -43,6 +61,8 @@ from repro_torch.core.cooperative import (
 )
 from repro_torch.core.feature_loader import FeatureStore
 from repro_torch.core.graph import INVALID
+from repro_torch.core.rng import DeviceRNGState
+from repro_torch.engine.compiled import CompiledFunction
 from repro_torch.train.metrics import masked_softmax_xent_parts
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard, typing only
@@ -55,7 +75,15 @@ def _nop() -> None:
 
 @dataclass
 class ShardRunner:
-    """Cooperative engine bound to a process group; one PE per rank."""
+    """Cooperative engine bound to a process group; one PE per rank.
+
+    Its programs (:attr:`plan_program`, and the train step that
+    ``train_gnn`` builds on it) record the rank's collectives into CUDA
+    graphs under NCCL.  The contract that makes their replays safe: every
+    rank captures the same sequence of collectives (no body branches on
+    the rank) and replays the same programs in the same order, so the
+    recorded all-to-alls and all-reduces meet in lockstep; a rank that
+    replays alone would wait on its peers until the group times out."""
 
     engine: "MinibatchEngine"
     ex: ShardExecutor
@@ -91,13 +119,37 @@ class ShardRunner:
         """This rank's cooperative plan for ``step``: row ``rank`` of the
         step's seed batch under the shared RNG state, built with id
         all-to-alls between the ranks.  Bit-identical to row ``rank`` of
-        the SimExecutor ``plan_at``."""
+        the SimExecutor ``plan_at``.  A replay of :attr:`plan_program`
+        where :attr:`captures`; the call does not wait for the device."""
+        eng = self.engine
+        return self.plan_program(eng.config.local_batch, eng.step_state(step))
+
+    def _build_at(self, state: DeviceRNGState) -> CoopMinibatch:
+        """The body of :attr:`plan_program`: this rank's seed row of the
+        step whose state the buffer holds, and its plan."""
         eng, cfg = self.engine, self.engine.config
-        seeds = eng._seed_batch(step)[self.rank]
+        seeds = eng._seed_draw(state)[self.rank]
         return build_cooperative_minibatch(
-            eng.graph, eng.sampler, eng.part, seeds, eng.rng_state(step),
-            cfg.num_layers, eng.caps, self.ex, backend=cfg.plan_backend,
+            eng.graph, eng.sampler, eng.part, seeds, state, cfg.num_layers, eng.caps,
+            self.ex, backend=cfg.plan_backend,
         )
+
+    @property
+    def captures(self) -> bool:
+        """Whether this rank's programs record CUDA graphs: a card, the
+        fused backend, an NCCL group (gloo's collectives run on the host)
+        and no exchange log (its timing events cannot be recorded).  The
+        configuration alone decides."""
+        eng = self.engine
+        return (eng.device.type == "cuda" and eng.config.plan_backend == "fused"
+                and self.ex.log is None and dist.get_backend(self.ex.group) == "nccl")
+
+    @cached_property
+    def plan_program(self) -> CompiledFunction:
+        """``plan_at``'s program, keyed by the local batch: one CUDA graph
+        of :meth:`_build_at` (the id all-to-alls included) serves every
+        step of the schedule."""
+        return CompiledFunction("shard.plan_at", self._build_at, capture=self.captures)
 
     def stack_plan(self, plan: CoopMinibatch) -> CoopMinibatch:
         """Every rank's plan in the stacked ``(P, ...)`` layout (an
@@ -128,24 +180,33 @@ class ShardRunner:
     # ------------------------------------------------------------------
     def loss_and_grad(self, model, gnn_cfg, store, labels: torch.Tensor, step: int,
                       mark: Callable = _nop):
-        """``(loss, grads, plan)`` of one step on this rank.
+        """``(loss, grads, plan)`` of one step on this rank: :meth:`plan_at`,
+        then :meth:`plan_loss_and_grad`.  ``mark()`` ends each of the plan,
+        gather, forward+backward and all-reduce stages."""
+        plan = self.plan_at(step)
+        mark()
+        loss, grads = self.plan_loss_and_grad(plan, model, gnn_cfg, store, labels, mark)
+        return loss, grads, plan
 
-        Builds the local plan, gathers the *owned* input rows from
-        ``store`` (the ``gather`` kernel on a card), runs the cooperative
-        forward (all-to-all redistribution between layers), differentiates
-        this rank's share of the global masked-mean CE, then all-reduces
-        the loss shares and gradients.  ``loss`` is the global loss and
-        ``grads`` the global gradients, equal on every rank; the loss
-        semantics are the SimExecutor's (the same masked mean over the
-        same B = b·P seed rows).  ``mark()`` ends each of the plan, gather,
-        forward+backward and all-reduce stages.
+    def plan_loss_and_grad(self, plan: CoopMinibatch, model, gnn_cfg, store,
+                           labels: torch.Tensor, mark: Callable = _nop):
+        """``(loss, grads)`` of this rank's ``plan``.
+
+        Gathers the *owned* input rows from ``store`` (the ``gather``
+        kernel on a card), runs the cooperative forward (all-to-all
+        redistribution between layers), differentiates this rank's share
+        of the global masked-mean CE, then all-reduces the loss shares and
+        gradients.  ``loss`` is the global loss and ``grads`` the global
+        gradients, equal on every rank; the loss semantics are the
+        SimExecutor's (the same masked mean over the same B = b·P seed
+        rows).  ``mark()`` ends each of the gather, forward+backward and
+        all-reduce stages.  No host sync, so a captured train step holds
+        it (:func:`repro_torch.train.step_program`).
         """
         from repro_torch.models.gnn import gnn_apply_cooperative
 
         eng = self.engine
         V = eng.graph.num_vertices
-        plan = self.plan_at(step)
-        mark()
         H = plan.gather_inputs(store)
         mark()
         logits = gnn_apply_cooperative(model, gnn_cfg, self.ex, plan.layers, H,
@@ -164,7 +225,7 @@ class ShardRunner:
         mark()
         sizes = [p.numel() for p in params]
         grads = [g.view_as(p) for g, p in zip(flat[1:].split(sizes), params)]
-        return flat[0], grads, plan
+        return flat[0], grads
 
     def make_loss_and_grad(self, gnn_cfg, features, labels) -> Callable:
         """``(model, step) -> (loss, grads)`` with the shard executor, as

@@ -7,19 +7,27 @@
 Each is a function of (model, [opt_state | state], batch).  The train
 step runs autograd and then ``adam_update``, which updates the model
 and the moments in place; the serving steps run under
-``torch.inference_mode()``.  The serve step is the decode program of
-:func:`repro_torch.models.transformer.decode_step`: one captured CUDA
-graph a batch size and cache length on a card, writing the decode state
-in place (the state passed in is the state returned).
+``torch.inference_mode()``.  As the JAX launcher jits them, the train
+step is one program (``make_train_step(...).program(model)``, a
+:class:`repro_torch.engine.compiled.CompiledFunction` keyed by the
+batch's shapes, the parameters and moments its state), and the serve
+step the decode program of
+:func:`repro_torch.models.transformer.decode_step`: each one captured
+CUDA graph a key on a card, writing its state in place (the state passed
+in is the state returned).  The CPU and a step under a registered mesh
+(the dry-run's fake tensors) run the same bodies eagerly.  The forward
+draws no random numbers, so remat keeps no RNG state
+(``preserve_rng_state=False``), which a capture could not read.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.transformer import decode_step, forward_prefill
+from repro_torch.models.transformer import decode_step, forward_prefill, modules
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.model import LM, _unembed, forward_hidden
 from repro_torch.models.transformer.modules import model_dim
@@ -119,10 +127,11 @@ def _chunked_ce(cfg: ArchConfig, model: LM, h: torch.Tensor, labels: torch.Tenso
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n):
         total = total + checkpoint(chunk_loss, h[:, i * c:(i + 1) * c],
-                                   labels[:, i * c:(i + 1) * c], use_reentrant=False)
+                                   labels[:, i * c:(i + 1) * c], use_reentrant=False,
+                                   preserve_rng_state=False)
     if rem:
         total = total + checkpoint(chunk_loss, h[:, n * c:], labels[:, n * c:],
-                                   use_reentrant=False)
+                                   use_reentrant=False, preserve_rng_state=False)
     return total / (B * S)
 
 
@@ -147,15 +156,43 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3) -> Callable:
     {"loss": loss})``: the loss and every parameter's gradient (zeros for
     a parameter the loss does not reach, as ``jax.grad`` gives), then one
     Adam step in place.  The loss is the 0-d device tensor of the
-    parameters before the step; nothing waits on the host."""
+    parameters before the step; nothing waits on the host.
+
+    The work is ``train_step.program(model)``, one program a model keyed
+    by the batch's names and shapes, with the parameters and ``opt_state``
+    passed by reference: a captured CUDA graph a key and state on a card
+    with no registered mesh (the first call of each the eager warm-up),
+    the same body eagerly otherwise; its ``fn(params, opt_state, batch)``
+    is that body, run as it is.  ``batch`` holds tensors on the model's
+    device.  A capture needs every earlier autograd graph over the
+    parameters gone (a loss kept from an eager step holds one, made on
+    another stream): otherwise it raises ``CaptureError``."""
+    programs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+    def program(model: LM):
+        from repro_torch.engine.compiled import CompiledFunction  # import cycle guard
+
+        if model not in programs:
+            ref = weakref.ref(model)  # the table must not keep the model alive
+
+            def body(params: list, opt_state, batch: dict) -> torch.Tensor:
+                loss = lm_loss(cfg, ref(), batch)
+                grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                            materialize_grads=True)
+                adam_update(params, grads, opt_state, lr=lr)
+                return loss.detach()
+
+            capture = model.embed.device.type == "cuda" and modules._LOGICAL_MESH is None
+            programs[model] = CompiledFunction("lm.train_step", body, capture=capture,
+                                               state_args=(0, 1))
+        return programs[model]
 
     def train_step(model, opt_state, batch):
-        params = list(model.parameters())
-        loss = lm_loss(cfg, model, batch)
-        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
-        opt_state = adam_update(params, grads, opt_state, lr=lr)
-        return model, opt_state, {"loss": loss.detach()}
+        key = tuple((k, tuple(v.shape)) for k, v in batch.items())
+        loss = program(model)(key, list(model.parameters()), opt_state, batch)
+        return model, opt_state, {"loss": loss}
 
+    train_step.program = program
     return train_step
 
 

@@ -11,7 +11,11 @@ gloo with ``--device cpu``::
     PYTHONPATH=src torchrun --standalone --nproc-per-node=4 \\
         -m repro_torch.launch.train gnn --executor shard --pes 4 --steps 100
 
-Rank 0 prints each step's global loss and the micro-F1s.
+Rank 0 prints each step's global loss and the micro-F1s.  Under NCCL
+each rank's step is one captured CUDA graph (its all-to-alls and
+all-reduces in it; the plan built by the kernels); under gloo it runs
+eagerly.  On a card the simulated step and the LM step are one captured
+graph each too.
 
 LM pool (the published config, or ``--reduced`` for the 2-layer smoke
 size; synthetic Zipf tokens, ``init_lm(seed=0)``)::
@@ -56,10 +60,13 @@ def run_gnn(args) -> None:
         cfg = GNNConfig(model=args.model, num_layers=args.layers, in_dim=64,
                         hidden_dim=args.hidden, num_classes=16,
                         num_relations=graph.num_edge_types)
+        # the kernels' plan build on a card: the one a captured step can hold
+        # (the reference backend's dedup has a data-dependent shape)
         tc = TrainConfig(mode=args.mode, num_pes=args.pes, local_batch=args.batch,
                          num_steps=args.steps, fanout=args.fanout, kappa=args.kappa,
                          sampler=args.sampler, partition=args.partition,
-                         eval_every=max(args.steps // 5, 1), executor=args.executor)
+                         eval_every=max(args.steps // 5, 1), executor=args.executor,
+                         plan_backend="reference" if args.device == "cpu" else "fused")
         t0 = time.time()
         r = train_gnn(ds, cfg, tc, device=args.device)
         test_f1 = evaluate(ds, cfg, r.model, tc, split="test", device=args.device)

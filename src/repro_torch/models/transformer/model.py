@@ -393,7 +393,10 @@ def forward_hidden(
     remat = cfg.remat and torch.is_grad_enabled()
     for group in groups:
         if remat:
-            h, aux = checkpoint(run, h, aux, group=group, use_reentrant=False)
+            # nothing here draws random numbers: no RNG state to keep (a
+            # captured train step could not read it)
+            h, aux = checkpoint(run, h, aux, group=group, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             h, aux = run(h, aux, group=group)
     h = rms_norm(h, model.final_norm, cfg.norm_eps)

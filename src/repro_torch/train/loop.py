@@ -29,10 +29,14 @@ a replay of ``engine.plan_at``'s program).
 
 With ``TrainConfig(executor="shard")`` (cooperative) every rank of a
 ``torch.distributed`` process group runs this loop for its own PE: the
-plan, gather and forward+backward come from
-``engine.shard_runner.loss_and_grad``, whose exchanges cross the ranks,
-and an all-reduce of the loss shares and gradients comes before Adam, so
-every rank's weights stay equal bit for bit.
+rank's plan (``engine.shard_runner``'s build), then the gather and
+forward+backward of ``ShardRunner.plan_loss_and_grad``, whose exchanges
+cross the ranks, and an all-reduce of the loss shares and gradients
+before Adam, so every rank's weights stay equal bit for bit.  The step
+is :func:`step_program` there too, as the JAX package jits its
+``train_step`` around ``ShardRunner.make_loss_and_grad``: one captured
+CUDA graph a rank when the group runs NCCL (its collectives recorded
+into the graph, replayed in lockstep by every rank), eager under gloo.
 """
 from __future__ import annotations
 
@@ -141,20 +145,34 @@ def make_loss_fn(engine: MinibatchEngine, gnn_cfg: GNNConfig, store, labels):
     return loss_fn
 
 
+def plan_grads(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, plan,
+               labels: torch.Tensor, mark: Callable = lambda: None):
+    """``(loss, grads)`` of one step's ``plan``: the input gather, the
+    logits, the masked mean cross-entropy and its gradients (under the
+    shard executor ``ShardRunner.plan_loss_and_grad``: this rank's plan,
+    the global loss and the all-reduced gradients).  ``mark()`` ends the
+    gather, the forward+backward and, under the shard executor, the
+    all-reduce."""
+    if isinstance(engine.ex, ShardExecutor):
+        return engine.shard_runner.plan_loss_and_grad(plan, model, gnn_cfg, engine.store,
+                                                      labels, mark)
+    H = plan.gather_inputs(engine.store)
+    mark()
+    loss = plan_loss(engine, gnn_cfg, model, plan, H, labels)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    mark()
+    return loss, grads
+
+
 def train_step(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: AdamState,
                labels: torch.Tensor, step: int, lr: float, mark: Callable = lambda: None):
     """One training step: the plan, the input gather, loss and gradients,
     Adam; ``(loss, opt, plan)``.  ``mark()`` ends each of ``STAGES``, or of
     ``SHARD_STAGES`` under the shard executor (its plan is this rank's)."""
-    params = list(model.parameters())
-    if isinstance(engine.ex, ShardExecutor):
-        loss, grads, plan = engine.shard_runner.loss_and_grad(
-            model, gnn_cfg, engine.store, labels, step, mark)
-    else:
-        loss, plan = step_loss(engine, gnn_cfg, engine.store, labels, model, step, mark)
-        grads = torch.autograd.grad(loss, params)
-        mark()
-    opt = adam_update(params, grads, opt, lr=lr)
+    plan = engine.plan_at(step)
+    mark()
+    loss, grads = plan_grads(engine, gnn_cfg, model, plan, labels, mark)
+    opt = adam_update(list(model.parameters()), grads, opt, lr=lr)
     mark()
     return loss, opt, plan
 
@@ -163,19 +181,22 @@ def step_program(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: A
                  labels: torch.Tensor, lr: float, with_plan: bool = False) -> CompiledFunction:
     """The whole training step as one program keyed by the local batch:
     ``program(local_batch, engine.step_state(step))`` builds the step's
-    plan (``engine._build_at``: ``plan_at``'s body, since a capture cannot
-    hold another), gathers the inputs, takes the loss and its gradients and
-    runs Adam, updating ``model`` and ``opt`` in place.  It returns
-    ``(loss,)``, or ``(loss, plan)`` with ``with_plan`` (a replay then
-    copies the plan out).  A CUDA graph where ``engine.captures``; eager
-    (the same body) otherwise."""
+    plan (the body of ``engine.plan_at``'s program, or of the shard
+    runner's, since a capture cannot hold another), gathers the inputs,
+    takes the loss and its gradients (:func:`plan_grads`, the shard's
+    exchanges and all-reduces included) and runs Adam, updating ``model``
+    and ``opt`` in place.  It returns ``(loss,)``, or ``(loss, plan)`` with
+    ``with_plan`` (a replay then copies the plan out).  A CUDA graph where
+    ``engine.captures``; eager (the same body) otherwise."""
     params = list(model.parameters())
+    if isinstance(engine.ex, ShardExecutor):
+        build = engine.shard_runner._build_at
+    else:
+        build = lambda state: engine._build_at(state)[0]  # noqa: E731
 
     def body(state):
-        plan, _ = engine._build_at(state)
-        H = plan.gather_inputs(engine.store)
-        loss = plan_loss(engine, gnn_cfg, model, plan, H, labels)
-        grads = torch.autograd.grad(loss, params)
+        plan = build(state)
+        loss, grads = plan_grads(engine, gnn_cfg, model, plan, labels)
         adam_update(params, grads, opt, lr=lr)
         return (loss.detach(), plan) if with_plan else (loss.detach(),)
 
@@ -197,13 +218,14 @@ def train_gnn(
     moves to the device and is trained in place; by default the weights
     are drawn from ``tc.seed``.  Each step is one call of
     :func:`step_program` (a graph replay on a card with the fused
-    backend), and its wall ms to the loss's read goes to
-    ``TrainResult.step_ms``.  ``stage_times`` runs the eager
-    :func:`train_step` instead, ends every stage with a sync and records
-    its wall ms in ``TrainResult.stage_ms`` (and, under the shard
-    executor, each step's all-to-alls in ``TrainResult.exchanges``), as
-    does ``executor="shard"``; ``on_step(step, plan)`` sees each step's
-    plan (then an output of the program).  Under ``executor="shard"``
+    backend, under the shard executor when its group runs NCCL), and its
+    wall ms to the loss's read goes to ``TrainResult.step_ms``.
+    ``stage_times`` runs the eager :func:`train_step` instead, ends every
+    stage with a sync and records its wall ms in ``TrainResult.stage_ms``
+    (and, under the shard executor, each step's all-to-alls in
+    ``TrainResult.exchanges``: their timing events cannot be recorded
+    into a graph); ``on_step(step, plan)`` sees each step's plan (an
+    output of the program where it runs).  Under ``executor="shard"``
     every rank of the process group calls this; the device is then the
     rank's own (``cuda:{LOCAL_RANK % device_count}`` unless ``"cpu"``)
     and ``losses`` the global losses.
@@ -226,7 +248,7 @@ def train_gnn(
     labels = torch.as_tensor(np.asarray(dataset.labels)).to(dev)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     program = None
-    if not (shard or stage_times):
+    if not stage_times:
         program = step_program(engine, gnn_cfg, model, opt, labels, tc.lr,
                                with_plan=on_step is not None)
 

@@ -252,6 +252,34 @@ def test_capture_is_chosen_by_configuration_only(graphs):
     assert on_card(fused).captures and not on_card(ref).captures
 
 
+def test_shard_capture_is_chosen_by_configuration_only(graphs, monkeypatch):
+    """Under the shard executor a card captures with an NCCL group and not
+    with gloo, nor with an exchange log (timed exchanges); the CPU never.
+    Nothing runs: the group's size and backend are stand-ins."""
+    import torch.distributed as dist
+
+    from repro_torch.core.cooperative import ShardExecutor
+    from repro_torch.train import step_program
+
+    _, td = graphs
+    sim = MinibatchEngine.from_config(
+        td.graph, EngineConfig(**_cfg("cooperative", "labor0", "smoothed")), dataset=td,
+        device="cpu")
+    P = sim.config.num_pes
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: P)
+    shard = lambda device, log=None: dataclasses.replace(  # noqa: E731
+        sim, device=torch.device(device), ex=ShardExecutor(P, log=log))
+    for backend in ("gloo", "nccl"):
+        monkeypatch.setattr(dist, "get_backend", lambda group=None, b=backend: b)
+        card = shard("cuda")
+        assert card.captures == card.shard_runner.captures == (backend == "nccl")
+        assert card.shard_runner.plan_program.capture == (backend == "nccl")
+        model = torch.nn.Linear(1, 1)
+        prog = step_program(card, None, model, None, None, 1e-3)
+        assert prog.capture == (backend == "nccl") and not prog.compiles
+        assert not shard("cpu").captures and not shard("cuda", log=[]).captures
+
+
 def test_stream_seeds_resolve_lazily(graphs):
     _, td = graphs
     eng = MinibatchEngine.from_config(

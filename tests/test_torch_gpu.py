@@ -32,7 +32,10 @@ The analyzer's contracts and trace passes run on the card.  Each of the
 LM pool's ten architectures (reduced) gives the CPU's logits, caches,
 greedy tokens and MoE routes on the card; a reduced train step gives the
 CPU's loss, gradients and losses, and the cooperative embedding's kernel
-route gives ``embed[tokens]`` bit for bit.
+route gives ``embed[tokens]`` bit for bit.  The compiled programs replay
+against their own bodies run eagerly: ``plan_at``, the server's buckets,
+the GNN train step, the tiered store, LM decode and the LM train step,
+and the shard executor's plan and train step on a one-rank NCCL group.
 """
 import numpy as np
 import pytest
@@ -995,11 +998,14 @@ def test_lm_train_step_on_card_matches_cpu(cuda):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
         loss = lm_loss(cfg, model, batch)
         grads = [g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+        # the loss's autograd graph (made on this stream) must be gone before
+        # the train step's capture on the card
+        loss = float(loss.detach())
         step, opt, losses = make_train_step(cfg), adam_init(model), []
         for _ in range(3):
             model, opt, m = step(model, opt, batch)
             losses.append(float(m["loss"]))
-        runs[dev.type] = (float(loss.detach()), grads, losses)
+        runs[dev.type] = (loss, grads, losses)
     (la, ga, sa), (lb, gb, sb) = runs["cuda"], runs["cpu"]
     assert abs(la - lb) <= 1e-5 * abs(lb)
     for a, b in zip(ga, gb, strict=True):
@@ -1181,6 +1187,99 @@ def test_train_step_program_replays_match_eager(cuda, model, mode):
     np.testing.assert_allclose(la, lb, rtol=1e-5)
     for a, b in zip(wa, wb):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_shard_programs_replay_match_eager_on_nccl(cuda, tmp_path):
+    """The shard executor's plan and train-step programs on a one-rank NCCL
+    group in this process (a FileStore in ``tmp_path``): each captured once,
+    its replays against its own body run eagerly from the same weights:
+    plans bit for bit at every step, losses within ``rtol=1e-5`` and
+    weights within ``atol=1e-5``; the plans equal the P = 1 SimExecutor's."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.engine import EngineConfig
+    from repro_torch.engine.compiled import tree_map
+    from repro_torch.train import adam_init, step_program
+
+    ds = SyntheticGraphDataset(rmat_graph(scale=11, edge_factor=8, max_degree=16,
+                                          device="cpu"), feature_dim=16, num_classes=4)
+    cfg = GNNConfig(model="gcn", num_layers=2, in_dim=16, hidden_dim=32, num_classes=4)
+    ecfg = dict(mode="cooperative", num_pes=1, local_batch=16, num_layers=2, fanout=5,
+                schedule="smoothed", kappa=4, plan_backend="fused")
+    sim = MinibatchEngine.from_config(ds.graph, EngineConfig(**ecfg), dataset=ds, device=cuda)
+    labels = torch.as_tensor(ds.labels, device=cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        runs = []
+        for captured in (True, False):
+            eng = MinibatchEngine.from_config(ds.graph, EngineConfig(**ecfg, executor="shard"),
+                                              dataset=ds, device=cuda)
+            runner = eng.shard_runner
+            assert eng.captures and runner.captures and runner.plan_program.capture
+            net = init_gnn(cfg, seed=0, device=cuda)
+            prog = step_program(eng, cfg, net, adam_init(net), labels, 1e-2, with_plan=True)
+            run = prog if captured else (lambda key, state, p=prog: p.fn(state))
+            out = [run(16, eng.step_state(step)) for step in range(4)]
+            runs.append(([float(loss) for loss, _ in out], [plan for _, plan in out],
+                         [p.detach().clone() for p in net.parameters()]))
+            if captured:
+                assert prog.captures == {16: 1} and prog.compiles == {16: 1}
+                for step in range(4):  # the plan program: replays against its body
+                    _same_plans(runner.plan_at(step), runner._build_at(eng.step_state(step)),
+                                ("plan_at", step))
+                    _same_plans(runner.plan_at(step), tree_map(lambda t: t[0],
+                                                               sim.plan_at(step)),
+                                ("sim row 0", step))
+                assert runner.plan_program.captures == {16: 1}
+            del prog, run, runner, eng
+        (la, pa, wa), (lb, pb, wb) = runs
+        for step, (a, b) in enumerate(zip(pa, pb)):
+            _same_plans(a, b, ("shard step", step))
+        np.testing.assert_allclose(la, lb, rtol=1e-5)
+        for a, b in zip(wa, wb):
+            assert float((a - b).abs().max()) <= 1e-5
+        gc.collect()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_lm_train_program_replays_match_eager(cuda):
+    """``make_train_step``'s program at a reduced gemma2 on the card: one
+    capture for the batch's key, 3 replays against its body run eagerly on
+    a copy of the weights: losses within ``rtol=1e-5`` and weights within
+    ``atol=1e-5`` (cuBLAS may take another algorithm inside a graph)."""
+    import copy
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import adam_init
+
+    cfg = get_config("gemma2-2b").reduced()
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)), device=cuda)
+             for k in ("tokens", "labels")}
+    model = init_lm(cfg, seed=0, device=cuda)
+    eager = copy.deepcopy(model)
+    step = make_train_step(cfg)
+    opt, e_opt = adam_init(model), adam_init(eager)
+    body = step.program(eager).fn
+    got, want = [], []
+    for _ in range(3):
+        model, opt, m = step(model, opt, batch)
+        got.append(float(m["loss"]))
+        want.append(float(body(list(eager.parameters()), e_opt, batch)))
+    prog = step.program(model)
+    key = (("tokens", (4, 64)), ("labels", (4, 64)))
+    assert prog.capture and prog.captures == {key: 1} and prog.compiles == {key: 1}
+    assert not step.program(eager).captures  # its body ran as it is
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for a, b in zip(model.parameters(), eager.parameters(), strict=True):
+        assert float((a.detach() - b.detach()).abs().max()) <= 1e-5
+    assert int(opt.step) == int(e_opt.step) == 3
 
 
 def test_tiered_store_programs_replay_match_cpu(cuda):

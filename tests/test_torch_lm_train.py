@@ -15,6 +15,9 @@ At the reduced size, the reference's weights carried across:
 * The reference's ``test_reduced_arch_train_step`` trio: 3 steps of
   ``make_train_step``, losses within ``rtol=1e-4`` of the jitted JAX
   step's, and the loss after them below the loss before.
+* ``make_train_step``'s program at all ten archs: 3 steps equal to its
+  body run eagerly bit for bit and within ``rtol=1e-4`` of the jitted
+  JAX step's losses, one signature a key.
 * ``_chunked_ce`` with a remainder chunk equal to the unchunked CE and to
   the reference's; remat on and off give the same gradient bits.
 * The cooperative embedding (``unique_compact`` and ``gather``, their plain
@@ -43,7 +46,7 @@ from repro.models.transformer.model import forward_hidden as j_forward_hidden
 from repro.train.checkpoint import load_checkpoint as j_load
 from repro.train.checkpoint import save_checkpoint as j_save
 from repro.train.optim import adam_init as j_adam_init
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.data.tokens import synthetic_token_batch
 from repro_torch.launch import train as t_train
 from repro_torch.launch.steps import _chunked_ce, lm_loss, make_train_step
@@ -131,6 +134,37 @@ def test_reduced_arch_train_step_matches_reference(arch):
     np.testing.assert_allclose(got, want, rtol=STEP_RTOL)
     assert np.isfinite(l0) and got[-1] < l0  # overfits a fixed batch within a few steps
     assert opt.step == 3
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_train_program_equals_eager_step_and_reference(arch):
+    """``make_train_step``'s program (eager on the CPU) against its body run
+    as it is on a copy of the weights: losses, weights and moments bit for
+    bit over 3 steps; the losses within ``rtol=1e-4`` of the jitted JAX
+    step's; one signature for the batch's key."""
+    jcfg, cfg = j_get_config(arch).reduced(), get_config(arch).reduced()
+    jb, tb = _batch(cfg, np.random.default_rng(2))
+    jp = j_init_lm(jax.random.PRNGKey(1), jcfg)
+    model, eager = _port(jp, cfg), _port(jp, cfg)
+    step, j_step = make_train_step(cfg, lr=1e-3), jax.jit(j_make_train_step(jcfg, lr=1e-3))
+    opt, e_opt, j_opt = adam_init(model), adam_init(eager), j_adam_init(jp)
+    body = step.program(eager).fn
+    got, want, ref = [], [], []
+    for _ in range(3):
+        model, opt, m = step(model, opt, tb)
+        got.append(m["loss"])
+        want.append(body(list(eager.parameters()), e_opt, tb))
+        jp, j_opt, jm = j_step(jp, j_opt, jb)
+        ref.append(float(jm["loss"]))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for a, b in zip(list(model.parameters()) + opt.mu + opt.nu,
+                    list(eager.parameters()) + e_opt.mu + e_opt.nu, strict=True):
+        assert torch.equal(a, b)
+    assert int(opt.step) == int(e_opt.step) == 3
+    np.testing.assert_allclose([float(v) for v in got], ref, rtol=STEP_RTOL)
+    prog = step.program(model)
+    assert not prog.capture and prog.compiles == {tuple(
+        (k, tuple(v.shape)) for k, v in tb.items()): 1}
 
 
 def test_chunked_ce_remainder_equals_unchunked():

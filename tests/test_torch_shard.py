@@ -18,7 +18,12 @@ package's (the reference's own ``tests/test_coop_shard.py`` oracle: its
 * All-to-all conservation: rows sent = rows resolved, bucket keys are
   owners, and an all-ones ``redistribute`` across the ranks fills exactly
   the requested rows.
-* ``train_gnn`` over 4 steps, shard against sim, within ``rtol=1e-5``.
+* ``train_gnn`` over 4 steps, shard against sim, within ``rtol=1e-5``;
+  through the step program (eager under gloo) against the staged eager
+  step bit for bit, and within ``rtol=1e-5`` of the JAX package's
+  simulated ``train_gnn``.
+* ``plan_at`` (the device RNG state) against the host-state build, bit
+  for bit.
 * The errors: an independent or ``sim`` engine, a world size other than
   ``num_pes`` (the message names torchrun), ``build_plan`` under shard,
   ``stats()`` of a rank's own plan,
@@ -84,7 +89,7 @@ _RANK = textwrap.dedent(
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=P,
                             timeout=datetime.timedelta(seconds=60))
-    from repro_torch.core.cooperative import redistribute
+    from repro_torch.core.cooperative import build_cooperative_minibatch, redistribute
     from repro_torch.data import SyntheticGraphDataset, rmat_graph
     from repro_torch.engine import EngineConfig, MinibatchEngine
     from repro_torch.engine.shard import ShardRunner
@@ -122,6 +127,11 @@ _RANK = textwrap.dedent(
             out[f"plan/{tag}/{step}"] = leaves(local)
             out[f"stacked/{tag}/{step}"] = leaves(stacked)
             out[f"stats/{tag}/{step}"] = stacked.stats()
+            # the same rank's build from the host RNG state and host seed row
+            host = build_cooperative_minibatch(
+                sh.graph, sh.sampler, sh.part, sh._seed_batch(step)[rank], sh.rng_state(step),
+                L, sh.caps, sh.shard_runner.ex, backend=sh.config.plan_backend)
+            out[f"hostplan/{tag}/{step}"] = leaves(host)
 
     # loss and all-reduced gradients from the JAX package's initial weights
     sh = engine("smoothed", 3, "degree")
@@ -152,11 +162,20 @@ _RANK = textwrap.dedent(
     tc = TrainConfig(mode="cooperative", num_pes=P, local_batch=B, num_steps=4,
                      schedule="smoothed", kappa=3, partition="degree", executor="shard",
                      eval_every=0)
-    res = train_gnn(ds, gnn_cfg, tc, device="cpu", stage_times=True)
+    plans = {"staged": [], "program": []}
+    res = train_gnn(ds, gnn_cfg, tc, device="cpu", stage_times=True,
+                    on_step=lambda step, plan: plans["staged"].append(leaves(plan)))
     out["train_losses"] = res.losses
     out["train_stages"] = [sorted(s) for s in res.stage_ms]
     out["train_exchanges"] = [{k: v[:2] for k, v in e.items()} for e in res.exchanges]
     out["train_weights"] = [p.detach().numpy().copy() for p in res.model.parameters()]
+    # the same steps through the step program (eager under gloo)
+    res = train_gnn(ds, gnn_cfg, tc, device="cpu",
+                    on_step=lambda step, plan: plans["program"].append(leaves(plan)))
+    out["program_losses"] = res.losses
+    out["program_weights"] = [p.detach().numpy().copy() for p in res.model.parameters()]
+    out["program_stages"] = (res.stage_ms, res.exchanges, res.compiled)
+    out["train_plans"] = plans
 
     # the errors
     def error(key, fn):
@@ -371,6 +390,45 @@ def test_train_gnn_shard_matches_sim(ranks, datasets):
             assert [e[k][0] for k in ("ids", "forward", "backward")] == [L, L, L - 1]
             assert e["forward"][1] > e["ids"][1] > 0
     assert len(set(np.round(sim.losses, 4))) > 1  # the weights moved
+
+
+def test_plan_at_from_device_state_equals_host_state_build(ranks):
+    """``ShardRunner.plan_at`` (the device state buffer, the device seed
+    draw) against the rank's build from the host ``RNGState``: bit for bit."""
+    for p, got in enumerate(ranks):
+        for case in PLAN_CASES:
+            for step in range(PLAN_STEPS):
+                local, host = got[f"plan/{case}/{step}"], got[f"hostplan/{case}/{step}"]
+                assert set(local) == set(host)
+                for name, w in host.items():
+                    assert local[name].dtype == w.dtype, name
+                    np.testing.assert_array_equal(local[name], w,
+                                                  err_msg=f"rank {p} {case} {step} {name}")
+
+
+def test_train_gnn_shard_program_equals_staged_step(ranks, datasets):
+    """``train_gnn`` under the shard executor through the step program
+    (eager under gloo) against the staged eager ``train_step``: plans,
+    losses and weights bit for bit over 4 steps; losses within
+    ``rtol=1e-5`` of the JAX package's simulated ``train_gnn``."""
+    jds, _ = datasets
+    want = jloop.train_gnn(jds, JGNNConfig(**GNN), jloop.TrainConfig(
+        mode="cooperative", num_pes=P, local_batch=B, num_steps=TRAIN_STEPS,
+        schedule="smoothed", kappa=3, partition="degree", eval_every=0)).losses
+    for p, got in enumerate(ranks):
+        assert got["program_losses"] == got["train_losses"]
+        for a, b in zip(got["program_weights"], got["train_weights"], strict=True):
+            np.testing.assert_array_equal(a, b)
+        staged, program = got["train_plans"]["staged"], got["train_plans"]["program"]
+        assert len(staged) == len(program) == TRAIN_STEPS
+        for step, (a, b) in enumerate(zip(program, staged)):
+            assert set(a) == set(b)
+            for name in a:
+                np.testing.assert_array_equal(a[name], b[name],
+                                              err_msg=f"rank {p} step {step} {name}")
+        # the program keeps no stage times, exchange records or capture
+        assert got["program_stages"] == ([], [], {})
+        np.testing.assert_allclose(got["program_losses"], want, rtol=1e-5)
 
 
 def test_errors(ranks):

@@ -24,7 +24,16 @@ that runs it need not be the one it measures.  It prints, and writes to
   served batch's host syncs by the analyzer's trace pass;
 * LM decode (phase 11b: gemma2-2b at its published widths and depth,
   float32, batch 4, prompt 16): ms a decode step (median of 24, each
-  ended by a sync) and tokens/s.
+  ended by a sync) and tokens/s;
+* the shard executor on one NCCL rank (phase 9b: the GCN cell of
+  ``train_gnn`` with ``executor="shard"`` and P = 1, a one-rank process
+  group in this process, a FileStore in a temporary directory): the wall
+  ms of each warm step as above, then ``engine.plan_at`` alone at every
+  step (each ended by a sync; the first call captures where it can);
+* LM training (phase 12b: gemma2-2b at its published widths and depth,
+  float32, remat, ``make_train_step`` at batch 4 x S 2,048): ms a step
+  (each to the loss's read; the first, the warm-up, apart), tokens/s and
+  ``model_flops`` a second over 67 TFLOP/s.
 
 The card's name and power limit (``nvidia-smi``) come first.
 """
@@ -50,6 +59,7 @@ GNNS = {
 TRAIN_STEPS = 6
 STEADY_REQUESTS, STEADY_RPS = 4000, 1000.0
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 16, 24
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 2048, 4
 
 
 def card() -> str:
@@ -58,31 +68,43 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def train_times() -> dict:
-    import torch
+def gnn_dataset(graphs: dict, kw: dict):
+    """Phase 3's scale-18 RMAT dataset at ``kw``'s widths (4 relations for
+    the R-GCN), made once a relation count."""
     from repro_torch.data import SyntheticGraphDataset, rmat_graph
-    from repro_torch.models.gnn import GNNConfig
-    from repro_torch.train import TrainConfig, train_gnn
 
-    tc = TrainConfig(mode="cooperative", num_pes=4, local_batch=64, fanout=10,
-                     sampler="labor0", schedule="smoothed", kappa=16, partition="hash",
-                     executor="sim", plan_backend="fused", eval_every=0,
-                     num_steps=TRAIN_STEPS, seed=SEED)
+    rel = kw.get("num_relations", 1)
+    if rel not in graphs:
+        graphs[rel] = SyntheticGraphDataset(
+            rmat_graph(scale=18, edge_factor=8, max_degree=32, num_edge_types=rel,
+                       seed=SEED, device="cpu"),
+            feature_dim=kw["in_dim"], num_classes=kw["num_classes"], seed=SEED)
+    return graphs[rel]
+
+
+def train_config():
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(mode="cooperative", num_pes=4, local_batch=64, fanout=10,
+                       sampler="labor0", schedule="smoothed", kappa=16, partition="hash",
+                       executor="sim", plan_backend="fused", eval_every=0,
+                       num_steps=TRAIN_STEPS, seed=SEED)
+
+
+def train_times(graphs: dict) -> dict:
+    import torch
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.train import train_gnn
+
+    tc = train_config()
     out = {}
-    graphs = {}
     for name, kw in GNNS.items():
-        rel = 4 if name == "rgcn" else 1
-        if rel not in graphs:
-            graphs[rel] = SyntheticGraphDataset(
-                rmat_graph(scale=18, edge_factor=8, max_degree=32, num_edge_types=rel,
-                           seed=SEED, device="cpu"),
-                feature_dim=kw["in_dim"], num_classes=kw["num_classes"], seed=SEED)
         cfg = GNNConfig(**kw)
         run_tc = dataclasses.replace(tc, sampler="ns") if name == "sage" else tc
         stamps = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        res = train_gnn(graphs[rel], cfg, run_tc, device="cuda",
+        res = train_gnn(gnn_dataset(graphs, kw), cfg, run_tc, device="cuda",
                         on_step=lambda step, plan: stamps.append(time.perf_counter()))
         warm = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
         out[name] = {"warm_step_ms": warm, "losses": res.losses,
@@ -160,6 +182,89 @@ def decode_times() -> dict:
     return {"step_ms": step_ms, "median_ms": ms, "tokens_per_s": LM_BATCH / ms * 1e3}
 
 
+def shard_times(graphs: dict) -> dict:
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.train import train_gnn
+
+    kw = GNNS["gcn"]
+    cfg, ds = GNNConfig(**kw), gnn_dataset(graphs, kw)
+    tc = dataclasses.replace(train_config(), num_pes=1, executor="shard")
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1)
+        try:
+            stamps = []
+            torch.cuda.synchronize()
+            res = train_gnn(ds, cfg, tc, device="cuda",
+                            on_step=lambda step, plan: stamps.append(time.perf_counter()))
+            warm = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+            engine = MinibatchEngine.from_config(ds.graph, tc.engine_config(cfg.num_layers),
+                                                 dataset=ds, device="cuda")
+            plan_ms = []
+            for step in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.plan_at(step)
+                torch.cuda.synchronize()
+                plan_ms.append(1e3 * (time.perf_counter() - t0))
+            out = {"warm_step_ms": warm, "losses": res.losses, "plan_ms": plan_ms}
+            del res, engine
+            gc.collect()  # the programs go before the group
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    print(f"shard gcn, 1 NCCL rank: warm steps ms {', '.join(f'{x:.3f}' for x in warm)}; "
+          f"plan_at ms {', '.join(f'{x:.3f}' for x in plan_ms)}", flush=True)
+    return out
+
+
+def lm_train_times() -> dict:
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_token_batch
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import active_param_count, init_lm
+    from repro_torch.train import adam_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma2-2b")
+    B, S = LM_TRAIN_B, LM_TRAIN_S
+    model = init_lm(cfg, seed=SEED, device="cuda")
+    opt = adam_init(model)
+    toks = torch.as_tensor(synthetic_token_batch(B, S + 1, cfg.vocab_size, seed=SEED),
+                           device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, lr=1e-3)
+    step_ms, losses = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    ms = float(np.median(step_ms[1:]))
+    flops = model_flops(cfg, ShapeSpec("train", S, B, "train"), active_param_count(cfg))
+    out = {"first_ms": step_ms[0], "step_ms": step_ms[1:], "median_ms": ms,
+           "tokens_per_s": B * S / ms * 1e3, "flop_share": flops / (ms / 1e3) / PEAK_FLOPS,
+           "losses": losses}
+    print(f"lm train gemma2-2b B {B} x S {S}: first call {step_ms[0]:.1f} ms, then "
+          f"{', '.join(f'{x:.1f}' for x in step_ms[1:])} ms (median {ms:.1f}); "
+          f"{out['tokens_per_s']:.1f} tokens/s; {out['flop_share']:.4f} of "
+          f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
+    del model, opt, step
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
@@ -174,9 +279,13 @@ def main() -> int:
     t0 = time.perf_counter()
     out = {"card": card(), "torch": torch.__version__}
     print(out["card"], flush=True)
-    out["train"] = train_times()
+    graphs = {}
+    out["train"] = train_times(graphs)
     out["serve"] = serve_times()
     out["decode"] = decode_times()
+    out["shard"] = shard_times(graphs)
+    del graphs
+    out["lm_train"] = lm_train_times()
     out["seconds"] = time.perf_counter() - t0
     if args.out:
         with open(args.out, "w") as f:
