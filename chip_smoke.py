@@ -100,11 +100,12 @@ Phases:
    Seed batches, every integer leaf of every step's plan and the plan
    stats must equal the CPU run's; losses agree within ``rtol=1e-4`` and
    the final weights within ``atol=1e-4``.  Per step: the captured
-   step's wall ms (to the loss's read) and each kernel's launches.  The
-   same steps again on the card through the eager step
-   (``stage_times=True``): wall ms split into plan, gather,
-   forward+backward and Adam (each ended by a sync); its plans must equal
-   the captured run's bit for bit, its losses, final weights and step-0
+   step's wall ms (to the loss's read), each kernel's launches and its
+   stage split (``stage_times=True``: the step program's spans read after
+   each step, device ms of plan, gather, forward+backward and Adam).  The
+   same steps again on the card through the step program's body run
+   eagerly (``program.fn``: no graph, no spans): its plans must equal the
+   captured run's bit for bit, its losses, final weights and step-0
    gradients agree as the CPU's must (the distance printed).  Then the
    device idle share over two more captured steps under the profiler,
    with the device ms per
@@ -177,11 +178,13 @@ Phases:
    fails the phase), each rank calling ``train_gnn`` on phase 3's graph
    and dataset, made once here and handed to the ranks.  9a: 4 ranks on
    the one card over gloo (CUDA tensors, which gloo stages through host
-   memory), through the eager staged step (``stage_times=True``; gloo's
-   collectives run on the host and cannot be captured); 9b: 1 rank over
-   NCCL (P = 1), so NCCL's all-to-all and all-reduce run on the card:
-   first through the step program (one captured CUDA graph, the
-   collectives in it), then the same steps through the eager staged step.
+   memory), through the staged step (``stage_times=True``: the step
+   program's spans read after each step; gloo's collectives run on the
+   host and cannot be captured, so it runs eagerly); 9b: 1 rank over NCCL
+   (P = 1), so NCCL's all-to-all and all-reduce run on the card: first
+   through the step program with stage times (one captured CUDA graph,
+   the collectives and the spans in it), then the same steps through the
+   program's body run eagerly (``program.fn``).
    The kernels were built in phase 0; a rank only loads them.  Checked:
    every step's stacked plan (``stack_plan``) equal bit for bit to phase
    3's card ``SimExecutor`` plan (9b: to a P = 1 ``SimExecutor``'s on the
@@ -189,13 +192,14 @@ Phases:
    ``1e-5`` of each parameter's largest ``|g|``, every rank's weights
    equal bit for bit after every step, and each rank's launches per step
    (``frontier_gather`` L, ``unique_compact`` 2L + 1, ``gather`` 1,
-   ``spmm`` L, its backward L - 1); 9b's captured run against its staged
+   ``spmm`` L, its backward L - 1); 9b's captured run against its eager
    run: plans bit for bit, losses, final weights (``atol=1e-4``) and
    step-0 gradients, one capture of the step program and of the plan
-   program.  Printed per rank and step of a staged run: wall ms split into
-   plan, gather, forward+backward, all-reduce and Adam, and each
+   program.  Printed per rank and step of a run with stage times (9a,
+   9b's captured): its spans' ms
+   (plan, gather, forward+backward, all-reduce and Adam), and each
    direction's exchanges (ids, embeddings forward, gradients backward)
-   with their bytes and event ms; 9b's capture (ms, pool bytes, launches
+   with their bytes and span ms; 9b's capture (ms, pool bytes, launches
    a replay), its captured steps' ms and its plan replays' ms; peak
    memory per rank.  On one card the exchange crosses host memory between
    processes: its time says nothing about an NVLink all-to-all.
@@ -329,7 +333,6 @@ STEADY_REQUESTS, STEADY_RPS = 4000, 1000.0
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-4  # losses; final weights
 GRAD_RTOL = 1e-5  # step-0 gradients, of each parameter's largest |g|
 TRAIN_STEPS, PROFILE_STEPS = 4, 2
-SPANS = ("rng.vertex_uniform", "store.clock_access", "rng.edge_uniform")
 KERNELS = {
     "frontier_gather": {
         "source": "src/repro_torch/kernels/frontier_gather/frontier_gather.cu",
@@ -541,8 +544,7 @@ def cuda_kernel_us(prof) -> list:
 
     rows = []
     for ev in prof.key_averages():
-        span = getattr(ev, "is_user_annotation", False) or ev.key in SPANS
-        if ev.device_type == DeviceType.CUDA and not span:
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
             us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
             rows.append((us, ev.count, ev.key))
     return sorted(rows, reverse=True)
@@ -688,7 +690,9 @@ def phase0() -> dict:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
-    want = {Path(meta["source"]).stem for meta in KERNELS.values()}
+    # the seven ported kernels and the span marker (no TPU kernel; the
+    # spans' card tests time it)
+    want = {Path(meta["source"]).stem for meta in KERNELS.values()} | {"span_marker"}
     check(set(paths) == want, f"built {sorted(paths)}, want {sorted(want)}")
     return {"card": card, "build_s": build_s}
 
@@ -1583,10 +1587,9 @@ def report_measured(label, server, trace) -> None:
 def profile_serve(server, trace) -> None:
     """Where the time goes in one served trace: device busy share of the
     wall clock, the kernels that take it (torch.profiler, CUPTI), and the
-    host time inside the port's two profiler spans, beside the stage that
-    holds each (all with the profiler's own overhead)."""
+    host ms of the plan and the gather (with the profiler's own
+    overhead)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     server.reset()
@@ -1601,13 +1604,9 @@ def profile_serve(server, trace) -> None:
     nb = len(rep.batches)
     plan_ms = sum(b.plan_ms for b in rep.batches) / nb
     gather_ms = sum(b.gather_ms for b in rep.batches) / nb
-    spans = {ev.key: ev.cpu_time_total / 1e3 / nb for ev in prof.key_averages()
-             if ev.key in SPANS and ev.device_type == DeviceType.CPU}
     print(f"phase2 profile (profiler on): wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; host ms per "
-          f"batch: plan {plan_ms:.3f}, of it rng.vertex_uniform "
-          f"{spans.get(SPANS[0], 0.0):.3f}; gather {gather_ms:.3f}, of it "
-          f"store.clock_access {spans.get(SPANS[1], 0.0):.3f}")
+          f"batch: plan {plan_ms:.3f}; gather {gather_ms:.3f}")
     for dev_us, count, key in stats[:12]:
         print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
     groups = []
@@ -1636,6 +1635,34 @@ def int_leaves(plan) -> dict:
 def host_leaves(plan) -> dict:
     """:func:`int_leaves` as host numpy arrays."""
     return {k: v.cpu().numpy() for k, v in int_leaves(plan).items()}
+
+
+def train_eager(tds, gnn_cfg, tc, model, device, on_step):
+    """``train_gnn``'s steps (``tc.num_steps``, sim or shard executor)
+    through the body of its step program run eagerly (``program.fn``: no
+    graph and no recorder active, so no markers or counters), ``model``
+    trained in place: what a captured run is held against on the card.
+    ``on_step(step, plan)`` as ``train_gnn``'s; returns a ``TrainResult``
+    with the losses and each step's wall ms."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.train import TrainResult, adam_init, step_program
+
+    engine = MinibatchEngine.from_config(tds.graph, tc.engine_config(gnn_cfg.num_layers),
+                                         dataset=tds, device=device)
+    model = model.to(engine.device)
+    labels = torch.as_tensor(np.asarray(tds.labels)).to(engine.device)
+    program = step_program(engine, gnn_cfg, model, adam_init(list(model.parameters())),
+                           labels, tc.lr, with_plan=True)
+    result = TrainResult(model=model)
+    for step in range(tc.num_steps):
+        t0 = time.perf_counter()
+        loss, plan = program.fn(engine.step_state(step))
+        result.losses.append(float(loss))
+        result.step_ms.append(1e3 * (time.perf_counter() - t0))
+        on_step(step, plan)
+    return result
 
 
 def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False,
@@ -1676,9 +1703,9 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
         """``steps`` steps on ``dev`` from ``init_gnn(cfg, tc.seed)`` (the
         weights ``train_gnn`` draws by default); keeps each step's plan, the
         initial weights and the step-0 gradient of every parameter (a hook
-        on each, removed after step 0).  ``eager`` runs the card's eager
-        step (``stage_times``: each stage ended by a sync) instead of the
-        captured one."""
+        on each, removed after step 0).  On the card the program's run
+        reads its spans after each step (``stage_times``); ``eager`` runs
+        its body eagerly instead (:func:`train_eager`)."""
         key = "eager" if eager else dev
         model = init_gnn(gnn_cfg, seed=tc.seed, device=dev)
         named = list(model.named_parameters())
@@ -1701,8 +1728,11 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
                     h.remove()
                 first[key]["grad"] = [grads[i].cpu().numpy() for i in range(len(named))]
 
-        return train_gnn(tds, gnn_cfg, dataclasses.replace(tc, num_steps=steps), model=model,
-                         device=dev, stage_times=eager, on_step=on_step)
+        run_tc = dataclasses.replace(tc, num_steps=steps)
+        if eager:
+            return train_eager(tds, gnn_cfg, run_tc, model, dev, on_step)
+        return train_gnn(tds, gnn_cfg, run_tc, model=model, device=dev,
+                         stage_times=dev == "cuda", on_step=on_step)
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1737,15 +1767,17 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
           + ", ".join(f"{x:.3f}" for x in card.step_ms[1:])
           + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # the eager step on the card: the stage split, and the captured step held
+    for step, st in enumerate(card.stage_ms):
+        print(f"{tag} card step {step} by span: {sum(st.values()):.3f} ms = "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+
+    # the step's body run eagerly on the card, and the captured step held
     # against it (plans bit for bit, losses and weights within the tolerances)
     torch.cuda.reset_peak_memory_stats()
     eager = run("cuda", tc.num_steps, eager=True)
-    for step, st in enumerate(eager.stage_ms):
-        print(f"{tag} card eager step {step}: wall {sum(st.values()):.3f} ms = "
-              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
-              + f"; loss {eager.losses[step]:.6f}")
-    print(f"{tag} eager peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{tag} card eager steps ms "
+          + ", ".join(f"{x:.3f}" for x in eager.step_ms) + "; peak device memory "
+          + f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     differ = sum(int((la[n].cpu() != lb[n].cpu()).sum())
                  for a, b in zip(plans["cuda"], plans["eager"])
                  for la, lb in [(int_leaves(a), int_leaves(b))] for n in la)
@@ -1797,7 +1829,7 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
         print(f"{tag} final weights card vs cpu: not compared (the CPU ran {cpu_steps} of "
               f"{tc.num_steps} steps)")
     walls = card.step_ms
-    profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in eager.stage_ms], walls)
+    profile_train(tag, tds, gnn_cfg, tc, [st["plan"] for st in card.stage_ms], walls)
     return {"launches": launches, "loss_rel": loss_rel, "walls": walls,
             "plan0": plans["cuda"][0], "plans": [host_leaves(p) for p in plans["cuda"]],
             "losses": card.losses, "first": first["cuda"]}
@@ -2217,9 +2249,11 @@ def shard_rank(rank: int, world: int, backend: str, store: str, out_dir: str, de
                tds, gnn_cfg, tc, modes: tuple) -> None:
     """One rank of phase 9, in a process of its own: ``train_gnn`` with
     ``executor="shard"`` for this rank's PE once per mode of ``modes``:
-    ``"captured"`` through the step program (one CUDA graph under NCCL),
-    ``"staged"`` through the eager step with stage times
-    (``stage_times=True``), each from the seeded weights, counters zeroed
+    ``"captured"`` through the step program (one CUDA graph under NCCL)
+    and ``"staged"`` (gloo: the program runs eagerly), both with stage
+    times (``stage_times=True``, its spans read after each step), and
+    ``"eager"`` through the program's body run eagerly
+    (:func:`train_eager`), each from the seeded weights, counters zeroed
     right before.  After each step (``on_step``): the launches, the
     stacked plan (``stack_plan``, an all-gather) and whether every rank's
     weights are equal bit for bit (an all-gather); at step 0 the
@@ -2292,8 +2326,11 @@ def shard_rank(rank: int, world: int, backend: str, store: str, out_dir: str, de
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
-            res = train_gnn(tds, gnn_cfg, tc, model=model, device=dev,
-                            stage_times=mode == "staged", on_step=on_step)
+            if mode == "eager":
+                res = train_eager(tds, gnn_cfg, tc, model, dev, on_step)
+            else:
+                res = train_gnn(tds, gnn_cfg, tc, model=model, device=dev, stage_times=True,
+                                on_step=on_step)
             run["seconds"] = time.perf_counter() - t0
             prev = {k: 0 for k in KERNELS}
             for i, cum in enumerate(run["launches"]):
@@ -2384,15 +2421,16 @@ def run_ranks(backend: str, world: int, run_dir: Path, tds, gnn_cfg, tc,
 def phase_shard(tds, gnn_cfg, tc, p3: dict, device: str = "cuda") -> dict:
     """Phase 3's configuration with ``executor="shard"``: 9a, ``num_pes``
     ranks on the one card over gloo (CUDA tensors, staged through host
-    memory by gloo), through the eager staged step (gloo's collectives run
-    on the host: nothing to capture); 9b, one rank over NCCL (P = 1), so
-    NCCL's all-to-all and all-reduce run on the card: first through the
-    step program (one captured CUDA graph), then the same steps through
-    the eager staged step.  Checked against phase 3's card SimExecutor run
+    memory by gloo), through the staged step (``stage_times=True``;
+    gloo's collectives run on the host: nothing to capture); 9b, one rank
+    over NCCL (P = 1), so NCCL's all-to-all and all-reduce run on the
+    card: first through the step program with stage times (one captured
+    CUDA graph), then the same steps through its body run eagerly.
+    Checked against phase 3's card SimExecutor run
     (``p3``) for 9a and a P = 1 SimExecutor's on the card for 9b: every
     step's stacked plan bit for bit, the losses, 9a's step-0 gradients;
     the ranks' weights equal bit for bit after every step, each rank's
-    launches per step; 9b's captured run against its staged run: plans
+    launches per step; 9b's captured run against its eager run: plans
     bit for bit, losses, final weights and step-0 gradients as phase 3
     holds the CPU's, one capture.  Returns the launches (all ranks, all
     runs).  ``device="cpu"`` rehearses it on the CPU at a small size
@@ -2420,7 +2458,7 @@ def phase_shard(tds, gnn_cfg, tc, p3: dict, device: str = "cuda") -> dict:
     try:
         for tag, backend, P, modes in (
                 ("phase9a", "gloo", tc.num_pes, ("staged",)),
-                ("phase9b", "nccl" if card else "gloo", 1, ("captured", "staged"))):
+                ("phase9b", "nccl" if card else "gloo", 1, ("captured", "eager"))):
             run_tc = dataclasses.replace(tc, num_pes=P)
             t0 = time.perf_counter()
             ranks = run_ranks(backend, P, run_dir, tds, gnn_cfg, run_tc, device, modes)
@@ -2485,34 +2523,34 @@ def phase_shard(tds, gnn_cfg, tc, p3: dict, device: str = "cuda") -> dict:
                 print(f"{tag} rank {r['rank']}: s in the rank: group {group:.2f}, engine "
                       f"{setup:.2f}, the runs {runs:.2f}")
             if "captured" in modes:
-                shard_captured_vs_staged(tag, ranks[0], p3["first"]["names"], card)
+                shard_captured_vs_eager(tag, ranks[0], p3["first"]["names"], card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     print(f"phase9: {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
-def shard_captured_vs_staged(tag: str, r: dict, names: list, card: bool) -> None:
-    """A rank's captured run against its staged run of the same steps:
+def shard_captured_vs_eager(tag: str, r: dict, names: list, card: bool) -> None:
+    """A rank's captured run against its eager run of the same steps:
     plans bit for bit, losses within ``TRAIN_RTOL``, final weights within
     ``ATOL``, step-0 gradients by :func:`check_gradients`; on a card one
     capture of the step program and of the plan program.  Prints the
     capture's ms, pool bytes and launches a replay, the captured steps'
-    wall ms and the plan program's replays' ms."""
+    wall ms and stage split, and the plan program's replays' ms."""
     import numpy as np
 
-    cap, st = r["runs"]["captured"], r["runs"]["staged"]
+    cap, st = r["runs"]["captured"], r["runs"]["eager"]
     for step, (a, b) in enumerate(zip(cap["plans"], st["plans"], strict=True)):
         check(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a),
-              f"{tag} step {step}: the captured run's plan differs from the staged run's")
+              f"{tag} step {step}: the captured run's plan differs from the eager run's")
     rel = max(abs(x - y) / abs(y) for x, y in zip(cap["losses"], st["losses"], strict=True))
     gap = max(float(np.abs(a - b).max()) for a, b in zip(cap["weights"], st["weights"],
                                                             strict=True))
-    check(rel <= TRAIN_RTOL and gap <= ATOL, f"{tag}: captured vs staged losses rel {rel}, "
+    check(rel <= TRAIN_RTOL and gap <= ATOL, f"{tag}: captured vs eager losses rel {rel}, "
           f"final weights {gap}")
-    check_gradients(f"{tag} captured", cap, {"names": names, **st}, "captured vs staged")
+    check_gradients(f"{tag} captured", cap, {"names": names, **st}, "captured vs eager")
     fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
-    print(f"{tag} captured vs staged: plans equal bit for bit over {len(cap['plans'])} steps; "
+    print(f"{tag} captured vs eager: plans equal bit for bit over {len(cap['plans'])} steps; "
           f"losses max rel diff {rel:.3e} (rtol {TRAIN_RTOL}, bit-equal "
           f"{cap['losses'] == st['losses']}); final weights max abs diff {gap:.3e} (atol "
           f"{ATOL})")
@@ -2533,21 +2571,21 @@ def shard_captured_vs_staged(tag: str, r: dict, names: list, card: bool) -> None
               f"{rep['pool_bytes']} B, launches a replay {rep['launches']}")
     print(f"{tag} captured: step ms (to the loss's read) {fmt(cap['step_ms'])}; plan_at ms "
           f"(each ended by a sync; the first call captures where it can) "
-          f"{fmt(cap['plan_ms'])}; staged step ms "
-          f"{fmt([sum(s.values()) for s in st['stage_ms']])}, its plan "
-          f"{fmt([s['plan'] for s in st['stage_ms']])}; captured {capture}")
+          f"{fmt(cap['plan_ms'])}; its steps by span "
+          f"{fmt([sum(s.values()) for s in cap['stage_ms']])}, their plan "
+          f"{fmt([s['plan'] for s in cap['stage_ms']])}; eager step ms {fmt(st['step_ms'])}; "
+          f"captured {capture}")
 
 
 def report_rank(tag: str, rank: int, run: dict, P: int) -> None:
-    """One rank's run: each step's wall ms (split into the stages where
-    timed) and the exchanges' count, bytes (the buffer handed to
-    ``all_to_all_single``, and the part that leaves the rank) and event
-    ms; its peak device memory and its seconds in ``train_gnn``."""
+    """One rank's run: each step's span ms by stage (where timed) and the
+    exchanges' count, bytes (the buffer handed to ``all_to_all_single``,
+    and the part that leaves the rank) and span ms; its peak device memory and its seconds in ``train_gnn``."""
     for step, (st, ex) in enumerate(zip(run["stage_ms"], run["exchanges"])):
         parts = "; ".join(
             f"{kind} x{n} {b} B ({b * (P - 1) // P} B to other ranks) {ms:.3f} ms"
             for kind, (n, b, ms) in ex.items())
-        print(f"{tag} rank {rank} step {step}: wall {sum(st.values()):.3f} ms = "
+        print(f"{tag} rank {rank} step {step}: spans {sum(st.values()):.3f} ms = "
               + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
               + f"; exchanges (ids in plan, forward and backward in forward_backward): {parts}")
     print(f"{tag} rank {rank}: peak device memory {run['peak'] / 2**30:.3f} GiB; train_gnn "
@@ -3611,9 +3649,9 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list, walls: list) -> Non
     program ``train_gnn`` replays; its first call, the capture, comes
     before the window, so both steps are replays) under torch.profiler,
     the kernels that take the device time, the device ms per step of
-    ``PROFILE_GROUPS``, beside the eager run's plan ms per step
-    (``plan_ms``, its warm steps 1..) and the captured run's warm steps
-    (``walls``), and the host time in the sampler's variates.  A step
+    ``PROFILE_GROUPS``, beside the captured run's plan ms per step
+    (``plan_ms``, its ``plan`` span, warm steps 1..) and its warm steps
+    (``walls``).  A step
     calls ``Graph.neighbor_table`` once per hop per PE; each call must
     make one ``frontier_gather`` launch (the wrapper's counter, which a
     replay advances by the launches its capture recorded) and one CUDA
@@ -3651,13 +3689,10 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list, walls: list) -> Non
     check(calls == fg_launches == fg_kernels,
           "frontier_gather: not one launch and one CUDA kernel per neighbor_table call")
     busy_ms = sum(d for d, _, _ in stats) / 1e3
-    rng_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
-                 if ev.key.startswith("rng.") and ev.device_type == DeviceType.CPU) / 1e3
     print(f"{tag} profile (profiler on), {PROFILE_STEPS} captured steps: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.2f} ms ({busy_ms / PROFILE_STEPS:.3f} a step, "
           f"{sum(c for _, c, _ in stats) / PROFILE_STEPS:.0f} kernels), idle share "
-          f"{1 - busy_ms / wall_ms:.4f}; host ms per step in the sampler's variates "
-          f"(rng.vertex_uniform or rng.edge_uniform) {rng_ms / PROFILE_STEPS:.3f}")
+          f"{1 - busy_ms / wall_ms:.4f}")
     for dev_us, count, key in stats[:12]:
         print(f"  device {dev_us / 1e3:9.3f} ms  calls {count:6d}  {key[:90]}")
     groups = []
@@ -3667,7 +3702,7 @@ def profile_train(tag: str, tds, gnn_cfg, tc, plan_ms: list, walls: list) -> Non
                       f"({sum(c for _, c in hit) / PROFILE_STEPS:.0f} kernels)")
     warm, whole = plan_ms[1:] or plan_ms, walls[1:] or walls
     print(f"{tag} profile device ms per step: " + ", ".join(groups)
-          + f"; plan ms per step (eager card run, warm steps) mean {sum(warm) / len(warm):.3f} "
+          + f"; plan ms per step (captured card run's plan span, warm steps) mean {sum(warm) / len(warm):.3f} "
           + "[" + ", ".join(f"{v:.3f}" for v in warm) + "]; captured step ms (warm steps) "
           + f"mean {sum(whole) / len(whole):.3f}")
 

@@ -107,7 +107,7 @@ HOT_SCOPES = {
         "GATLayer.forward", "GNN.forward", "gnn_apply", "gnn_apply_stacked",
         "gnn_apply_cooperative",
     ),
-    "train/loop.py": ("plan_loss", "step_loss", "plan_grads", "train_step", "step_program"),
+    "train/loop.py": ("plan_loss", "step_loss", "plan_grads", "step_program"),
     "train/metrics.py": ("masked_softmax_xent",),
     "train/optim.py": ("adam_update",),
     "store/clock.py": ("hash_set", "unique_rows", "_insert", "clock_access"),

@@ -32,7 +32,7 @@ dropped deterministically (counted in :func:`plan_stats`).
 from __future__ import annotations
 
 import dataclasses
-import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Protocol
 
@@ -43,6 +43,7 @@ from repro_torch.core import frontier
 from repro_torch.core.graph import INVALID, Graph
 from repro_torch.core.partition import Partition
 from repro_torch.core.samplers.base import Sampler
+from repro_torch.utils.spans import count, mark_backward, span
 
 
 # --------------------------------------------------------------------------
@@ -89,42 +90,11 @@ class SimExecutor:
         return x.transpose(0, 1).contiguous()
 
 
-@dataclass(frozen=True)
-class ExchangeRecord:
-    """One all-to-all of a :class:`ShardExecutor`: its direction (``"ids"``,
-    ``"forward"`` embeddings, ``"backward"`` gradients), the bytes of the
-    buffer this rank hands over (its own slice included) and its start and
-    end: CUDA events on a card, ``time.perf_counter`` seconds on the CPU."""
-
-    kind: str
-    nbytes: int
-    start: Any
-    end: Any
-
-    def ms(self) -> float:
-        if isinstance(self.start, float):
-            return 1e3 * (self.end - self.start)
-        return self.start.elapsed_time(self.end)
-
-
-def _all_to_all(x: torch.Tensor, group, kind: str, log: Optional[list]) -> torch.Tensor:
-    """``y[q]`` = what rank ``q`` sent here, for ``x`` of shape ``(P, ...)``;
-    appended to ``log`` as an :class:`ExchangeRecord` when one is given."""
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``y[q]`` = what rank ``q`` sent here, for ``x`` of shape ``(P, ...)``."""
     x = x.contiguous()
     y = torch.empty_like(x)
-    if log is None:
-        dist.all_to_all_single(y, x, group=group)
-        return y
-    if x.is_cuda:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        dist.all_to_all_single(y, x, group=group)
-        end.record()
-    else:
-        start = time.perf_counter()
-        dist.all_to_all_single(y, x, group=group)
-        end = time.perf_counter()
-    log.append(ExchangeRecord(kind, x.numel() * x.element_size(), start, end))
+    dist.all_to_all_single(y, x, group=group)
     return y
 
 
@@ -134,13 +104,13 @@ class _Exchange(torch.autograd.Function):
     back to rank p as slice q), the last loop of Alg. 1."""
 
     @staticmethod
-    def forward(ctx, x, group, log):
-        ctx.group, ctx.log = group, log
-        return _all_to_all(x, group, "forward", log)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_to_all(g, ctx.group, "backward", ctx.log), None, None
+        return _all_to_all(g, ctx.group), None
 
 
 @dataclass(frozen=True)
@@ -149,12 +119,10 @@ class ShardExecutor:
     ``num_pes`` ranks: ``pe`` runs the body on this rank's data (no
     leading PE axis, as JAX's ``ShardExecutor`` inside ``shard_map``),
     ``exchange`` is ``all_to_all_single`` over ``group`` and carries
-    autograd.  With ``log`` a list, every exchange appends an
-    :class:`ExchangeRecord` to it."""
+    autograd."""
 
     num_pes: int
     group: Any = None  # None: the default process group
-    log: Optional[list] = None
 
     def pe(self, fn, *args):
         return fn(*args)
@@ -163,9 +131,8 @@ class ShardExecutor:
         if x.shape[0] != self.num_pes:
             raise ValueError(f"exchange buffer has {x.shape[0]} slices, want {self.num_pes}")
         if x.requires_grad:
-            return _Exchange.apply(x, self.group, self.log)
-        return _all_to_all(x, self.group, "forward" if x.is_floating_point() else "ids",
-                           self.log)
+            return _Exchange.apply(x, self.group)
+        return _all_to_all(x, self.group)
 
 
 # --------------------------------------------------------------------------
@@ -315,7 +282,9 @@ def build_cooperative_minibatch(
         mask, etypes, tilde, nbr_idx, self_idx, bucket_ids, slot_to_tilde = ex.pe(
             sample_and_bucket, S_l
         )
-        req = ex.exchange(bucket_ids)  # ids owned here, requested per peer
+        with span(f"exchange.ids.l{l}"):
+            req = ex.exchange(bucket_ids)  # ids owned here, requested per peer
+        count(f"exchange.id_bytes.l{l}", bucket_ids.numel() * bucket_ids.element_size())
 
         def next_frontier(req):
             # one dedup resolves both the next owned frontier and every
@@ -346,26 +315,43 @@ def build_cooperative_minibatch(
 # Embedding redistribution (Alg. 1 forward loop; backward by autograd)
 # --------------------------------------------------------------------------
 def redistribute(
-    ex: Executor, layer: CoopLayer, H: torch.Tensor, cap_tilde: int
+    ex: Executor, layer: CoopLayer, H: torch.Tensor, cap_tilde: int,
+    l: Optional[int] = None,
 ) -> torch.Tensor:
     """Convert owned embeddings H (rows = S^{l+1}) to H~ (rows = S~^{l+1}).
 
     Differentiable: autograd through the request gather (an accumulating
     scatter where several peers request one row), the exchange and the
     slot scatter yields the backward all-to-all of Alg. 1.
+
+    With the layer's index ``l``, the whole of it is the span
+    ``exchange.fwd.l{l}`` and its backward ``exchange.bwd.l{l}``, and it
+    counts the bytes of its exchange's slots (one row of H each) and of
+    the valid ones (:mod:`repro_torch.utils.spans`).
     """
+    traced = l is not None
+    if traced:
+        count(f"exchange.slot_bytes.l{l}",
+              layer.slot_to_tilde.numel() * H.shape[-1] * H.element_size())
+    with span(f"exchange.fwd.l{l}") if traced else nullcontext():
+        if traced:
+            H = mark_backward(H, f"exchange.bwd.l{l}", end=True)
+        send = ex.pe(frontier.take_rows, H, layer.req_idx)  # (P, P, cap_b, d)
+        recv = ex.exchange(send)
 
-    send = ex.pe(frontier.take_rows, H, layer.req_idx)  # (P, P, cap_b, d)
-    recv = ex.exchange(send)
+        def scatter(recv, slot_to_tilde):
+            d = recv.shape[-1]
+            valid = slot_to_tilde >= 0
+            if traced:  # the bytes of the valid slots, from the same mask
+                count(f"exchange.valid_bytes.l{l}",
+                      lambda: valid.sum() * (d * recv.element_size()))
+            pos = torch.where(valid, slot_to_tilde, cap_tilde).reshape(-1)
+            out = recv.new_zeros((cap_tilde + 1, d))
+            out = out.index_put((pos.long(),), recv.reshape(-1, d))
+            return out[:cap_tilde]
 
-    def scatter(recv, slot_to_tilde):
-        d = recv.shape[-1]
-        pos = torch.where(slot_to_tilde >= 0, slot_to_tilde, cap_tilde).reshape(-1)
-        out = recv.new_zeros((cap_tilde + 1, d))
-        out = out.index_put((pos.long(),), recv.reshape(-1, d))
-        return out[:cap_tilde]
-
-    return ex.pe(scatter, recv, layer.slot_to_tilde)
+        out = ex.pe(scatter, recv, layer.slot_to_tilde)
+    return mark_backward(out, f"exchange.bwd.l{l}", end=False) if traced else out
 
 
 def plan_stats(mb: CoopMinibatch, ex: Executor) -> dict:

@@ -46,7 +46,6 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 _MASK32 = 0xFFFFFFFF
 
@@ -335,18 +334,15 @@ class RNGState:
 
     def vertex_uniform(self, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
         """r_t ~ U(0,1), smoothly drifting with step (LABOR variates); see
-        :func:`_smoothed`.  Profiler span: ``rng.vertex_uniform``."""
-        with record_function("rng.vertex_uniform"):
-            return _smoothed(*_cos_sin_half_pi(self.c), normal_from_ids(ids, self.z1, salt),
-                             normal_from_ids(ids, self.z2, salt))
+        :func:`_smoothed`."""
+        return _smoothed(*_cos_sin_half_pi(self.c), normal_from_ids(ids, self.z1, salt),
+                         normal_from_ids(ids, self.z2, salt))
 
     def edge_uniform(self, t: torch.Tensor, s: torch.Tensor, salt: int = 0) -> torch.Tensor:
         """r_ts ~ U(0,1) per edge ``(t, s)`` (NS variates), smoothly drifting;
-        the same float32 operations as :meth:`vertex_uniform`.  Profiler
-        span: ``rng.edge_uniform``."""
-        with record_function("rng.edge_uniform"):
-            return _smoothed(*_cos_sin_half_pi(self.c), normal_from_pairs(t, s, self.z1, salt),
-                             normal_from_pairs(t, s, self.z2, salt))
+        the same float32 operations as :meth:`vertex_uniform`."""
+        return _smoothed(*_cos_sin_half_pi(self.c), normal_from_pairs(t, s, self.z1, salt),
+                         normal_from_pairs(t, s, self.z2, salt))
 
     def fold(self, salt: int) -> int:
         """A uint32 sub-seed (random-walk streams): ``z1 * 0x9E3779B9 +
@@ -404,15 +400,13 @@ class DeviceRNGState:
 
     def vertex_uniform(self, ids: torch.Tensor, salt: int = 0) -> torch.Tensor:
         """:meth:`RNGState.vertex_uniform` with the state read on the device."""
-        with record_function("rng.vertex_uniform"):
-            return _smoothed(*self._trig(), normal_from_ids(ids, self.z1, salt),
-                             normal_from_ids(ids, self.z2, salt))
+        return _smoothed(*self._trig(), normal_from_ids(ids, self.z1, salt),
+                         normal_from_ids(ids, self.z2, salt))
 
     def edge_uniform(self, t: torch.Tensor, s: torch.Tensor, salt: int = 0) -> torch.Tensor:
         """:meth:`RNGState.edge_uniform` with the state read on the device."""
-        with record_function("rng.edge_uniform"):
-            return _smoothed(*self._trig(), normal_from_pairs(t, s, self.z1, salt),
-                             normal_from_pairs(t, s, self.z2, salt))
+        return _smoothed(*self._trig(), normal_from_pairs(t, s, self.z1, salt),
+                         normal_from_pairs(t, s, self.z2, salt))
 
     def fold(self, salt: int) -> torch.Tensor:
         """:meth:`RNGState.fold` as a 0-d int64 tensor."""

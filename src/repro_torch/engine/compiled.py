@@ -32,6 +32,15 @@ kernels a graph launches are recorded at capture (the wrappers' counts
 are restored, since capture launches nothing) and added to
 :data:`repro_torch.kernels.LAUNCHES` on every replay.
 
+With ``spans=True`` each key has a
+:class:`repro_torch.utils.spans.SpanRecorder`, allocated at the key's
+first call (before any capture, outside the graph's pool) and active
+around every run of the body: the eager call, the warm-up and the
+capture, so the body's spans and counters (and a ``replays`` counter
+added once a run) are kernel nodes of the graph.  :meth:`report` adds
+their totals, and :meth:`CompiledFunction.spans` drains them.  A replay
+is the host span ``{name}.replay`` while a profiler runs.
+
 Eager is chosen by the caller's configuration only: the CPU, the
 reference plan backend (its ``torch.unique`` dedup has a data-dependent
 shape), the shard executor over gloo (its collectives run on the host;
@@ -51,6 +60,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.kernels._build import LAUNCHES
+from repro_torch.utils.spans import SpanRecorder, host_span
 
 
 class RetraceError(RuntimeError):
@@ -124,19 +134,22 @@ class CompiledFunction:
     share with other programs that never replay at once (default: one
     pool of this function's own).  ``state_args`` are the positions of
     the arguments passed by reference (see the module docstring).
-    ``captures[key]`` counts the graphs recorded for a key.
+    ``captures[key]`` counts the graphs recorded for a key.  ``spans``
+    records the body's spans and counters (see the module docstring).
     """
 
     def __init__(self, name: str, fn: Optional[Callable] = None, capture: bool = False,
-                 pool=None, state_args: tuple = ()):
+                 pool=None, state_args: tuple = (), spans: bool = False):
         self.name = name
         self.fn = fn
         self.capture = capture
         self.state_args = tuple(state_args)
+        self.records_spans = spans
         self.compiles: dict = {}
         self.captures: dict = {}
         self._signatures: dict = {}
         self._programs: dict = {}
+        self._recorders: dict = {}
         self._pool = pool
         self._stream = None
 
@@ -164,16 +177,30 @@ class CompiledFunction:
     # -- calls ----------------------------------------------------------------
     def __call__(self, key, *args):
         self.check(key, *args)
+        rec = None
+        if self.records_spans:
+            rec = self._recorders.get(key)
+            if rec is None:
+                rec = self._recorders[key] = SpanRecorder(tensor_leaves(args)[0].device)
         if not self.capture:
-            return self.fn(*args)
+            return self._run(rec, args)
         state = tuple(t.data_ptr() for i in self.state_args for t in tensor_leaves(args[i]))
         progs = self._programs.setdefault(key, {})
         prog = progs.get(state)
         if prog is None:
-            out, progs[state] = self._compile(key, args)
+            out, progs[state] = self._compile(key, args, rec)
             self.captures[key] = self.captures.get(key, 0) + 1
             return out
-        return prog.replay(args)
+        with host_span(f"{self.name}.replay"):
+            return prog.replay(args)
+
+    def _run(self, rec: Optional[SpanRecorder], args: tuple):
+        """The body on ``args``, with ``rec`` active and counting the run."""
+        if rec is None:
+            return self.fn(*args)
+        with rec.active():
+            rec.count("replays", 1)
+            return self.fn(*args)
 
     def program(self, key) -> Optional[_Program]:
         """The captured program of ``key`` last recorded (None before its
@@ -181,7 +208,7 @@ class CompiledFunction:
         progs = self._programs.get(key)
         return next(reversed(progs.values())) if progs else None
 
-    def _compile(self, key, args: tuple):
+    def _compile(self, key, args: tuple, rec: Optional[SpanRecorder]):
         """Warm-up call on a side stream (the call's result), then capture."""
         if self._stream is None:
             self._stream = torch.cuda.Stream()
@@ -193,7 +220,7 @@ class CompiledFunction:
                   for i, a in enumerate(args) for t in tensor_leaves(a)]
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self.fn(*args)
+            out = self._run(rec, args)
         static_args = _rebuild(args, [t if t is not None else s for t, s in
                                       zip(inputs, tensor_leaves(args))])
         before = dict(LAUNCHES)
@@ -209,7 +236,7 @@ class CompiledFunction:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=side):
-                outputs = self.fn(*static_args)
+                outputs = self._run(rec, static_args)
         except Exception as e:
             raise CaptureError(f"{self.name}: capturing bucket {key} failed: {e}") from e
         finally:
@@ -231,10 +258,19 @@ class CompiledFunction:
         """Per captured key, of its first program (the one that grew the
         pool; a later state's reuses it): capture ms, pool bytes grown by
         the capture and the kernel launches a replay adds; and the key's
-        count of programs (one per state)."""
+        count of programs (one per state).  With ``spans``, also the key's
+        span and counter totals over all its runs (``spans``, ``counters``
+        and ``replays``, :meth:`SpanRecorder.totals`: one copy to the host
+        a key)."""
         return {k: {"capture_ms": p.capture_ms, "pool_bytes": p.pool_bytes,
-                    "launches": dict(p.launches), "programs": len(progs)}
+                    "launches": dict(p.launches), "programs": len(progs),
+                    **(self._recorders[k].totals() if k in self._recorders else {})}
                 for k, progs in self._programs.items() for p in [next(iter(progs.values()))]}
+
+    def spans(self) -> dict:
+        """Per key that recorded spans, eager or captured: its spans and
+        counters since the last call (:meth:`SpanRecorder.drain`)."""
+        return {k: rec.drain() for k, rec in self._recorders.items()}
 
 
 def _rebuild(args: tuple, leaves: list):

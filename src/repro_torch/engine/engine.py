@@ -59,6 +59,7 @@ from repro_torch.engine.plan import Plan
 from repro_torch.engine.stream import MinibatchStream
 from repro_torch.launch.mesh import make_coop_group
 from repro_torch.store.tiers import TieredFeatureStore
+from repro_torch.utils.spans import host_span, span
 
 _GOLDEN = 0x9E3779B9
 
@@ -222,7 +223,9 @@ class MinibatchEngine:
     def step_state(self, step: int) -> DeviceRNGState:
         """The step's RNG state, the seed draw's key and the nested
         sub-batch offset in one buffer on the engine's device
-        (:class:`DeviceRNGState`), written without a device sync."""
+        (:class:`DeviceRNGState`), written without a device sync (the
+        pinned upload; the host span ``engine.step_state`` while a profiler
+        runs)."""
         cfg = self.config
         step = int(step)
         if cfg.schedule == "nested":
@@ -230,7 +233,8 @@ class MinibatchEngine:
             key, offset = _draw_key(group, cfg.seed), i * cfg.local_batch
         else:
             key, offset = _draw_key(step, cfg.seed), 0
-        return DeviceRNGState.pack(self.rng_state(step), key, offset, device=self.device)
+        with host_span("engine.step_state"):
+            return DeviceRNGState.pack(self.rng_state(step), key, offset, device=self.device)
 
     def _seed_draw(self, state: DeviceRNGState) -> torch.Tensor:
         """(P, b) int32 seed rows for the step of ``state``, on the device.
@@ -328,9 +332,10 @@ class MinibatchEngine:
 
     def _build_at(self, state: DeviceRNGState) -> tuple[Plan, torch.Tensor]:
         """The body of :attr:`plan_program`: the seed draw and the plan of
-        the step whose state the buffer holds."""
-        seeds = self._seed_draw(state)
-        return self.build_plan(seeds, rng=state), seeds
+        the step whose state the buffer holds (the span ``plan``)."""
+        with span("plan"):
+            seeds = self._seed_draw(state)
+            return self.build_plan(seeds, rng=state), seeds
 
     @property
     def captures(self) -> bool:
@@ -346,8 +351,9 @@ class MinibatchEngine:
     @cached_property
     def plan_program(self) -> CompiledFunction:
         """``plan_at``'s program, keyed by the local batch: one CUDA graph
-        of :meth:`_build_at` serves every step of the schedule."""
-        return CompiledFunction("plan_at", self._build_at, capture=self.captures)
+        of :meth:`_build_at` serves every step of the schedule, its spans
+        recorded (:mod:`repro_torch.utils.spans`)."""
+        return CompiledFunction("plan_at", self._build_at, capture=self.captures, spans=True)
 
     @cached_property
     def shard_runner(self):

@@ -64,13 +64,10 @@ from repro_torch.core.graph import INVALID
 from repro_torch.core.rng import DeviceRNGState
 from repro_torch.engine.compiled import CompiledFunction
 from repro_torch.train.metrics import masked_softmax_xent_parts
+from repro_torch.utils.spans import span
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard, typing only
     from repro_torch.engine.engine import MinibatchEngine
-
-
-def _nop() -> None:
-    pass
 
 
 @dataclass
@@ -126,30 +123,31 @@ class ShardRunner:
 
     def _build_at(self, state: DeviceRNGState) -> CoopMinibatch:
         """The body of :attr:`plan_program`: this rank's seed row of the
-        step whose state the buffer holds, and its plan."""
+        step whose state the buffer holds, and its plan (the span ``plan``)."""
         eng, cfg = self.engine, self.engine.config
-        seeds = eng._seed_draw(state)[self.rank]
-        return build_cooperative_minibatch(
-            eng.graph, eng.sampler, eng.part, seeds, state, cfg.num_layers, eng.caps,
-            self.ex, backend=cfg.plan_backend,
-        )
+        with span("plan"):
+            seeds = eng._seed_draw(state)[self.rank]
+            return build_cooperative_minibatch(
+                eng.graph, eng.sampler, eng.part, seeds, state, cfg.num_layers, eng.caps,
+                self.ex, backend=cfg.plan_backend,
+            )
 
     @property
     def captures(self) -> bool:
         """Whether this rank's programs record CUDA graphs: a card, the
-        fused backend, an NCCL group (gloo's collectives run on the host)
-        and no exchange log (its timing events cannot be recorded).  The
-        configuration alone decides."""
+        fused backend and an NCCL group (gloo's collectives run on the
+        host).  The configuration alone decides."""
         eng = self.engine
         return (eng.device.type == "cuda" and eng.config.plan_backend == "fused"
-                and self.ex.log is None and dist.get_backend(self.ex.group) == "nccl")
+                and dist.get_backend(self.ex.group) == "nccl")
 
     @cached_property
     def plan_program(self) -> CompiledFunction:
         """``plan_at``'s program, keyed by the local batch: one CUDA graph
         of :meth:`_build_at` (the id all-to-alls included) serves every
-        step of the schedule."""
-        return CompiledFunction("shard.plan_at", self._build_at, capture=self.captures)
+        step of the schedule, its spans recorded."""
+        return CompiledFunction("shard.plan_at", self._build_at, capture=self.captures,
+                                spans=True)
 
     def stack_plan(self, plan: CoopMinibatch) -> CoopMinibatch:
         """Every rank's plan in the stacked ``(P, ...)`` layout (an
@@ -178,18 +176,15 @@ class ShardRunner:
     # ------------------------------------------------------------------
     # Training-step pieces (loss + explicitly all-reduced gradients)
     # ------------------------------------------------------------------
-    def loss_and_grad(self, model, gnn_cfg, store, labels: torch.Tensor, step: int,
-                      mark: Callable = _nop):
+    def loss_and_grad(self, model, gnn_cfg, store, labels: torch.Tensor, step: int):
         """``(loss, grads, plan)`` of one step on this rank: :meth:`plan_at`,
-        then :meth:`plan_loss_and_grad`.  ``mark()`` ends each of the plan,
-        gather, forward+backward and all-reduce stages."""
+        then :meth:`plan_loss_and_grad`."""
         plan = self.plan_at(step)
-        mark()
-        loss, grads = self.plan_loss_and_grad(plan, model, gnn_cfg, store, labels, mark)
+        loss, grads = self.plan_loss_and_grad(plan, model, gnn_cfg, store, labels)
         return loss, grads, plan
 
     def plan_loss_and_grad(self, plan: CoopMinibatch, model, gnn_cfg, store,
-                           labels: torch.Tensor, mark: Callable = _nop):
+                           labels: torch.Tensor):
         """``(loss, grads)`` of this rank's ``plan``.
 
         Gathers the *owned* input rows from ``store`` (the ``gather``
@@ -199,30 +194,31 @@ class ShardRunner:
         gradients.  ``loss`` is the global loss and ``grads`` the global
         gradients, equal on every rank; the loss semantics are the
         SimExecutor's (the same masked mean over the same B = b·P seed
-        rows).  ``mark()`` ends each of the gather, forward+backward and
-        all-reduce stages.  No host sync, so a captured train step holds
-        it (:func:`repro_torch.train.step_program`).
+        rows).  The spans ``gather``, ``forward``, ``backward`` and
+        ``all_reduce`` mark its stages.  No host sync, so a captured train
+        step holds it (:func:`repro_torch.train.step_program`).
         """
         from repro_torch.models.gnn import gnn_apply_cooperative
 
         eng = self.engine
         V = eng.graph.num_vertices
-        H = plan.gather_inputs(store)
-        mark()
-        logits = gnn_apply_cooperative(model, gnn_cfg, self.ex, plan.layers, H,
-                                       eng.caps.tilde_caps)
-        y = labels[plan.seed_ids.clamp(0, V - 1).long()]
-        s, n = masked_softmax_xent_parts(logits, y, plan.seed_ids != INVALID)
-        dist.all_reduce(n, group=self.ex.group)
-        # this rank's share of the global masked mean: CE sum over the
-        # *global* valid count; the sum of the shares is the global mean
-        share = s / n.clamp(min=1).to(s.dtype)
+        with span("gather"):
+            H = plan.gather_inputs(store)
+        with span("forward"):
+            logits = gnn_apply_cooperative(model, gnn_cfg, self.ex, plan.layers, H,
+                                           eng.caps.tilde_caps)
+            y = labels[plan.seed_ids.clamp(0, V - 1).long()]
+            s, n = masked_softmax_xent_parts(logits, y, plan.seed_ids != INVALID)
+            dist.all_reduce(n, group=self.ex.group)
+            # this rank's share of the global masked mean: CE sum over the
+            # *global* valid count; the sum of the shares is the global mean
+            share = s / n.clamp(min=1).to(s.dtype)
         params = list(model.parameters())
-        grads = torch.autograd.grad(share, params)
-        mark()
-        flat = torch.cat([share.detach().reshape(1)] + [g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=self.ex.group)  # loss and gradient sync
-        mark()
+        with span("backward"):
+            grads = torch.autograd.grad(share, params)
+        with span("all_reduce"):
+            flat = torch.cat([share.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self.ex.group)  # loss and gradient sync
         sizes = [p.numel() for p in params]
         grads = [g.view_as(p) for g, p in zip(flat[1:].split(sizes), params)]
         return flat[0], grads

@@ -22,7 +22,10 @@ Ported so far (TPU kernel it replaces in brackets):
 * ``expand_indptr``   -- CSR indptr -> row id of each edge slot
   (``layer_to_coo``) [``repro/kernels/expand_indptr/kernel.py``];
 * ``tag_probe``       -- device cache tag lookup, in
-  :mod:`repro_torch.store.kernel` [``repro/store/kernel.py``].
+  :mod:`repro_torch.store.kernel` [``repro/store/kernel.py``];
+* ``span_marker``     -- one end of a program's span stamped with the
+  device's timer (:mod:`repro_torch.utils.spans`) [none: a captured graph
+  shows kernels but not the stage that launched them].
 """
 from repro_torch.kernels._build import LAUNCHES, reset_launches
 from repro_torch.kernels.errors import KernelContractError, require_divisible

@@ -307,7 +307,7 @@ def gnn_apply_cooperative(
     H = H_input
     for l in reversed(range(cfg.num_layers)):
         blk = plan_layers[l]
-        Ht = redistribute(ex, blk, H, tilde_caps[l])
+        Ht = redistribute(ex, blk, H, tilde_caps[l], l)
         args = (Ht, blk.self_idx, blk.nbr_idx, blk.mask)
         H = ex.pe(model.layers[l], *args, *(() if blk.etypes is None else (blk.etypes,)))
     return H

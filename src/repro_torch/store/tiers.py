@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.graph import INVALID
 from repro_torch.device import DeviceLike, resolve_device
@@ -155,8 +154,7 @@ class TieredFeatureStore:
                 f"expected ({self.num_pes}, n) ids, got shape {tuple(ids.shape)}"
             )
         key = tuple(ids.shape) if key is None else key
-        with record_function("store.clock_access"):
-            acc, miss = self.access_program(key, self.state, ids)
+        acc, miss = self.access_program(key, self.state, ids)
 
         # slow tier: fetch only the missed unique rows from host memory
         staging, host_rows = self._staging_for(key, ids.numel())

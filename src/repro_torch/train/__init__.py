@@ -7,7 +7,6 @@ from repro_torch.train.loop import (
     make_loss_fn,
     step_program,
     train_gnn,
-    train_step,
 )
 from repro_torch.train.metrics import (
     macro_f1,
@@ -21,5 +20,5 @@ __all__ = [
     "AdamState", "TrainConfig", "TrainResult", "adam_init", "adam_update",
     "cosine_lr", "evaluate", "load_checkpoint", "macro_f1", "make_loss_fn",
     "masked_softmax_xent", "masked_softmax_xent_parts", "micro_f1", "save_checkpoint",
-    "sgd_update", "step_program", "train_gnn", "train_step",
+    "sgd_update", "step_program", "train_gnn",
 ]

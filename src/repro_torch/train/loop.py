@@ -22,10 +22,10 @@ CUDA graph, replayed every step, that reads its step from the
 :class:`repro_torch.core.rng.DeviceRNGState` buffer and updates the
 weights, Adam's moments and its device step in place.  Its first call
 runs step 0 eagerly on a side stream and then captures.  The CPU and
-the reference backend run the same body eagerly.  ``stage_times=True``
-ends every stage with a device sync and records its wall time, which a
-graph cannot do: it selects the eager :func:`train_step` (the plan still
-a replay of ``engine.plan_at``'s program).
+the reference backend run the same body eagerly.  The program records
+its stages as spans (:mod:`repro_torch.utils.spans`: marker kernels in
+the graph, host clocks on the CPU), which ``stage_times=True`` reads
+after every step.
 
 With ``TrainConfig(executor="shard")`` (cooperative) every rank of a
 ``torch.distributed`` process group runs this loop for its own PE: the
@@ -40,7 +40,6 @@ into the graph, replayed in lockstep by every rank), eager under gloo.
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -57,6 +56,7 @@ from repro_torch.engine.compiled import CompiledFunction
 from repro_torch.models.gnn import GNN, GNNConfig, init_gnn
 from repro_torch.train.metrics import masked_softmax_xent, micro_f1
 from repro_torch.train.optim import AdamState, adam_init, adam_update
+from repro_torch.utils.spans import MAX_LAYERS, count, span
 
 STAGES = ("plan", "gather", "forward_backward", "adam")
 SHARD_STAGES = ("plan", "gather", "forward_backward", "all_reduce", "adam")
@@ -94,13 +94,13 @@ class TrainResult:
     model: GNN
     losses: list = field(default_factory=list)
     val_f1: list = field(default_factory=list)
-    stage_ms: list = field(default_factory=list)  # per step {stage: ms}, if timed
+    stage_ms: list = field(default_factory=list)  # per step {stage: ms} of its spans, if timed
     step_ms: list = field(default_factory=list)   # per step wall ms, to the loss read
     # the step program's capture per key (ms, pool bytes, launches a replay)
     # and its signatures per key; empty where the step ran eagerly
     compiled: dict = field(default_factory=dict)
-    # shard executor, if timed: per step {kind: (exchanges, bytes, ms)} of
-    # this rank's all-to-alls ("ids", "forward", "backward")
+    # cooperative, if timed: per step {kind: (exchanges, bytes, ms)} of the
+    # all-to-alls ("ids", "forward", "backward"; a shard rank's own)
     exchanges: list = field(default_factory=list)
 
     @property
@@ -125,13 +125,10 @@ def plan_loss(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, plan,
 
 
 def step_loss(engine: MinibatchEngine, gnn_cfg: GNNConfig, store, labels: torch.Tensor,
-              model: GNN, step: int, mark: Callable = lambda: None):
-    """Plan -> features -> logits -> xent for one step; ``(loss, plan)``.
-    ``mark()`` is called after the plan and after the feature gather."""
+              model: GNN, step: int):
+    """Plan -> features -> logits -> xent for one step; ``(loss, plan)``."""
     plan = engine.plan_at(step)
-    mark()
     H = plan.gather_inputs(store)
-    mark()
     return plan_loss(engine, gnn_cfg, model, plan, H, labels), plan
 
 
@@ -146,39 +143,27 @@ def make_loss_fn(engine: MinibatchEngine, gnn_cfg: GNNConfig, store, labels):
 
 
 def plan_grads(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, plan,
-               labels: torch.Tensor, mark: Callable = lambda: None):
+               labels: torch.Tensor):
     """``(loss, grads)`` of one step's ``plan``: the input gather, the
     logits, the masked mean cross-entropy and its gradients (under the
     shard executor ``ShardRunner.plan_loss_and_grad``: this rank's plan,
-    the global loss and the all-reduced gradients).  ``mark()`` ends the
-    gather, the forward+backward and, under the shard executor, the
-    all-reduce."""
+    the global loss and the all-reduced gradients), in the spans
+    ``gather``, ``forward`` and ``backward``."""
     if isinstance(engine.ex, ShardExecutor):
         return engine.shard_runner.plan_loss_and_grad(plan, model, gnn_cfg, engine.store,
-                                                      labels, mark)
-    H = plan.gather_inputs(engine.store)
-    mark()
-    loss = plan_loss(engine, gnn_cfg, model, plan, H, labels)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
-    mark()
+                                                      labels)
+    with span("gather"):
+        H = plan.gather_inputs(engine.store)
+    with span("forward"):
+        loss = plan_loss(engine, gnn_cfg, model, plan, H, labels)
+    with span("backward"):
+        grads = torch.autograd.grad(loss, list(model.parameters()))
     return loss, grads
 
 
-def train_step(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: AdamState,
-               labels: torch.Tensor, step: int, lr: float, mark: Callable = lambda: None):
-    """One training step: the plan, the input gather, loss and gradients,
-    Adam; ``(loss, opt, plan)``.  ``mark()`` ends each of ``STAGES``, or of
-    ``SHARD_STAGES`` under the shard executor (its plan is this rank's)."""
-    plan = engine.plan_at(step)
-    mark()
-    loss, grads = plan_grads(engine, gnn_cfg, model, plan, labels, mark)
-    opt = adam_update(list(model.parameters()), grads, opt, lr=lr)
-    mark()
-    return loss, opt, plan
-
-
 def step_program(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: AdamState,
-                 labels: torch.Tensor, lr: float, with_plan: bool = False) -> CompiledFunction:
+                 labels: torch.Tensor, lr: float, with_plan: bool = False,
+                 spans: bool = True) -> CompiledFunction:
     """The whole training step as one program keyed by the local batch:
     ``program(local_batch, engine.step_state(step))`` builds the step's
     plan (the body of ``engine.plan_at``'s program, or of the shard
@@ -187,7 +172,15 @@ def step_program(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: A
     exchanges and all-reduces included) and runs Adam, updating ``model``
     and ``opt`` in place.  It returns ``(loss,)``, or ``(loss, plan)`` with
     ``with_plan`` (a replay then copies the plan out).  A CUDA graph where
-    ``engine.captures``; eager (the same body) otherwise."""
+    ``engine.captures``; eager (the same body) otherwise.
+
+    With ``spans`` the program records its stages (the spans ``plan``,
+    ``gather``, ``forward``, ``backward``, ``adam``, under the shard
+    executor ``all_reduce``, and each exchange's) and counts the valid
+    input ids of its plans (``input_rows``) and its exchanges' bytes:
+    :meth:`CompiledFunction.report` and :meth:`CompiledFunction.spans`
+    read them.  ``spans=False`` captures the bare step, bit for bit the
+    same arithmetic."""
     params = list(model.parameters())
     if isinstance(engine.ex, ShardExecutor):
         build = engine.shard_runner._build_at
@@ -196,11 +189,53 @@ def step_program(engine: MinibatchEngine, gnn_cfg: GNNConfig, model: GNN, opt: A
 
     def body(state):
         plan = build(state)
+        count("input_rows", lambda: _valid_count(plan.input_ids))
         loss, grads = plan_grads(engine, gnn_cfg, model, plan, labels)
-        adam_update(params, grads, opt, lr=lr)
+        with span("adam"):
+            adam_update(params, grads, opt, lr=lr)
         return (loss.detach(), plan) if with_plan else (loss.detach(),)
 
-    return CompiledFunction("train_step", body, capture=engine.captures)
+    return CompiledFunction("train_step", body, capture=engine.captures, spans=spans)
+
+
+def _valid_count(frontier_ids: torch.Tensor) -> torch.Tensor:
+    """Valid ids of a frontier (each row sorted, INVALID-padded): those
+    before the row's first INVALID, found by a binary search, so the count
+    puts no mask the size of the frontier in the graph's memory pool."""
+    end = torch.full((*frontier_ids.shape[:-1], 1), INVALID, dtype=frontier_ids.dtype,
+                     device=frontier_ids.device)
+    return torch.searchsorted(frontier_ids, end).sum()
+
+
+def _stage_ms(spans: dict, stages: tuple) -> dict:
+    """``{stage: ms}`` of one step's spans (``forward_backward`` is
+    ``forward`` + ``backward``)."""
+    ms = lambda name: spans[name]["ms"] if name in spans else 0.0  # noqa: E731
+    return {s: ms("forward") + ms("backward") if s == "forward_backward" else ms(s)
+            for s in stages}
+
+
+def _exchanges(rec: dict) -> dict:
+    """``{kind: (exchanges, bytes, ms)}`` of one step's exchange spans and
+    byte counters: ``ids`` the id all-to-alls, ``forward`` the embeddings',
+    ``backward`` the gradients' (the forward's slots again)."""
+    spans, counters = rec["spans"], rec["counters"]
+    out = {}
+    for kind, tag in (("ids", "ids"), ("forward", "fwd"), ("backward", "bwd")):
+        n = nbytes = 0
+        ms = 0.0
+        for l in range(MAX_LAYERS):
+            s = spans.get(f"exchange.{tag}.l{l}")
+            if s is None or not s["count"]:
+                continue
+            n, ms = n + s["count"], ms + s["ms"]
+            if kind == "ids":
+                nbytes += counters[f"exchange.id_bytes.l{l}"]
+            else:
+                fwd = spans[f"exchange.fwd.l{l}"]["count"]
+                nbytes += counters[f"exchange.slot_bytes.l{l}"] // fwd * s["count"]
+        out[kind] = (n, nbytes, ms)
+    return out
 
 
 def train_gnn(
@@ -219,12 +254,12 @@ def train_gnn(
     are drawn from ``tc.seed``.  Each step is one call of
     :func:`step_program` (a graph replay on a card with the fused
     backend, under the shard executor when its group runs NCCL), and its
-    wall ms to the loss's read goes to ``TrainResult.step_ms``.
-    ``stage_times`` runs the eager :func:`train_step` instead, ends every
-    stage with a sync and records its wall ms in ``TrainResult.stage_ms``
-    (and, under the shard executor, each step's all-to-alls in
-    ``TrainResult.exchanges``: their timing events cannot be recorded
-    into a graph); ``on_step(step, plan)`` sees each step's plan (an
+    wall ms to the loss's read goes to ``TrainResult.step_ms``.  With
+    ``stage_times`` each step's spans are read after it (one copy to the
+    host): ``TrainResult.stage_ms`` gets the ms of each of ``STAGES`` (of
+    ``SHARD_STAGES`` under the shard executor; device ms on a card, host
+    ms on the CPU) and, cooperative, ``TrainResult.exchanges`` the step's
+    all-to-alls.  ``on_step(step, plan)`` sees each step's plan (an
     output of the program where it runs).  Under ``executor="shard"``
     every rank of the process group calls this; the device is then the
     rank's own (``cuda:{LOCAL_RANK % device_count}`` unless ``"cpu"``)
@@ -235,56 +270,32 @@ def train_gnn(
         device=device,
     )
     dev = engine.device
-    shard = isinstance(engine.ex, ShardExecutor)
-    stages = SHARD_STAGES if shard else STAGES
-    log = None
-    if shard and stage_times:
-        log = []
-        engine.ex = dataclasses.replace(engine.ex, log=log)
+    stages = SHARD_STAGES if isinstance(engine.ex, ShardExecutor) else STAGES
     if model is None:
         model = init_gnn(gnn_cfg, tc.seed, device=dev)
     model = model.to(dev)
     opt = adam_init(list(model.parameters()))
     labels = torch.as_tensor(np.asarray(dataset.labels)).to(dev)
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
-    program = None
-    if not stage_times:
-        program = step_program(engine, gnn_cfg, model, opt, labels, tc.lr,
-                               with_plan=on_step is not None)
+    program = step_program(engine, gnn_cfg, model, opt, labels, tc.lr,
+                           with_plan=on_step is not None)
 
     result = TrainResult(model=model)
     for step in range(tc.num_steps):
-        marks = [time.perf_counter()]
-
-        def mark():
-            if stage_times:
-                sync()
-                marks.append(time.perf_counter())
-
-        if program is not None:
-            loss, *plan = program(tc.local_batch, engine.step_state(step))
-            plan = plan[0] if plan else None
-        else:
-            loss, opt, plan = train_step(engine, gnn_cfg, model, opt, labels, step, tc.lr,
-                                         mark)
+        t0 = time.perf_counter()
+        loss, *plan = program(tc.local_batch, engine.step_state(step))
+        plan = plan[0] if plan else None
         result.losses.append(float(loss.detach()))
-        result.step_ms.append(1e3 * (time.perf_counter() - marks[0]))
+        result.step_ms.append(1e3 * (time.perf_counter() - t0))
         if stage_times:
-            result.stage_ms.append({
-                s: 1e3 * (b - a) for s, a, b in zip(stages, marks, marks[1:])
-            })
-        if log is not None:
-            result.exchanges.append({
-                kind: (len(recs), sum(r.nbytes for r in recs), sum(r.ms() for r in recs))
-                for kind in ("ids", "forward", "backward")
-                for recs in [[r for r in log if r.kind == kind]]
-            })
-            log.clear()
+            rec = program.spans()[tc.local_batch]
+            result.stage_ms.append(_stage_ms(rec["spans"], stages))
+            if tc.mode == "cooperative":
+                result.exchanges.append(_exchanges(rec))
         if on_step is not None:
             on_step(step, plan)
         if tc.eval_every and (step + 1) % tc.eval_every == 0:
             result.val_f1.append(evaluate(dataset, gnn_cfg, model, tc, device=dev))
-    if program is not None and program.capture:
+    if program.capture:
         result.compiled = {"report": program.report(), "compiles": dict(program.compiles),
                            "captures": dict(program.captures)}
     return result

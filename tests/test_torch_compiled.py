@@ -254,8 +254,9 @@ def test_capture_is_chosen_by_configuration_only(graphs):
 
 def test_shard_capture_is_chosen_by_configuration_only(graphs, monkeypatch):
     """Under the shard executor a card captures with an NCCL group and not
-    with gloo, nor with an exchange log (timed exchanges); the CPU never.
-    Nothing runs: the group's size and backend are stand-ins."""
+    with gloo; the CPU never.  The step program records its spans either
+    way (a traced step stays one graph).  Nothing runs: the group's size
+    and backend are stand-ins."""
     import torch.distributed as dist
 
     from repro_torch.core.cooperative import ShardExecutor
@@ -267,8 +268,8 @@ def test_shard_capture_is_chosen_by_configuration_only(graphs, monkeypatch):
         device="cpu")
     P = sim.config.num_pes
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: P)
-    shard = lambda device, log=None: dataclasses.replace(  # noqa: E731
-        sim, device=torch.device(device), ex=ShardExecutor(P, log=log))
+    shard = lambda device: dataclasses.replace(  # noqa: E731
+        sim, device=torch.device(device), ex=ShardExecutor(P))
     for backend in ("gloo", "nccl"):
         monkeypatch.setattr(dist, "get_backend", lambda group=None, b=backend: b)
         card = shard("cuda")
@@ -277,7 +278,8 @@ def test_shard_capture_is_chosen_by_configuration_only(graphs, monkeypatch):
         model = torch.nn.Linear(1, 1)
         prog = step_program(card, None, model, None, None, 1e-3)
         assert prog.capture == (backend == "nccl") and not prog.compiles
-        assert not shard("cpu").captures and not shard("cuda", log=[]).captures
+        assert prog.records_spans and card.shard_runner.plan_program.records_spans
+        assert not shard("cpu").captures
 
 
 def test_stream_seeds_resolve_lazily(graphs):

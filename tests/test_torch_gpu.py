@@ -1039,7 +1039,8 @@ def test_plan_at_replays_match_eager_and_cpu(cuda, mode, schedule, kappa):
     16, 17: c = 0 and a kappa = 16 window edge) equals the eager build of
     the same state and the CPU's plan, seeds included, for all four
     samplers; one capture, and each replay adds the eager build's
-    launches."""
+    launches and its spans' markers (``plan``, and an id exchange a layer
+    when cooperative: two launches a span)."""
     from repro_torch.engine import EngineConfig
 
     ds = SyntheticGraphDataset(rmat_graph(scale=10, edge_factor=8, max_degree=16,
@@ -1061,7 +1062,10 @@ def test_plan_at_replays_match_eager_and_cpu(cuda, mode, schedule, kappa):
             reset_launches()
             eager, eager_seeds = eng.plan_program.fn(eng.step_state(step))
             eager_launches = {k: n for k, n in LAUNCHES.items() if n}
-            assert eager_launches == replayed == prog.launches, (sampler, step)
+            assert replayed == prog.launches, (sampler, step)
+            spans = 1 + (cfg.num_layers if mode == "cooperative" else 0)
+            assert replayed.pop("span_marker") == 2 * spans, (sampler, step)
+            assert eager_launches == replayed, (sampler, step)
             want, want_seeds = cpu.plan_and_seeds(step)
             what = (sampler, mode, schedule, step)
             assert torch.equal(seeds.cpu(), want_seeds) and torch.equal(eager_seeds.cpu(),

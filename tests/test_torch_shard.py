@@ -19,8 +19,8 @@ package's (the reference's own ``tests/test_coop_shard.py`` oracle: its
   owners, and an all-ones ``redistribute`` across the ranks fills exactly
   the requested rows.
 * ``train_gnn`` over 4 steps, shard against sim, within ``rtol=1e-5``;
-  through the step program (eager under gloo) against the staged eager
-  step bit for bit, and within ``rtol=1e-5`` of the JAX package's
+  through the step program (eager under gloo) against the same program
+  with stage times (its spans read every step) bit for bit, and within ``rtol=1e-5`` of the JAX package's
   simulated ``train_gnn``.
 * ``plan_at`` (the device RNG state) against the host-state build, bit
   for bit.
@@ -158,7 +158,7 @@ _RANK = textwrap.dedent(
     out["ones_tilde"] = redistribute(runner.ex, local.layers[L - 1], ones,
                                      sh.caps.tilde_caps[L - 1]).numpy()
 
-    # train_gnn with the shard executor, stage times and exchange records on
+    # train_gnn with the shard executor, stage times and exchanges from the spans
     tc = TrainConfig(mode="cooperative", num_pes=P, local_batch=B, num_steps=4,
                      schedule="smoothed", kappa=3, partition="degree", executor="shard",
                      eval_every=0)
@@ -408,8 +408,9 @@ def test_plan_at_from_device_state_equals_host_state_build(ranks):
 
 def test_train_gnn_shard_program_equals_staged_step(ranks, datasets):
     """``train_gnn`` under the shard executor through the step program
-    (eager under gloo) against the staged eager ``train_step``: plans,
-    losses and weights bit for bit over 4 steps; losses within
+    (eager under gloo) against the same program with its spans read after
+    every step (``stage_times=True``): plans, losses and weights bit for
+    bit over 4 steps; losses within
     ``rtol=1e-5`` of the JAX package's simulated ``train_gnn``."""
     jds, _ = datasets
     want = jloop.train_gnn(jds, JGNNConfig(**GNN), jloop.TrainConfig(
