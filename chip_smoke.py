@@ -58,6 +58,14 @@ Phases:
    ``frontier_gather`` rows the replaced design's separate mask op
    (``nbr != INVALID``) by graph replay at the same shape.  The two deepest
    dedups are also timed whole (sort + kernel) beside ``torch.unique``.
+   The simulated executor's exchange (``exchange_invert``, ``exchange``,
+   ``exchange_backward``) gets rows at every layer of the step-0 plans of
+   phases 3 and 6 and of the benchmark's two cooperative cells (built as
+   ``bench/run.py`` builds them, GCN at d = 128 / 1,024 and R-GCN at 768 /
+   1,024; :func:`phase1_exchange`, :func:`phase1_cells`), all PEs in one launch: each equal to
+   its plain version bit for bit, the forward also to the padded gather,
+   axis swap and ``index_put`` it replaced (the library yardstick), and
+   each row prints the plan's filled slots and the rows copied.
 2. Serve: a 1.1M-vertex user-item graph (``make_recsys`` with 2**20
    users), the GCN at full width (in 64, hidden 256, 16 classes, two
    layers) with ``init_gnn``'s weights for seed 0 (the JAX package's
@@ -100,7 +108,9 @@ Phases:
    Seed batches, every integer leaf of every step's plan and the plan
    stats must equal the CPU run's; losses agree within ``rtol=1e-4`` and
    the final weights within ``atol=1e-4``.  Per step: the captured
-   step's wall ms (to the loss's read), each kernel's launches and its
+   step's wall ms (to the loss's read), each kernel's launches (the
+   exchange's exactly an inversion and a row launch a layer, and a
+   backward launch a layer but the input layer's) and its
    stage split (``stage_times=True``: the step program's spans read after
    each step, device ms of plan, gather, forward+backward and Adam).  The
    same steps again on the card through the step program's body run
@@ -370,26 +380,47 @@ KERNELS = {
         "source": "src/repro_torch/kernels/expand_indptr/expand_indptr.cu",
         "replaces": "src/repro/kernels/expand_indptr/kernel.py:33",
     },
+    # the simulated executor's valid-rows exchange: no TPU kernel; the JAX
+    # package's redistribute moves every padded bucket slot with XLA's
+    # gather, axis swap and scatter
+    "exchange_invert": {
+        "source": "src/repro_torch/kernels/exchange/exchange.cu",
+        "replaces": "src/repro/core/cooperative.py:297",
+    },
+    "exchange": {
+        "source": "src/repro_torch/kernels/exchange/exchange.cu",
+        "replaces": "src/repro/core/cooperative.py:297",
+    },
+    "exchange_backward": {
+        "source": "src/repro_torch/kernels/exchange/exchange.cu",
+        "replaces": "src/repro/core/cooperative.py:297",
+    },
 }
 # the kernels each path must launch (R-GCN and GraphSAGE launch spmm in
-# its mean mode only)
+# its mean mode only; every cooperative training path on the simulated
+# executor the exchange's three)
+EXCHANGE = ("exchange_invert", "exchange", "exchange_backward")
 PATH_KERNELS = {
     "serve": ("frontier_gather", "unique_compact", "tag_probe", "spmm"),
-    "train": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "train": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward",
+              *EXCHANGE),
     "train_gat": ("frontier_gather", "unique_compact", "gather", "seg_softmax",
-                  "seg_softmax_backward"),
+                  "seg_softmax_backward", *EXCHANGE),
     "coo": ("expand_indptr",),
-    "train_rgcn": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
-    "train_sage": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "train_rgcn": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward",
+                   *EXCHANGE),
+    "train_sage": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward",
+                   *EXCHANGE),
     "plan_rw": ("unique_compact",),
     "plan_full": ("frontier_gather", "unique_compact"),
     "curves": ("frontier_gather",),
     "dependent": ("frontier_gather", "unique_compact", "tag_probe"),
     "train_shard": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
-    "examples": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward"),
+    "examples": ("frontier_gather", "unique_compact", "gather", "spmm", "spmm_backward",
+                 *EXCHANGE),
     "analysis": ("frontier_gather", "unique_compact", "tag_probe", "gather", "spmm",
                  "seg_softmax", "expand_indptr"),
-    "lm": (),  # the LM pool serves on cuBLAS and plain torch ops, none of the seven
+    "lm": (),  # the LM pool serves on cuBLAS and plain torch ops, none of the kernels
     # LM training: the cooperative embedding's dedup and row reads (12c's step)
     "lm_train": ("unique_compact", "gather"),
 }
@@ -414,6 +445,12 @@ SEG_WAS_MS = {"seg_softmax": (0.00330, 0.00407, 0.04430),
 # them on an H100 80GB HBM3 at 700 W (PERF.md)
 GATHER_WAS_MS = {"train": 0.09774, "train_sage": 0.09798, "train_rgcn": 1.18858}
 GATHER_ALL_VALID = 262_144  # ids of the off-path all-valid gather row
+# the benchmark's cooperative cells, whose step-0 plans give the exchange
+# kernels' phase-1 rows at the shapes the benchmark runs, and their seed
+BENCH_CELLS, BENCH_SEED = ("gcn-papers100m.coop", "rgcn-mag240m.coop"), 3141592653
+# the exchange backward against the padded composition's gradient, which
+# adds a row's (at most 4) requesters in no fixed order
+EXCHANGE_CHAIN_ATOL = 1e-5
 # graph replays before each timed window: at least this many calls, and
 # this many ms of them (graph_ms)
 WARM_CALLS, WARM_MS = 10, 20.0
@@ -690,7 +727,7 @@ def phase0() -> dict:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
-    # the seven ported kernels and the span marker (no TPU kernel; the
+    # the kernels of the table and the span marker (no TPU kernel; the
     # spans' card tests time it)
     want = {Path(meta["source"]).stem for meta in KERNELS.values()} | {"span_marker"}
     check(set(paths) == want, f"built {sorted(paths)}, want {sorted(want)}")
@@ -1102,6 +1139,221 @@ def phase1_dependent(dep_engines: dict, P: int) -> dict:
                                             f"dependent {mode} step 1"))
     report_bounds(out)
     return out
+
+
+def phase1_exchange(engine, rgcn_engine) -> dict:
+    """The exchange's three kernels at every layer of the step-0 plans
+    (all PEs) of phase 3's GCN (d = 64 at the input layer, 256 above) and
+    phase 6's R-GCN (768, 1,024)."""
+    out = {}
+    for path, eng, widths in (("train", engine, (256, 256, 64)),
+                              ("train_rgcn", rgcn_engine, (1024, 1024, 768))):
+        exchange_layer_rows(out, eng.plan_at(0), eng.caps.tilde_caps, widths, [path],
+                            f"{path} ")
+    report_bounds(out)
+    return out
+
+
+def phase1_cells() -> dict:
+    """The exchange's three kernels at every layer of the step-0 plans of
+    the benchmark's two cooperative cells (``BENCH_CELLS``: GCN 128 /
+    1,024, R-GCN 768 / 1,024), built as ``bench/run.py`` builds them,
+    from ``BENCH_SEED``.  Run once the other rows' engines are gone: the
+    padded composition takes about 45 GB at the GCN cell's input layer."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase1 cells: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before")
+    out = {}
+    for cell in BENCH_CELLS:
+        plan, tilde_caps, widths = cell_plan(cell, BENCH_SEED)
+        torch.cuda.empty_cache()  # the cell's graph and plan program
+        exchange_layer_rows(out, plan, tilde_caps, widths, [cell], f"{cell} ")
+        del plan
+        torch.cuda.empty_cache()
+    report_bounds(out)
+    return out
+
+
+def cell_plan(name: str, seed: int) -> tuple:
+    """``(plan, tilde caps, H's width by plan layer)`` of step 0 of the
+    benchmark's cooperative cell ``name``: its graph from ``seed`` on the
+    card and its engine, as ``bench/gnnbench/harness.py`` makes them (no
+    features: a plan reads none)."""
+    import numpy as np
+    import torch
+
+    if str(ROOT / "bench") not in sys.path:
+        sys.path.insert(0, str(ROOT / "bench"))
+    from gnnbench import harness, inputs, loader
+    from repro_torch.core.graph import Graph
+    from repro_torch.engine import MinibatchEngine
+    from repro_torch.train import TrainConfig
+
+    dev = torch.device("cuda")
+    cell = loader.cell(name)
+    cfg = loader.config(cell["config"])
+    mc, gc_, sc = cfg["model"], cfg["graph"], cfg["sampler"]
+    ga = inputs.graph_of(seed, cfg, dev)
+    train = inputs.train_ids(seed, ga, gc_["train_fraction"], dev)
+    graph = Graph(indptr=ga.indptr, indices=ga.indices, edge_types=ga.etypes,
+                  max_degree=ga.max_degree, num_vertices=ga.num_vertices,
+                  num_edges=int(ga.indices.numel()), num_edge_types=ga.num_edge_types)
+    ds = harness.Dataset(graph, np.zeros((1, 1), np.float32), np.zeros(1, np.int32),
+                         train.cpu().numpy())
+    tc = TrainConfig(mode=cell["mode"], num_pes=harness.NUM_PES, local_batch=cell["local_batch"],
+                     num_steps=0, sampler=sc["name"], fanout=sc["fanout"],
+                     schedule=sc["schedule"], kappa=sc["kappa"], partition=sc["partition"],
+                     seed=seed, eval_every=0, plan_backend=sc["plan_backend"],
+                     executor=harness.EXECUTOR)
+    engine = MinibatchEngine.from_config(graph, tc.engine_config(mc["num_layers"]), dataset=ds,
+                                         device=dev)
+    L = mc["num_layers"]
+    widths = tuple(mc["in_dim"] if l == L - 1 else mc["hidden_dim"] for l in range(L))
+    print(f"phase1 {name} (seed {seed}): V={ga.num_vertices} E={int(ga.indices.numel())}; "
+          f"caps {engine.caps.caps} tilde_caps {engine.caps.tilde_caps} bucket_caps "
+          f"{engine.caps.bucket_caps}")
+    return engine.plan_at(0), engine.caps.tilde_caps, widths
+
+
+def padded_exchange(layer, H, cap_tilde):
+    """The simulated executor's redistribution before the valid-rows
+    exchange, the exchange rows' library yardstick: every bucket slot
+    gathered into a ``(P, P, cap_bucket, d)`` buffer, the axis swapped,
+    every slot scattered with ``index_put``, PE by PE."""
+    import torch
+    from repro_torch.core.cooperative import SimExecutor
+    from repro_torch.core.frontier import take_rows
+
+    ex = SimExecutor(H.shape[0])
+    recv = ex.exchange(ex.pe(take_rows, H, layer.req_idx))
+
+    def scatter(recv, slot_to_tilde):
+        d = recv.shape[-1]
+        pos = torch.where(slot_to_tilde >= 0, slot_to_tilde, cap_tilde).reshape(-1)
+        out = recv.new_zeros((cap_tilde + 1, d))
+        return out.index_put((pos.long(),), recv.reshape(-1, d))[:cap_tilde]
+
+    return ex.pe(scatter, recv, layer.slot_to_tilde)
+
+
+def exchange_layer_rows(out: dict, plan, tilde_caps, widths, paths: list, tag: str) -> None:
+    """Rows of ``exchange_invert``, ``exchange`` and (where ``H`` takes a
+    gradient: every plan layer but the last, which reads the features)
+    ``exchange_backward`` at every layer of the cooperative ``plan``, all
+    PEs in one launch, ``H`` of width ``widths[l]`` and the output gradient
+    drawn from a seed.  Each equals its plain version bit for bit, the
+    backward also itself over two calls, and one call is one launch; the
+    forward equals the padded composition it replaced (:func:`padded_exchange`)
+    bit for bit, the backward its gradient within ``EXCHANGE_CHAIN_ATOL``
+    (that composition sums a row's requesters by atomic adds, in no fixed
+    order).  Bytes: the inversion reads ``slot_to_tilde`` whole and
+    ``req_idx`` at the filled slots, fills its tables with -1 and stores
+    an entry a copied row (two with the backward's table); the forward
+    reads ``fwd_src`` and each copied row and writes the output once; the
+    backward reads ``bwd_src`` and each requester's gradient row and
+    writes ``H``'s gradient once.  Library: the padded composition, its
+    forward beside ``exchange`` (which with the inversion replaces it) and
+    its backward beside ``exchange_backward``; the inversion has none.
+    Beside the forward: the inversion and the forward together
+    (``extra_pair_ms``) and ``torch.zeros`` of the output (``fill_ms``)."""
+    import torch
+    from repro_torch.kernels.exchange import (
+        exchange_backward_cuda,
+        exchange_backward_ref,
+        exchange_forward_cuda,
+        exchange_forward_ref,
+        exchange_tables_cuda,
+        exchange_tables_ref,
+    )
+
+    L = len(plan.layers)
+    for l, layer in enumerate(plan.layers):
+        s2t, req = layer.slot_to_tilde.contiguous(), layer.req_idx.contiguous()
+        P, _, cb = s2t.shape
+        ct = tilde_caps[l]
+        cn = (plan.input_ids if l == L - 1 else plan.layers[l + 1].seeds).shape[1]
+        d, grad = widths[l], l < L - 1
+        gen = torch.Generator(device="cuda").manual_seed(SEED + l)
+        H = torch.randn((P, cn, d), generator=gen, device="cuda")
+        filled = int((s2t >= 0).sum())
+        fwd, bwd = exchange_tables_cuda(s2t, req, ct, cn, grad)
+        want = exchange_tables_ref(s2t, req, ct, cn, grad)
+        err = max(max_abs_err(fwd, want[0]), max_abs_err(bwd, want[1]) if grad else 0)
+        check(err == 0, f"exchange_invert {tag}layer {l}: differs from plain")
+        copied = int((fwd >= 0).sum())
+        shape = (f"{tag}layer {l}: P={P} cap_bucket={cb} cap_tilde={ct} cap_next={cn} d={d}; "
+                 f"slots {P * P * cb}, filled {filled}, rows copied {copied}")
+        calls = 1 if P * P * cb * d * 4 > 2e9 else 5  # the padded buffers take gigabytes
+        per = "1/layer step"
+        tables = lambda: exchange_tables_cuda(s2t, req, ct, cn, grad)
+        check(launches_per_call("exchange_invert", tables) == 1,
+              f"exchange_invert {shape}: not one launch a call")
+        out.setdefault("exchange_invert", []).append(dict(
+            shape=shape + (" (with the backward's table)" if grad else ""),
+            bytes=4 * P * P * cb + 4 * filled + 4 * P * ct + 4 * copied
+            + (4 * P * cn * P + 4 * copied if grad else 0),
+            ops=2 * P * P * cb, max_abs_err=err, paths=paths, per=per,
+            **timings(tables, lambda: exchange_tables_ref(s2t, req, ct, cn, grad),
+                      calls=calls, plain_syncs=True)))
+        del want
+
+        got, want = exchange_forward_cuda(H, fwd), exchange_forward_ref(H, fwd)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"exchange {shape}: differs from plain")
+        err = float_err(got, want)
+        del want
+        chain = padded_exchange(layer, H, ct)
+        check(torch.equal(got.view(torch.int32), chain.view(torch.int32)),
+              f"exchange {shape}: differs from the padded composition")
+        del got, chain
+        torch.cuda.empty_cache()
+        rows = lambda: exchange_forward_cuda(H, fwd)
+        check(launches_per_call("exchange", rows) == 1, f"exchange {shape}: not one launch a call")
+        pair = lambda: exchange_forward_cuda(H, exchange_tables_cuda(s2t, req, ct, cn, False)[0])
+        out.setdefault("exchange", []).append(dict(
+            shape=shape, bytes=4 * P * ct + 4 * d * copied + 4 * P * ct * d, ops=P * ct,
+            max_abs_err=err, paths=paths, per=per,
+            fill_ms=graph_ms(lambda: torch.zeros((P, ct, d), device="cuda"), calls),
+            extra_pair_ms=graph_ms(pair, calls),
+            **timings(rows, lambda: exchange_forward_ref(H, fwd),
+                      lambda: padded_exchange(layer, H, ct), calls=calls)))
+        torch.cuda.empty_cache()
+        if not grad:
+            continue
+
+        G = torch.randn((P, ct, d), generator=gen, device="cuda")
+        got, want = exchange_backward_cuda(G, bwd), exchange_backward_ref(G, bwd)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"exchange_backward {shape}: differs from plain")
+        check(torch.equal(exchange_backward_cuda(G, bwd).view(torch.int32),
+                          got.view(torch.int32)),
+              f"exchange_backward {shape}: two calls differ")
+        err = float_err(got, want)
+        capture_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(capture_stream()):  # the backward runs where this forward ran
+            leaf = H.clone().requires_grad_()
+            chain = padded_exchange(layer, leaf, ct)
+        torch.cuda.current_stream().wait_stream(capture_stream())
+        (g_chain,) = torch.autograd.grad(chain, leaf, G, retain_graph=True)
+        gap = float((got - g_chain).abs().max())
+        check(gap <= EXCHANGE_CHAIN_ATOL, f"exchange_backward {shape}: {gap} from the padded "
+              "composition's gradient")
+        del got, want, g_chain
+        back = lambda: exchange_backward_cuda(G, bwd)
+        check(launches_per_call("exchange_backward", back) == 1,
+              f"exchange_backward {shape}: not one launch a call")
+        out.setdefault("exchange_backward", []).append(dict(
+            shape=shape, bytes=4 * P * cn * P + 4 * d * copied + 4 * P * cn * d, ops=d * copied,
+            max_abs_err=err, paths=paths, per=per, extra_gap_padded=gap,
+            **timings(back, lambda: exchange_backward_ref(G, bwd),
+                      lambda: torch.autograd.grad(chain, leaf, G, retain_graph=True),
+                      calls=calls)))
+        del chain, leaf, G
+        torch.cuda.empty_cache()
 
 
 def independent_rows(out: dict, engine, plan, paths: list, per: str, tag: str) -> None:
@@ -1746,6 +1998,9 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
         check(launches[k] > 0, f"kernel {k} was not launched on the {path} path")
     calls = {"gcn": 1, "sage": 1, "rgcn": gnn_cfg.num_relations}.get(gnn_cfg.model, 0)
     want = {"spmm": tc.num_pes * L * calls, "spmm_backward": tc.num_pes * (L - 1) * calls}
+    # the exchange: an inversion and a row launch a layer for all PEs, a
+    # backward launch a layer whose H takes a gradient (not the features')
+    ex_want = {"exchange_invert": L, "exchange": L, "exchange_backward": L - 1}
     prev = {k: 0 for k in KERNELS}
     for step, (ms, cum) in enumerate(zip(card.step_ms, per_step)):
         per = {k: cum[k] - prev[k] for k in KERNELS if cum[k] - prev[k]}
@@ -1756,6 +2011,8 @@ def phase_train(tag: str, path: str, tds, gnn_cfg, tc, check_seeds: bool = False
         if calls:
             got = {k: per.get(k, 0) for k in want}
             check(got == want, f"step {step}: spmm launches {got}, want {want}")
+        got = {k: per.get(k, 0) for k in ex_want}
+        check(got == ex_want, f"step {step}: exchange launches {got}, want {ex_want}")
     comp = card.compiled
     key = tc.local_batch
     check(comp and comp["compiles"] == {key: 1} and comp["captures"] == {key: 1},
@@ -2994,7 +3251,7 @@ def phase_lm_archs(dev) -> None:
 def phase_lm(card: str, device: str = "cuda", cfg=None, prefill_s: int = LM_PREFILL_S) -> dict:
     """Phase 11: 11a, then 11b on ``cfg`` (gemma2-2b at its published
     size unless given); returns the kernel launches of the run (the LM
-    path launches none of the seven).  ``device="cpu"`` with a small
+    path launches none of the table's kernels).  ``device="cpu"`` with a small
     ``cfg`` rehearses the phase with no card."""
     import copy
     import dataclasses as dc
@@ -3163,7 +3420,7 @@ def phase_lm(card: str, device: str = "cuda", cfg=None, prefill_s: int = LM_PREF
     print(f"phase11b {small.name} at 2 layers, card vs cpu: {line}", flush=True)
     del model, cpu_model
     launches = {k: LAUNCHES.get(k, 0) for k in KERNELS}
-    print(f"phase11: {time.perf_counter() - t_start:.1f} s; launches of the seven kernels "
+    print(f"phase11: {time.perf_counter() - t_start:.1f} s; launches of the table's kernels "
           f"{launches}", flush=True)
     return launches
 
@@ -3351,7 +3608,7 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
     """Phase 12: 12a, 12b on ``cfg`` (gemma2-2b at its published size
     unless given) at batch ``LM_TRAIN_B`` and ``seq``, 12c on ``coop_cfg``
     (whisper-tiny at its published size unless given) at ``coop_shape``
-    (batch, sequence).  Returns 12c's train step's launches of the seven
+    (batch, sequence).  Returns 12c's train step's launches of the table's
     kernels and, on a card, the phase-1 rows of the cooperative
     embedding's kernels.  ``device="cpu"`` with small configs and shapes rehearses the
     phase with no card."""
@@ -3462,7 +3719,7 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
     print(f"phase12b make_train_step (B {B}, S {S}), captured {prog.capture}: first call "
           f"(eager warm-up + capture) {first_ms:.1f} ms"
           + (f", of it capture {rep['capture_ms']:.1f} ms, pool grown {rep['pool_bytes']} B, "
-             f"{sum(rep['launches'].values())} launches of the seven kernels a replay"
+             f"{sum(rep['launches'].values())} launches of the table's kernels a replay"
              if rep else "")
           + "; replayed step ms (to the loss's read) " + ", ".join(f"{v:.1f}" for v in step_ms)
           + f", median {1e3 * step_s:.1f} (eager {eager_ms:.1f}); {B * S / step_s:.1f} tokens/s; "
@@ -3522,7 +3779,7 @@ def phase_lm_train(card: str, device: str = "cuda", cfg=None, seq: int = LM_TRAI
     rows = phase_coop_embed(card, dev, coop_cfg or get_config("whisper-tiny"), *coop_shape)
     launches = rows.pop("launches")
     print(f"phase12: {time.perf_counter() - t_start:.1f} s; 12c's train step's launches of "
-          f"the seven kernels {launches}", flush=True)
+          f"the table's kernels {launches}", flush=True)
     return {"launches": launches, "rows": rows, "measured": {
         "flops": counted_flops, "peak_gib": peak, "base_gib": base, "step_ms": 1e3 * step_s,
         "batch": B, "seq": S}}
@@ -4105,12 +4362,15 @@ def main(argv: list) -> int:
         k = phase1(ds, caps, cache_rows)
         for rows in (phase1_train(engine), phase1_mean(rgcn_engine, sage_engine),
                      phase1_paths(engine, rgcn_engine, sage_engine, tds, tc),
-                     phase1_dependent(dep_engines, tc.num_pes)):
+                     phase1_dependent(dep_engines, tc.num_pes),
+                     phase1_exchange(engine, rgcn_engine)):
             for name, r in rows.items():
                 k[name] = k.get(name, []) + r
-        print(f"phase1: {sum(map(len, k.values()))} rows in {time.perf_counter() - t0:.1f} s")
         del engine, rgcn_engine, sage_engine, dep_engines
         ROWS_BY_INPUT.clear()  # the rows' inputs (a 0.8 GB feature table among them)
+        for name, r in phase1_cells().items():
+            k[name] = k.get(name, []) + r
+        print(f"phase1: {sum(map(len, k.values()))} rows in {time.perf_counter() - t0:.1f} s")
         if kernels_only:
             print("chip_smoke: --kernels-only: phases 0-1 done, no result line")
             return 0

@@ -60,6 +60,14 @@ _KERNEL_WRAPPERS = {
     "kernels/expand_indptr/ops.py": ("expand_indptr", "expand_indptr_cuda"),
     "kernels/expand_indptr/ref.py": ("expand_indptr_ref",),
     "store/kernel.py": ("tag_probe", "tag_probe_cuda", "probe_ref"),
+    "kernels/exchange/ops.py": (
+        "exchange_tables", "exchange_tables_cuda", "exchange_rows", "exchange_forward_cuda",
+        "exchange_backward_cuda", "_rows_cuda", "_ExchangeRows.forward",
+        "_ExchangeRows.backward",
+    ),
+    "kernels/exchange/ref.py": (
+        "exchange_tables_ref", "exchange_forward_ref", "exchange_backward_ref",
+    ),
 }
 
 #: ``{file under repro_torch/: qualified names}`` of the hot functions.
@@ -89,8 +97,10 @@ HOT_SCOPES = {
     "core/samplers/full.py": ("FullSampler.sample_layer",),
     "core/minibatch.py": ("build_minibatch", "Minibatch.gather_inputs"),
     "core/cooperative.py": (
-        "SimExecutor.pe", "SimExecutor.exchange", "ShardExecutor.pe",
-        "ShardExecutor.exchange", "_bucketize", "build_cooperative_minibatch",
+        "SimExecutor.pe", "SimExecutor.exchange", "SimExecutor.redistribute",
+        "SimExecutor.moved_rows", "ShardExecutor.pe", "ShardExecutor.exchange",
+        "ShardExecutor.redistribute", "ShardExecutor.moved_rows",
+        "_bucketize", "build_cooperative_minibatch",
         "redistribute", "CoopMinibatch.gather_inputs",
     ),
     "core/feature_loader.py": ("FeatureStore.gather",),

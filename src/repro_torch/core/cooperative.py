@@ -19,8 +19,14 @@ Executors: the same per-PE code runs under two.
   rank's own data, with no PE axis, and the all-to-all is
   ``all_to_all_single`` (NCCL between cards, or gloo).
 
-Autograd through the exchange and through :func:`redistribute`'s gather
-and scatter gives the backward all-to-alls of Alg. 1.
+Each executor moves a layer's embeddings its own way
+(``ex.redistribute``, behind :func:`redistribute`).  Under
+``SimExecutor`` the request gather, the axis swap and the slot scatter
+compose into one index map, so only the valid rows move
+(:mod:`repro_torch.kernels.exchange`: the plain version on the CPU, its
+kernels on a card).  Under ``ShardExecutor`` the rows cross processes:
+a gather of the requested rows, the all-to-all and the slot scatter,
+whose autograd gives the backward all-to-alls of Alg. 1.
 
 Exchange convention: each PE holds a buffer ``x`` of shape
 ``(P, cap, ...)`` whose slice ``x[q]`` is destined for PE ``q``;
@@ -43,6 +49,7 @@ from repro_torch.core import frontier
 from repro_torch.core.graph import INVALID, Graph
 from repro_torch.core.partition import Partition
 from repro_torch.core.samplers.base import Sampler
+from repro_torch.kernels.exchange import exchange_rows, exchange_tables
 from repro_torch.utils.spans import count, mark_backward, span
 
 
@@ -57,6 +64,14 @@ class Executor(Protocol):
 
     def exchange(self, x: torch.Tensor) -> torch.Tensor:
         """Bucketed all-to-all; see the module docstring for the convention."""
+
+    def redistribute(self, layer: "CoopLayer", H: torch.Tensor,
+                     cap_tilde: int) -> torch.Tensor:
+        """A layer's owned embeddings to its request-side rows
+        (:func:`redistribute`)."""
+
+    def moved_rows(self, layer: "CoopLayer") -> torch.Tensor:
+        """How many rows of ``H`` :meth:`redistribute` moves (0-d)."""
 
 
 def _stack(outs: list):
@@ -88,6 +103,23 @@ class SimExecutor:
     def exchange(self, x):
         # x: (P_src, P_dst, cap, ...) stacked over source PEs
         return x.transpose(0, 1).contiguous()
+
+    def redistribute(self, layer, H, cap_tilde):
+        """``out[p, slot_to_tilde[p, q, s]] = H[q, req_idx[q, p, s]]`` for
+        every slot with both indices valid, zero rows elsewhere: the gather,
+        axis swap and scatter as one map.  Its tables are built here, every
+        step (never plan leaves); the backward adds each row's requesters
+        peer by peer, in a fixed order."""
+        backward = H.requires_grad and torch.is_grad_enabled()
+        fwd_src, bwd_src = exchange_tables(layer.slot_to_tilde, layer.req_idx, cap_tilde,
+                                           H.shape[1], backward)
+        return exchange_rows(H, fwd_src, bwd_src)
+
+    def moved_rows(self, layer):
+        """The rows the map copies: the request slots that name a row of
+        their owner (an unfilled slot or a dropped id names none, and a
+        slot names a row only where its peer filled it)."""
+        return (layer.req_idx >= 0).sum()
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -133,6 +165,24 @@ class ShardExecutor:
         if x.requires_grad:
             return _Exchange.apply(x, self.group)
         return _all_to_all(x, self.group)
+
+    def redistribute(self, layer, H, cap_tilde):
+        """The requested rows gathered into a ``(P, cap_bucket, d)`` buffer,
+        the all-to-all, and the received slots scattered into the request
+        side's rows (padding into a spare row cut off); autograd through the
+        three is the backward all-to-all."""
+        send = frontier.take_rows(H, layer.req_idx)  # (P, cap_b, d)
+        recv = self.exchange(send)
+        d = recv.shape[-1]
+        pos = torch.where(layer.slot_to_tilde >= 0, layer.slot_to_tilde, cap_tilde).reshape(-1)
+        out = recv.new_zeros((cap_tilde + 1, d))
+        out = out.index_put((pos.long(),), recv.reshape(-1, d))
+        return out[:cap_tilde]
+
+    def moved_rows(self, layer):
+        """The slots of this rank's buckets that hold a row (whether the
+        owner dropped the id is known only after the all-to-all)."""
+        return (layer.slot_to_tilde >= 0).sum()
 
 
 # --------------------------------------------------------------------------
@@ -320,37 +370,24 @@ def redistribute(
 ) -> torch.Tensor:
     """Convert owned embeddings H (rows = S^{l+1}) to H~ (rows = S~^{l+1}).
 
-    Differentiable: autograd through the request gather (an accumulating
-    scatter where several peers request one row), the exchange and the
-    slot scatter yields the backward all-to-all of Alg. 1.
+    Differentiable in ``H``; each executor moves the rows its own way
+    (``ex.redistribute``; the module docstring).
 
     With the layer's index ``l``, the whole of it is the span
     ``exchange.fwd.l{l}`` and its backward ``exchange.bwd.l{l}``, and it
     counts the bytes of its exchange's slots (one row of H each) and of
-    the valid ones (:mod:`repro_torch.utils.spans`).
+    the rows it moves (``ex.moved_rows``; :mod:`repro_torch.utils.spans`).
     """
     traced = l is not None
+    row_bytes = H.shape[-1] * H.element_size()
     if traced:
-        count(f"exchange.slot_bytes.l{l}",
-              layer.slot_to_tilde.numel() * H.shape[-1] * H.element_size())
+        count(f"exchange.slot_bytes.l{l}", layer.slot_to_tilde.numel() * row_bytes)
     with span(f"exchange.fwd.l{l}") if traced else nullcontext():
         if traced:
             H = mark_backward(H, f"exchange.bwd.l{l}", end=True)
-        send = ex.pe(frontier.take_rows, H, layer.req_idx)  # (P, P, cap_b, d)
-        recv = ex.exchange(send)
-
-        def scatter(recv, slot_to_tilde):
-            d = recv.shape[-1]
-            valid = slot_to_tilde >= 0
-            if traced:  # the bytes of the valid slots, from the same mask
-                count(f"exchange.valid_bytes.l{l}",
-                      lambda: valid.sum() * (d * recv.element_size()))
-            pos = torch.where(valid, slot_to_tilde, cap_tilde).reshape(-1)
-            out = recv.new_zeros((cap_tilde + 1, d))
-            out = out.index_put((pos.long(),), recv.reshape(-1, d))
-            return out[:cap_tilde]
-
-        out = ex.pe(scatter, recv, layer.slot_to_tilde)
+        out = ex.redistribute(layer, H, cap_tilde)
+        if traced:
+            count(f"exchange.valid_bytes.l{l}", lambda: ex.moved_rows(layer) * row_bytes)
     return mark_backward(out, f"exchange.bwd.l{l}", end=False) if traced else out
 
 

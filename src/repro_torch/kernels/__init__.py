@@ -25,10 +25,16 @@ Ported so far (TPU kernel it replaces in brackets):
   :mod:`repro_torch.store.kernel` [``repro/store/kernel.py``];
 * ``span_marker``     -- one end of a program's span stamped with the
   device's timer (:mod:`repro_torch.utils.spans`) [none: a captured graph
-  shows kernels but not the stage that launched them].
+  shows kernels but not the stage that launched them];
+* ``exchange``        -- the single-device executor's valid-rows exchange:
+  the plan tables inverted, the rows moved, the backward's requesters
+  summed (counted as ``exchange_invert``, ``exchange`` and
+  ``exchange_backward``) [none: the JAX package's ``SimExecutor`` moves
+  every padded bucket slot with XLA's gather, transpose and scatter].
 """
 from repro_torch.kernels._build import LAUNCHES, reset_launches
 from repro_torch.kernels.errors import KernelContractError, require_divisible
+from repro_torch.kernels.exchange.ops import exchange_rows, exchange_tables
 from repro_torch.kernels.expand_indptr.ops import expand_indptr
 from repro_torch.kernels.frontier_gather.ops import frontier_gather
 from repro_torch.kernels.gather.ops import gather
@@ -37,7 +43,8 @@ from repro_torch.kernels.spmm.ops import spmm_mean, spmm_sum
 from repro_torch.kernels.unique_compact.ops import unique_compact, unique_with_inverse
 
 __all__ = [
-    "KernelContractError", "LAUNCHES", "expand_indptr", "frontier_gather", "gather",
+    "KernelContractError", "LAUNCHES", "exchange_rows", "exchange_tables", "expand_indptr",
+    "frontier_gather", "gather",
     "require_divisible", "reset_launches", "seg_softmax", "spmm_mean", "spmm_sum",
     "unique_compact", "unique_with_inverse",
 ]

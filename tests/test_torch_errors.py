@@ -14,6 +14,13 @@ import torch
 from repro.kernels.errors import KernelContractError as JKernelContractError
 from repro.kernels.errors import require_divisible as j_require_divisible
 from repro_torch.kernels import KernelContractError, _build, require_divisible
+from repro_torch.kernels.exchange import (
+    exchange_backward_cuda,
+    exchange_forward_cuda,
+    exchange_rows,
+    exchange_tables,
+    exchange_tables_cuda,
+)
 from repro_torch.kernels.expand_indptr import expand_indptr, expand_indptr_cuda
 from repro_torch.kernels.frontier_gather import frontier_gather, frontier_gather_cuda
 from repro_torch.kernels.gather import gather, gather_cuda
@@ -65,6 +72,9 @@ ON_CPU = {
     "seg_softmax_backward": lambda: seg_softmax_backward_cuda(_f32(6, 3, 2), _f32(6, 3, 2),
                                                               _mask(6, 3)),
     "expand_indptr": lambda: expand_indptr_cuda(_i32(5), 8),
+    "exchange_invert": lambda: exchange_tables_cuda(_i32(2, 2, 3), _i32(2, 2, 3), 4, 5, True),
+    "exchange": lambda: exchange_forward_cuda(_f32(2, 5, 4), _i32(2, 4)),
+    "exchange_backward": lambda: exchange_backward_cuda(_f32(2, 4, 4), _i32(2, 5, 2)),
 }
 
 # each CUDA wrapper on inputs of the wrong shape
@@ -79,6 +89,9 @@ BAD_SHAPE = {
     "seg_softmax_backward": lambda: seg_softmax_backward_cuda(_f32(6, 3, 2), _f32(6, 3, 1),
                                                               _mask(6, 3)),
     "expand_indptr": lambda: expand_indptr_cuda(_i32(2, 3), 8),
+    "exchange_invert": lambda: exchange_tables_cuda(_i32(2, 2, 3), _i32(2, 3, 3), 4, 5, True),
+    "exchange": lambda: exchange_forward_cuda(_f32(2, 5, 4), _i32(3, 4)),
+    "exchange_backward": lambda: exchange_backward_cuda(_f32(2, 4, 4), _i32(2, 5, 3)),
 }
 
 
@@ -129,6 +142,9 @@ def test_public_wrappers_raise_named_contract_error_on_other_devices():
                                  meta.reshape(2, 2).bool()),
         "seg_softmax": lambda: seg_softmax(meta.reshape(2, 2).float(), meta.reshape(2, 2).bool()),
         "expand_indptr": lambda: expand_indptr(meta, 3),
+        "exchange_invert": lambda: exchange_tables(meta.reshape(1, 1, 4), meta.reshape(1, 1, 4),
+                                                   2, 2, False),
+        "exchange": lambda: exchange_rows(meta.reshape(1, 4, 1).float(), meta.reshape(1, 4)),
     }
     for kernel, call in calls.items():
         with pytest.raises(KernelContractError, match="unsupported device") as err:

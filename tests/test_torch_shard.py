@@ -18,6 +18,10 @@ package's (the reference's own ``tests/test_coop_shard.py`` oracle: its
 * All-to-all conservation: rows sent = rows resolved, bucket keys are
   owners, and an all-ones ``redistribute`` across the ranks fills exactly
   the requested rows.
+* The shard executor's ``redistribute`` is the padded composition (gather,
+  all-to-all, scatter): drawn rows through each layer equal
+  ``tests/_padded_exchange.py`` on the stacked plan bit for bit, their
+  gradients within ``atol=1e-6``.
 * ``train_gnn`` over 4 steps, shard against sim, within ``rtol=1e-5``;
   through the step program (eager under gloo) against the same program
   with stage times (its spans read every step) bit for bit, and within ``rtol=1e-5`` of the JAX package's
@@ -44,6 +48,7 @@ import sys
 import textwrap
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +70,7 @@ from repro_torch.data import SyntheticGraphDataset, rmat_graph
 from repro_torch.engine import EngineConfig, MinibatchEngine
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.train import TrainConfig, train_gnn
+from _padded_exchange import padded_chain
 
 torch.set_num_threads(1)  # the suite runs files in parallel workers
 
@@ -157,6 +163,17 @@ _RANK = textwrap.dedent(
     ones = torch.ones(local.input_ids.shape + (4,))
     out["ones_tilde"] = redistribute(runner.ex, local.layers[L - 1], ones,
                                      sh.caps.tilde_caps[L - 1]).numpy()
+    # drawn rows through each layer's exchange, and their gradients
+    gen = torch.Generator().manual_seed(100 + rank)
+    out["drawn"] = []
+    for l in range(L):
+        rows = (local.input_ids if l == L - 1 else local.layers[l + 1].seeds).shape[0]
+        H = torch.randn((rows, 6), generator=gen).requires_grad_(True)
+        G = torch.randn((sh.caps.tilde_caps[l], 6), generator=gen)
+        y = redistribute(runner.ex, local.layers[l], H, sh.caps.tilde_caps[l])
+        (gh,) = torch.autograd.grad((y * G).sum(), H)
+        out["drawn"].append({k: v.detach().numpy() for k, v in
+                             {"H": H, "G": G, "out": y, "grad": gh}.items()})
 
     # train_gnn with the shard executor, stage times and exchanges from the spans
     tc = TrainConfig(mode="cooperative", num_pes=P, local_batch=B, num_steps=4,
@@ -369,6 +386,24 @@ def test_all_to_all_conservation(ranks, datasets):
         want[s2t[p][s2t[p] >= 0]] = True
         np.testing.assert_array_equal(np.any(got["ones_tilde"] != 0, axis=-1), want)
         np.testing.assert_array_equal(got["ones_tilde"], sim[p].numpy())
+
+
+def test_shard_redistribute_is_the_padded_chain(ranks):
+    """The shard executor keeps the gather, all-to-all and scatter: each
+    rank's rows and gradients equal the padded composition's on the
+    stacked plan (rows bit for bit)."""
+    plan = ranks[0]["conserve_plan"]
+    for l in range(L):
+        layer = SimpleNamespace(**{k: torch.from_numpy(plan[f"{k}{l}"])
+                                   for k in ("slot_to_tilde", "req_idx")})
+        drawn = [r["drawn"][l] for r in ranks]
+        H = torch.from_numpy(np.stack([d["H"] for d in drawn])).requires_grad_(True)
+        G = torch.from_numpy(np.stack([d["G"] for d in drawn]))
+        want = padded_chain(P, layer, H, G.shape[1])
+        (g,) = torch.autograd.grad((want * G).sum(), H)
+        for p, d in enumerate(drawn):
+            np.testing.assert_array_equal(d["out"], want[p].detach().numpy())
+            np.testing.assert_allclose(d["grad"], g[p].numpy(), rtol=0, atol=1e-6)
 
 
 def test_train_gnn_shard_matches_sim(ranks, datasets):
